@@ -1,0 +1,19 @@
+"""repro_torch — the PyTorch/CUDA port of the HWTool reproduction.
+
+It mirrors ``repro``'s layout so each module has an obvious counterpart,
+runs on an NVIDIA Hopper card by default, and imports neither ``jax`` nor
+anything of ``repro`` (it keeps its own copy of what it needs):
+
+  core/dtypes, core/hwimg   the HWImg type system and language (copies)
+  core/lowering/            IR -> rewrite rules -> eager torch engine
+  core/compile              ``compile_pipeline`` -> design with run/run_batch
+  kernels/                  hand-written CUDA kernels (csrc/*.cu) behind
+                            wrappers that count their launches
+  apps/                     CONVOLUTION and STEREO
+
+Backends: ``"torch"`` (the generic plain lowering) and ``"kernels"`` (the
+same plus dispatch of matched subgraphs to the CUDA kernels).  Entry points
+run on ``device="cuda"`` unless the caller passes ``device="cpu"``; with no
+card and no explicit CPU device they raise.
+"""
+from .core import CompileOptions, HWDesign, compile_pipeline  # noqa: F401

@@ -1,0 +1,68 @@
+"""Operator-to-kernel registry: the resident hand-written CUDA kernels
+addressable by the lowering compiler (core/lowering/).
+
+The software analog of the paper's library of hand-optimized Rigel2
+hardware generators (§5.2): a declarative rewrite rule (core/lowering/
+patterns.py) recognizes an HWImg subgraph at a site and dispatches it to
+the registered kernel through ``site_fn``.  Every entry carries its plain
+PyTorch version (``ref_fn``), the source it is built from, the TPU kernel
+it replaces, and a launch counter.
+
+Not registered yet: ``flash_attention`` (K4, ``src/repro/kernels/flash/``)
+comes with the port of the LLM substrate.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+from . import _build
+
+
+@dataclass(frozen=True)
+class KernelEntry:
+    name: str
+    kernel_fn: Callable             # wrapper: CUDA kernel or plain on CPU
+    ref_fn: Callable                # plain PyTorch version
+    site_fn: Callable               # HWImg-site adapter (lowering)
+    source: str                     # CUDA source, repo-relative
+    replaces: str                   # the TPU kernel, file:line
+
+    def launches(self) -> int:
+        """Launches of this kernel since the last reset_launch_counts()."""
+        return _build.launch_count(self.name)
+
+
+KERNELS: Dict[str, KernelEntry] = {}
+
+
+def register_kernel(entry: KernelEntry) -> KernelEntry:
+    KERNELS[entry.name] = entry
+    return entry
+
+
+def get_kernel(name: str) -> KernelEntry:
+    return KERNELS[name]
+
+
+def reset_launch_counts() -> None:
+    _build.reset_launch_counts()
+
+
+def _register_resident() -> None:
+    from .conv2d.ops import conv2d_hwimg_site, conv2d_stencil
+    from .conv2d.ref import conv2d_ref
+    from .sad.ops import sad_disparity, sad_hwimg_site
+    from .sad.ref import sad_ref
+
+    register_kernel(KernelEntry(
+        "conv2d", conv2d_stencil, conv2d_ref, conv2d_hwimg_site,
+        source="src/repro_torch/csrc/conv2d.cu",
+        replaces="src/repro/kernels/conv2d/kernel.py:25"))
+    register_kernel(KernelEntry(
+        "sad", sad_disparity, sad_ref, sad_hwimg_site,
+        source="src/repro_torch/csrc/sad.cu",
+        replaces="src/repro/kernels/sad/kernel.py:20"))
+
+
+_register_resident()

@@ -1,0 +1,98 @@
+"""The port stands alone and runs on the card by default.
+
+- It imports neither ``jax`` nor anything of ``repro``: checked in a fresh
+  process that lowers and runs both apps, and by a scan of its sources.
+- Its entry points never fall back quietly to the CPU: without a card and
+  without ``device="cpu"`` they raise.
+"""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
+from repro_torch.apps import BENCH_CASES  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|repro)\b(?!_torch)",
+                        re.MULTILINE)
+
+
+def test_port_runs_without_importing_jax_or_repro():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from repro_torch import compile_pipeline
+        from repro_torch.apps import BENCH_CASES
+        for name, case in BENCH_CASES.items():
+            uf, inputs = case()
+            d = compile_pipeline(uf)
+            rng = np.random.RandomState(0)
+            for backend in ("torch", "kernels"):
+                d.run(inputs(rng), backend=backend, device="cpu")
+                d.run_batch(inputs(rng, frames=2), backend=backend,
+                            device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(d, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh"))]
+    return files
+
+
+def test_port_sources_import_nothing_of_jax_or_repro():
+    files = _port_files()
+    assert len(files) > 20
+    bad = [f for f in files if _FORBIDDEN.search(Path(f).read_text())]
+    assert not bad
+
+
+def test_source_scan_catches_a_reference_import():
+    assert _FORBIDDEN.search("x = 1\nfrom repro.core import hwimg\n")
+    assert _FORBIDDEN.search("import jax.numpy as jnp\n")
+    assert not _FORBIDDEN.search("from repro_torch.core import hwimg\n")
+
+
+@pytest.mark.parametrize("entry", ["lower", "run", "run_batch",
+                                   "run_batch_device"])
+def test_entry_points_raise_without_a_card(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    uf, inputs = BENCH_CASES["convolution"]()
+    rng = np.random.RandomState(0)
+    design = compile_pipeline(uf, options=CompileOptions(backend="kernels"))
+    args = {"lower": (), "run": (inputs(rng),),
+            "run_batch": (inputs(rng, frames=2),),
+            "run_batch_device": (inputs(rng, frames=2),)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(design, entry)(*args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(design, entry)(*args, device="cuda")
+    assert getattr(design, entry)(*args, device="cpu") is not None
+
+
+def test_unknown_backend_and_device_are_refused():
+    with pytest.raises(ValueError, match="backend"):
+        CompileOptions(backend="pallas")
+    uf, inputs = BENCH_CASES["stereo"]()
+    design = compile_pipeline(uf)
+    with pytest.raises(ValueError, match="device"):
+        design.lower(device="meta")

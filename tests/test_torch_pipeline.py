@@ -1,0 +1,284 @@
+"""The port's compile-and-run flow (repro_torch.compile_pipeline -> lower ->
+run / run_batch) against the reference on CONVOLUTION and STEREO, for both
+port backends on the CPU, bit-exact: against the numpy executor
+(``repro.core.executor.evaluate``), the golden models, and the JAX
+``pallas`` backend.
+
+The JAX lowering engine needs ``jax.experimental.enable_x64``, which this
+jax no longer has.  The pallas plan and its outputs therefore come from one
+subprocess that aliases it to ``jax.enable_x64`` before importing
+``repro``; the alias never exists in this test process, so the JAX
+package's own tests behave here as they do everywhere else.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.apps import Convolution as JaxConvolution  # noqa: E402
+from repro.apps import Stereo as JaxStereo  # noqa: E402
+from repro.core.executor import evaluate  # noqa: E402
+import repro.core as jax_core  # noqa: E402
+import repro_torch.core as port_core  # noqa: E402
+from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
+from repro_torch.apps import (from_reference, golden_convolution,  # noqa: E402
+                              golden_stereo)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAMES = 3
+SEEDED_KERNEL = np.random.RandomState(11).randint(0, 256, (8, 8))
+
+# name -> (reference app, parameters carried across)
+CASES = {
+    "conv_96x40": ("convolution", {"w": 96, "h": 40}),
+    "conv_50x21": ("convolution", {"w": 50, "h": 21}),
+    "conv_seeded": ("convolution", {"w": 50, "h": 21,
+                                    "kernel": SEEDED_KERNEL}),
+    "stereo_64x24": ("stereo", {"w": 64, "h": 24, "nd": 8}),
+    "stereo_37x13": ("stereo", {"w": 37, "h": 13, "nd": 5}),
+}
+
+
+def _jax_app(app, params):
+    return (JaxConvolution if app == "convolution" else JaxStereo)(**params)
+
+
+def _inputs(case):
+    app, params = CASES[case]
+    rng = np.random.RandomState(sum(map(ord, case)))
+    shape = (FRAMES, params["h"], params["w"])
+    if app == "convolution":
+        return {"convolution.in": rng.randint(0, 256, shape).astype(np.int64)}
+    left = rng.randint(0, 256, shape).astype(np.int64)
+    return {"stereo.in": (left, np.roll(left, 3, axis=-1))}
+
+
+def _frame(inputs, f):
+    return {k: tuple(e[f] for e in v) if isinstance(v, tuple) else v[f]
+            for k, v in inputs.items()}
+
+
+_JAX_SCRIPT = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import jax, jax.experimental
+    jax.experimental.enable_x64 = jax.enable_x64   # this process only
+    from repro.apps import Convolution, Stereo
+    from repro.core import CompileOptions, compile_pipeline
+    spec = json.load(open(sys.argv[1]))
+    out = {}
+    for case, (app, params) in spec.items():
+        data = np.load(sys.argv[2] + "/" + case + ".in.npz")
+        if "kernel" in params:
+            params["kernel"] = np.asarray(params["kernel"])
+        uf = (Convolution if app == "convolution" else Stereo)(**params)
+        d = compile_pipeline(uf, options=CompileOptions(backend="pallas"))
+        if app == "convolution":
+            batch = {"convolution.in": data["x"]}
+            one = {"convolution.in": data["x"][0]}
+        else:
+            batch = {"stereo.in": (data["l"], data["r"])}
+            one = {"stereo.in": (data["l"][0], data["r"][0])}
+        np.savez(sys.argv[2] + "/" + case + ".out.npz",
+                 run=d.run(one), batch=d.run_batch(batch))
+        out[case] = d.lowering_report()
+    json.dump(out, open(sys.argv[2] + "/reports.json", "w"))
+""")
+
+
+@pytest.fixture(scope="module")
+def jax_pallas(tmp_path_factory):
+    """{case: (run output, run_batch output, lowering report)} from the JAX
+    pallas backend, computed in one subprocess."""
+    d = tmp_path_factory.mktemp("jax_pallas")
+    spec = {}
+    for case, (app, params) in CASES.items():
+        inp = _inputs(case)
+        if app == "convolution":
+            np.savez(d / f"{case}.in.npz", x=inp["convolution.in"])
+        else:
+            np.savez(d / f"{case}.in.npz", l=inp["stereo.in"][0],
+                     r=inp["stereo.in"][1])
+        spec[case] = [app, {k: (v.tolist() if isinstance(v, np.ndarray)
+                                else v) for k, v in params.items()}]
+    (d / "spec.json").write_text(json.dumps(spec))
+    (d / "run.py").write_text(_JAX_SCRIPT)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, str(d / "run.py"),
+                           str(d / "spec.json"), str(d)], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    reports = json.loads((d / "reports.json").read_text())
+    out = {}
+    for case in CASES:
+        z = np.load(d / f"{case}.out.npz")
+        out[case] = (z["run"], z["batch"], reports[case])
+    return out
+
+
+def _executor(case, inputs):
+    app, params = CASES[case]
+    out = _jax_app(app, params).build()[1]
+    return np.stack([evaluate(out, _frame(inputs, f)) for f in range(FRAMES)])
+
+
+def _golden(case, inputs):
+    app, params = CASES[case]
+    if app == "convolution":
+        return np.stack([golden_convolution(x, params.get("kernel"))
+                         for x in inputs["convolution.in"]])
+    return np.stack([golden_stereo(l, r, nd=params["nd"])
+                     for l, r in zip(*inputs["stereo.in"])])
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernels"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_matches_executor_and_golden(case, backend):
+    app, params = CASES[case]
+    inputs = _inputs(case)
+    design = compile_pipeline(from_reference(app, params),
+                              options=CompileOptions(backend=backend,
+                                                     device="cpu"))
+    want = _executor(case, inputs)
+    assert np.array_equal(want, _golden(case, inputs))
+    one = design.run(_frame(inputs, 0))
+    assert one.dtype == np.int64 and np.array_equal(one, want[0])
+    assert np.array_equal(design.run_batch(inputs), want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_backend_matches_jax_pallas(case, jax_pallas):
+    app, params = CASES[case]
+    inputs = _inputs(case)
+    design = compile_pipeline(from_reference(app, params))
+    jax_run, jax_batch, _ = jax_pallas[case]
+    assert np.array_equal(design.run(_frame(inputs, 0), backend="kernels",
+                                     device="cpu"), jax_run)
+    assert np.array_equal(design.run_batch(inputs, backend="kernels",
+                                           device="cpu"), jax_batch)
+
+
+_PLAN = re.compile(r"(\d+) fused dispatch\(es\).*?(\d+) program segment\(s\) "
+                   r"over (\d+) nodes")
+
+
+@pytest.mark.parametrize("case", ["conv_96x40", "stereo_64x24"])
+def test_plans_agree_with_jax_pallas(case, jax_pallas):
+    """Both lowerings fuse the whole app into one dispatch in one segment."""
+    app, params = CASES[case]
+    design = compile_pipeline(from_reference(app, params))
+    design.lower("kernels", device="cpu")
+    port = _PLAN.search(design.lowering_report()).groups()
+    ref = _PLAN.search(jax_pallas[case][2]).groups()
+    assert port == ref == ("1", "1", "3")
+    kernel = "conv2d" if app == "convolution" else "sad"
+    assert f"=> kernels/{kernel}" in design.lowering_report()
+    assert f"=> kernels/{kernel}" in jax_pallas[case][2]
+
+
+def test_from_reference_carries_a_seeded_kernel():
+    ref_uf = JaxConvolution(w=50, h=21, kernel=SEEDED_KERNEL)
+    uf = from_reference("convolution", {"w": ref_uf.w, "h": ref_uf.h,
+                                        "kernel": ref_uf.kernel})
+    assert np.array_equal(uf.kernel, SEEDED_KERNEL)
+    with pytest.raises(ValueError, match="unknown parameter"):
+        from_reference("stereo", {"w": 8, "kernel": SEEDED_KERNEL})
+    with pytest.raises(ValueError, match="unknown app"):
+        from_reference("flow", {})
+
+
+def _sink(c):
+    """A pipeline over every generic lowerer this slice ports, built from
+    either package's core (``c``): wrap masks, broadcasts, resampling,
+    tuples, floats and sparse values."""
+    class Sink(c.UserFunction):
+        def __init__(self):
+            super().__init__("sink", c.Array2d(c.UInt(8), 12, 8))
+
+        def define(self, x):
+            a, b = c.FanOut(2)(x)[0], c.FanIn(x)
+            d = c.Map(c.Sub)(c.Map(c.Rshift(1))(a), b)             # Int(9)
+            e = c.Map(c.Max)(c.Map(c.Abs)(d), c.Map(c.Min)(a, b))
+            big = c.Map(c.Gt)(a, c.Const(c.UInt(8), 100))
+            both = c.Map(c.And)(big, c.Map(c.Gt)(b, c.Const(c.UInt(8), 30)))
+            up = c.Upsample(2, 2)(c.Downsample(2, 2)(a))
+            s = c.Reduce(c.Add)(c.Stack(a, up))                     # u8 wrap
+            m = c.Map(c.RemoveMSBs(12))(c.Map(c.Mul)(
+                c.Map(c.AddMSBs(12))(d), c.Const(c.Int(4), -3)))    # Int(9)
+            f = c.Map(c.ToFloat)(d)
+            g = c.Map(c.FloatDiv)(f, c.Map(c.ToFloat)(c.Map(c.Sub)(a, up)))
+            h = c.Map(c.FloatSqrt)(c.Map(c.FloatSub)(
+                c.Map(c.FloatAdd)(f, c.Map(c.FloatMul)(g, f)),
+                c.Const(c.Float(), np.float32(2.5))))
+            p = c.Crop(2, 1, 0, 3)(c.Pad(1, 2, 3, 0, value=5)(e))
+            take = c.SparseTake(c.Filter(s, both), 20)
+            return c.Concat(s, m, g, h, p, take)
+
+    return Sink()
+
+
+def _flat(r):
+    if isinstance(r, tuple):
+        return [x for e in r for x in _flat(e)]
+    return [np.asarray(r)]
+
+
+def test_generic_lowerers_match_executor():
+    rng = np.random.RandomState(5)
+    x = rng.randint(0, 256, (FRAMES, 8, 12)).astype(np.int64)
+    x[0, :2] = 0                                  # exercise FloatDiv by 0
+    ref_out = _sink(jax_core).build()[1]
+    design = compile_pipeline(_sink(port_core),
+                              options=CompileOptions(backend="torch",
+                                                     device="cpu"))
+    batch = _flat(design.run_batch({"sink.in": x}))
+    for f in range(FRAMES):
+        want = _flat(evaluate(ref_out, {"sink.in": x[f]}))
+        one = _flat(design.run({"sink.in": x[f]}))
+        assert len(want) == len(one) == len(batch)
+        for w_, o, bt in zip(want, one, batch):
+            assert np.array_equal(w_, o) and np.array_equal(w_, bt[f])
+            assert w_.dtype == o.dtype
+
+
+def test_node_values_end_at_the_run_output():
+    uf = from_reference("stereo", {"w": 37, "h": 13, "nd": 5})
+    design = compile_pipeline(uf, options=CompileOptions(device="cpu"))
+    one = _frame(_inputs("stereo_37x13"), 0)
+    lp = design.lower()
+    vals = lp.node_values(one)
+    assert np.array_equal(vals[lp.ir.root], design.run(one))
+
+
+def test_run_batch_device_keeps_tensors_and_takes_tensors():
+    uf = from_reference("convolution", {"w": 50, "h": 21})
+    design = compile_pipeline(uf, options=CompileOptions(device="cpu"))
+    inputs = _inputs("conv_50x21")
+    out = design.run_batch_device(
+        {"convolution.in": torch.from_numpy(inputs["convolution.in"])})
+    assert isinstance(out, torch.Tensor) and out.dtype == torch.int64
+    assert np.array_equal(out.numpy(), design.run_batch(inputs))
+
+
+def test_unported_external_raises_when_lowered():
+    c = port_core
+
+    class WithExternal(c.UserFunction):
+        def __init__(self):
+            super().__init__("ext", c.Array2d(c.UInt(8), 6, 4))
+
+        def define(self, x):
+            return c.External("twice", x.ty, lambda a: 2 * a, x)
+
+    design = compile_pipeline(WithExternal(),
+                              options=CompileOptions(device="cpu"))
+    with pytest.raises(NotImplementedError, match="External"):
+        design.lower()
