@@ -5,14 +5,18 @@ runs on an NVIDIA Hopper card by default, and imports neither ``jax`` nor
 anything of ``repro`` (it keeps its own copy of what it needs):
 
   core/dtypes, core/hwimg   the HWImg type system and language (copies)
-  core/lowering/            IR -> rewrite rules -> eager torch engine
+  core/lowering/            IR -> rewrite rules -> segments: generated
+                            megakernels (CUDA C++ per fused segment) and
+                            eager torch segments
   core/compile              ``compile_pipeline`` -> design with run/run_batch
-  kernels/                  hand-written CUDA kernels (csrc/*.cu) behind
-                            wrappers that count their launches
-  apps/                     CONVOLUTION and STEREO
+  kernels/                  hand-written CUDA kernels (csrc/*.cu) and the
+                            megakernels' build and launch, behind wrappers
+                            that count their launches
+  apps/                     CONVOLUTION, STEREO, FLOW, DESCRIPTOR, PYRAMID
 
 Backends: ``"torch"`` (the generic plain lowering) and ``"kernels"`` (the
-same plus dispatch of matched subgraphs to the CUDA kernels).  Entry points
+same plus dispatch of matched subgraphs to the CUDA kernels, and one
+generated CUDA kernel per fused segment).  Entry points
 run on ``device="cuda"`` unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU device they raise.
 """

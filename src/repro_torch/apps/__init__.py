@@ -1,31 +1,53 @@
-"""The paper's CONVOLUTION and STEREO pipelines (§7), written in HWImg —
-the two apps of the port's first slice.  FLOW, DESCRIPTOR and PYRAMID
-come with the megakernel slice."""
+"""The paper's four evaluation pipelines (§7) plus PYRAMID, written in
+HWImg: CONVOLUTION and STEREO (the conv2d and sad kernels), and FLOW,
+DESCRIPTOR and PYRAMID (the megakernel emitter)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import numpy as np
 
-from . import convolution as _conv, stereo as _stereo
+from . import convolution as _conv, descriptor as _desc, flow as _flow
+from . import pyramid as _pyr, stereo as _stereo
 from .convolution import Convolution, golden_convolution  # noqa: F401
+from .descriptor import Descriptor, golden_descriptor  # noqa: F401
+from .flow import Flow, golden_flow  # noqa: F401
+from .pyramid import Pyramid, golden_pyramid  # noqa: F401
 from .stereo import Stereo, golden_stereo  # noqa: F401
 
 PIPELINES = {
     "convolution": Convolution,
     "stereo": Stereo,
+    "flow": Flow,
+    "descriptor": Descriptor,
+    "pyramid": Pyramid,
 }
 
 # uniform (UserFunction, inputs_fn) small cases for cross-backend tests
 BENCH_CASES = {
     "convolution": _conv.bench_case,
     "stereo": _stereo.bench_case,
+    "flow": _flow.bench_case,
+    "descriptor": _desc.bench_case,
+    "pyramid": _pyr.bench_case,
+}
+
+# the registry kernel each app's main path launches on the kernels backend
+KERNEL_OF = {
+    "convolution": "conv2d",
+    "stereo": "sad",
+    "flow": "megakernel",
+    "descriptor": "megakernel",
+    "pyramid": "megakernel",
 }
 
 # the reference app parameters each pipeline takes across
 _PARAMS = {
     "convolution": ("w", "h", "kernel"),
     "stereo": ("w", "h", "nd"),
+    "flow": ("w", "h"),
+    "descriptor": ("w", "h", "n_features", "filter_burst"),
+    "pyramid": ("w", "h", "levels"),
 }
 
 

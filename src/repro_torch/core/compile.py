@@ -4,7 +4,8 @@ The torch counterpart of ``repro/core/compile.py``'s software half:
 ``compile_pipeline(uf, T, options=CompileOptions(backend=..., device=...))``
 builds the pipeline and returns an ``HWDesign`` whose ``lower`` / ``run`` /
 ``run_batch`` / ``run_batch_device`` go through the lowering compiler
-(IR -> rewrite rules -> eager engine) on one device.
+(IR -> rewrite rules -> segments: generated megakernels and eager generic
+segments) on one device.
 
 The hardware half of the reference (interface and rate solve, local
 mapping, FIFO allocation, ``report()``, ``simulate``, ``serve``) is not
@@ -48,20 +49,22 @@ class HWDesign:
     in_val: Val
     out_val: Val
     options: CompileOptions = field(default_factory=CompileOptions)
-    _lowered: Dict[Tuple[str, str], CompiledPipeline] = field(
+    _lowered: Dict[Tuple[str, str, str], CompiledPipeline] = field(
         default_factory=dict, repr=False)
 
-    def lower(self, backend: Optional[str] = None,
-              device=None) -> CompiledPipeline:
+    def lower(self, backend: Optional[str] = None, device=None,
+              megakernel: str = "auto") -> CompiledPipeline:
         """The lowering-compiler executable for this design, cached per
-        (backend, device): explicit IR -> rewrite rules -> eager engine."""
+        (backend, device, megakernel): explicit IR -> rewrite rules ->
+        segments (megakernels on the kernels backend unless
+        ``megakernel="off"``) -> engine."""
         b = backend or self.options.backend
         dev = resolve_device(device if device is not None
                              else self.options.device)
-        key = (b, str(dev))
+        key = (b, str(dev), megakernel)
         if key not in self._lowered:
-            self._lowered[key] = CompiledPipeline(self.out_val, backend=b,
-                                                  device=dev)
+            self._lowered[key] = CompiledPipeline(
+                self.out_val, backend=b, device=dev, megakernel=megakernel)
         return self._lowered[key]
 
     def run(self, inputs: Dict[str, Any], backend: Optional[str] = None,
@@ -82,11 +85,13 @@ class HWDesign:
         return self.lower(backend, device).run_batch_device(inputs)
 
     def lowering_report(self) -> str:
-        """Fused-dispatch notes and per-signature call counts for every
-        instantiated (backend, device) lowering."""
+        """Fused-dispatch and megakernel notes and per-signature call
+        counts for every instantiated (backend, device, megakernel)
+        lowering."""
         lines: List[str] = []
-        for (b, dev), lp in sorted(self._lowered.items()):
-            lines.append(f" -- lowering backend={b} device={dev} --")
+        for (b, dev, mk), lp in sorted(self._lowered.items()):
+            lines.append(f" -- lowering backend={b} device={dev} "
+                         f"megakernel={mk} --")
             lines.extend(f"  {ln}" for ln in lp.report_lines())
         return "\n".join(lines)
 

@@ -43,6 +43,18 @@ def _float_div(a, b):
                        torch.zeros((), dtype=torch.float32, device=a.device))
 
 
+def _float_sqrt(a):
+    # FloatSqrt's clamp at 0 (hwimg.FloatSqrt: np.maximum(a, 0), which maps
+    # -0.0 to +0.0 and keeps NaN).  torch's CPU float32 sqrt is not
+    # correctly rounded (its vector path misses the IEEE result in about
+    # 0.7 % of inputs); the float64 root rounded once to float32 is, since
+    # double rounding is innocuous for sqrt when 53 >= 2 * 24 + 2.
+    x = _f32(a)
+    x = torch.where(x <= 0, torch.zeros((), dtype=x.dtype, device=x.device),
+                    x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def _rshift(n: int) -> Callable:
     def fn(a):
         return a / (2 ** n) if a.is_floating_point() else a >> n
@@ -69,8 +81,7 @@ _TORCH_FNS: Dict[str, Callable[[Dict[str, Any]], Callable]] = {
     "FloatAdd": lambda p: (lambda a, b: _f32(a) + _f32(b)),
     "FloatSub": lambda p: (lambda a, b: _f32(a) - _f32(b)),
     "FloatDiv": lambda p: _float_div,
-    # FloatSqrt's clamp at 0 (hwimg.FloatSqrt)
-    "FloatSqrt": lambda p: (lambda a: torch.sqrt(torch.clamp(_f32(a), min=0))),
+    "FloatSqrt": lambda p: _float_sqrt,
 }
 
 

@@ -1,8 +1,12 @@
-"""Hand-written CUDA kernels for the compute hot-spots.
+"""CUDA kernels for the compute hot-spots.
 
-Each kernel is a CUDA C++ source in ``csrc/`` (built by ``_build`` on first
-use, loaded with ctypes) plus a subpackage here: ops.py (the wrapper that
+K1 and K2 are CUDA C++ sources in ``csrc/``; K3 is CUDA C++ that the
+megakernel emitter (core/lowering/megakernel.py) writes per fused segment,
+with ``csrc/mk_common.cuh``.  ``_build`` builds them on first use and loads
+them with ctypes.  Each has a subpackage here: ops.py (the wrapper that
 checks its operands, launches the kernel on a CUDA tensor, takes the plain
 version on a CPU tensor and counts its launches) and ref.py (the plain
-PyTorch version).  ``registry`` lists them for the lowering compiler.
+PyTorch version); megakernel/check.py compares K3 with its plain version.
+``stream`` holds K3's tile constants and ``registry`` lists the kernels
+for the lowering compiler.
 """

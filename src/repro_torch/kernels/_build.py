@@ -13,6 +13,14 @@ source rebuilds, an unchanged one loads the cached library.  ``build_all``
 starts one ``nvcc`` per source, all at once, and waits for them together.
 A failed ``nvcc`` raises with the compiler's output.
 
+The megakernel emitter (core/lowering/megakernel.py) writes CUDA C++ per
+fused segment.  ``build_generated`` writes each such text to
+``.kernel_build/gen/<hash>.cu``, keyed the same way, and builds it
+with the same line plus ``-fmad=false`` (no f32 multiply and add may be
+contracted into an FMA) and ``-I csrc`` (for ``mk_common.cuh``), several
+texts in parallel.  Only sources in the repo and text the emitter wrote are
+compiled.
+
 Every launcher returns ``cudaGetLastError()``; ``launch`` raises if that is
 not 0, and it is the one place that counts a kernel's launches.  Nothing is
 built or loaded at import: this module is imported where there is no
@@ -32,8 +40,10 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".kernel_build"
+GEN_DIR = BUILD_DIR / "gen"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GEN_FLAGS = NVCC_FLAGS + ("-fmad=false",)
 NVCC_TIMEOUT_S = 600
 
 
@@ -65,43 +75,46 @@ def _nvcc() -> str:
                        f"{home}/bin): the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+def _digest(flags: Sequence[str], source: bytes) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source)
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build_all(names: Iterable[str] = ()) -> Dict[str, Built]:
-    """Build (or load from the cache) the named kernel libraries, all
-    sources by default; one ``nvcc`` per missing library, all started
+def _lib_path(name: str) -> Path:
+    digest = _digest(NVCC_FLAGS, (CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _load(jobs) -> None:
+    """Load or build (key, source, library, flags) jobs into ``_LIBS``:
+    cached libraries load, one ``nvcc`` per missing one, all started
     together."""
-    names = list(names) or sorted(p.stem for p in CSRC.glob("*.cu"))
     missing = []
-    for name in names:
-        if name in _LIBS:
+    for key, src, path, flags in jobs:
+        if key in _LIBS:
             continue
-        path = _lib_path(name)
         if path.exists():
             log = path.with_suffix(".log")
-            _LIBS[name] = Built(name, path, 0.0,
-                                log.read_text() if log.exists() else "",
-                                ctypes.CDLL(str(path)))
+            _LIBS[key] = Built(key, path, 0.0,
+                               log.read_text() if log.exists() else "",
+                               ctypes.CDLL(str(path)))
         else:
-            missing.append((name, path))
+            missing.append((key, src, path, flags))
     if not missing:
-        return {n: _LIBS[n] for n in names}
+        return
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, path in missing:
+    for key, src, path, flags in missing:
+        path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (path, tmp, time.perf_counter(), subprocess.Popen(
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        procs[key] = (src, path, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
-    for name, (path, tmp, t0, proc) in procs.items():
+    for key, (src, path, tmp, t0, proc) in procs.items():
         try:
             out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -110,15 +123,49 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, Built]:
             out += f"\nnvcc timed out after {NVCC_TIMEOUT_S} s"
         seconds = time.perf_counter() - t0
         if proc.returncode != 0 or not tmp.exists():
-            failures.append(f"nvcc failed for csrc/{name}.cu "
+            failures.append(f"nvcc failed for {src} "
                             f"(exit {proc.returncode}):\n{out}")
             continue
         path.with_suffix(".log").write_text(out)
         os.replace(tmp, path)
-        _LIBS[name] = Built(name, path, seconds, out, ctypes.CDLL(str(path)))
+        _LIBS[key] = Built(key, path, seconds, out, ctypes.CDLL(str(path)))
     if failures:
         raise RuntimeError("\n".join(failures))
+
+
+def build_all(names: Iterable[str] = ()) -> Dict[str, Built]:
+    """Build (or load from the cache) the named kernel libraries, all
+    sources by default; one ``nvcc`` per missing library, all started
+    together."""
+    names = list(names) or sorted(p.stem for p in CSRC.glob("*.cu"))
+    _load([(name, CSRC / f"{name}.cu", _lib_path(name), NVCC_FLAGS)
+           for name in names])
     return {n: _LIBS[n] for n in names}
+
+
+def build_generated(sources: Dict[str, str]) -> Dict[str, Built]:
+    """Build (or load from the cache) emitter-written CUDA sources, given
+    as label -> text; one ``nvcc`` per missing library, all started
+    together.  A library is keyed by its text's digest alone, so equal
+    texts under other labels share one build.  Returns label -> Built."""
+    keys, jobs = {}, []
+    for label, text in sources.items():
+        digest = _digest(GEN_FLAGS, text.encode())
+        src = GEN_DIR / f"{digest}.cu"
+        keys[label] = f"gen/{digest}"
+        if keys[label] not in _LIBS and not src.with_suffix(".so").exists():
+            GEN_DIR.mkdir(parents=True, exist_ok=True)
+            src.write_text(text)
+        jobs.append((keys[label], src, src.with_suffix(".so"), GEN_FLAGS))
+    _load(jobs)
+    return {label: _LIBS[key] for label, key in keys.items()}
+
+
+def _bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence):
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def function(name: str, symbol: str, argtypes: Sequence):
@@ -127,10 +174,18 @@ def function(name: str, symbol: str, argtypes: Sequence):
     pointer is cut to a 32-bit int."""
     key = (name, symbol)
     if key not in _FUNCS:
-        fn = getattr(build_all([name])[name].lib, symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FUNCS[key] = fn
+        _FUNCS[key] = _bind(build_all([name])[name].lib, symbol, argtypes)
+    return _FUNCS[key]
+
+
+def generated_function(name: str, text: str, symbol: str,
+                       argtypes: Sequence):
+    """The launcher ``symbol`` of the library built from emitter-written
+    ``text`` (see ``function``)."""
+    key = (name, text, symbol)
+    if key not in _FUNCS:
+        lib = build_generated({name: text})[name].lib
+        _FUNCS[key] = _bind(lib, symbol, argtypes)
     return _FUNCS[key]
 
 

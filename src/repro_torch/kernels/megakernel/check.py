@@ -1,0 +1,91 @@
+"""Checks of K3 against its plain version, shared by ``chip_smoke.py`` and
+the card tests: leaf-wise comparison of a segment's outputs (integers
+exact, f32 within ``FLOAT_ULP_BOUND`` ULPs) and a synthetic pipeline over
+every op the emitter streams."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core.lowering.megakernel import FLOAT_ULP_BOUND
+
+
+def leaves(v):
+    """The tensors of a (possibly nested) tuple of outputs, in order."""
+    return [x for e in v for x in leaves(e)] if isinstance(v, (tuple, list)) \
+        else [v]
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Max ULP distance of two float32 tensors (ordered bit patterns)."""
+    def lex(x):
+        u = x.contiguous().view(torch.int32).long()
+        return torch.where(u >= 0, u, -(u & 0x7FFFFFFF))
+
+    return int((lex(a) - lex(b)).abs().max().item()) if a.numel() else 0
+
+
+def check_leaves(what: str, got, want, exact: bool) -> dict:
+    """Kernel leaves against plain leaves: as many of them, integers and
+    booleans exact, float32 within FLOAT_ULP_BOUND ULPs (exactly when
+    ``exact``).  Raises on a difference; returns the max abs difference
+    and the max ULP distance."""
+    got, want = leaves(got), leaves(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} output leaves, the plain "
+                             f"version has {len(want)}")
+    err, ulp = 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.expand_as(g)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} leaf {i}: {tuple(g.shape)} "
+                                 f"{g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        if g.dtype == torch.float32:
+            if bool(torch.isnan(g).any() != torch.isnan(w).any()):
+                raise AssertionError(f"{what} leaf {i}: NaN differs")
+            d = ulp_distance(g, w)
+            ulp = max(ulp, d)
+            err = max(err, float((g - w).abs().max().item()) if g.numel()
+                      else 0.0)
+            if d > (0 if exact else FLOAT_ULP_BOUND):
+                raise AssertionError(f"{what} leaf {i}: {d} ULP")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what} leaf {i}: max abs diff "
+                                 f"{(g.long() - w.long()).abs().max().item()}")
+    return {"max_abs_err": err, "max_ulp": ulp}
+
+
+def all_ops_pipeline(c, w: int = 37, h: int = 13):
+    """A small pipeline over every op the megakernel emitter streams
+    (``STREAM_OPS``), built from either package's core ``c``: a fan out
+    and in, a Pad with a value, halving and doubling (whose row demand goes
+    negative at the top edge), a Crop, a 3x3 Stencil with a Const bank, a
+    Reduce and an ArgMin, a Replicate, a ReducePatch over a Stencil of
+    vectors, floats and a compare, and a Stack and Concat of the results.
+    The default frame is one no tile divides."""
+
+    class AllOps(c.UserFunction):
+        def __init__(self):
+            super().__init__("allops", c.Array2d(c.UInt(8), w, h))
+            self.w, self.h = w, h
+
+        def define(self, x):
+            fan = c.FanOut(2)(x)
+            a, b = fan[0], c.FanIn(fan[1])
+            p = c.Pad(1, 2, 3, 0, value=7)(a)
+            up = c.Upsample(2, 2)(c.Downsample(2, 2)(p))
+            diff = c.Map(c.AbsDiff)(b, c.Crop(1, 2, 3, 0)(up))
+            st = c.Stencil(-1, 1, -1, 1)(diff)
+            bank = c.Const(c.Array2d(c.UInt(4), 3, 3),
+                           np.arange(1, 10).reshape(3, 3))
+            s = c.Reduce(c.Add)(c.Map(c.Mul)(st, bank))        # wraps u12
+            lanes = c.Map(c.Mul)(c.Replicate(4)(s), c.Const(
+                c.Array2d(c.UInt(3), 4, 1), np.array([[1, 2, 3, 4]])))
+            patch_max = c.ReducePatch(c.Max)(c.Stencil(-1, 0, -1, 0)(lanes))
+            ratio = c.Map(c.FloatDiv)(c.Map(c.ToFloat)(s),
+                                      c.Map(c.ToFloat)(diff))
+            big = c.Map(c.Gt)(s, c.Const(c.UInt(12), 300))
+            return c.Concat(c.Stack(s, c.ArgMin(st), diff), patch_max, ratio,
+                            big)
+
+    return AllOps()

@@ -4,7 +4,8 @@ addressable by the lowering compiler (core/lowering/).
 The software analog of the paper's library of hand-optimized Rigel2
 hardware generators (§5.2): a declarative rewrite rule (core/lowering/
 patterns.py) recognizes an HWImg subgraph at a site and dispatches it to
-the registered kernel through ``site_fn``.  Every entry carries its plain
+the registered kernel through ``site_fn``; the engine launches each fused
+segment through the ``megakernel`` entry.  Every entry carries its plain
 PyTorch version (``ref_fn``), the source it is built from, the TPU kernel
 it replaces, and a launch counter.
 
@@ -52,6 +53,8 @@ def reset_launch_counts() -> None:
 def _register_resident() -> None:
     from .conv2d.ops import conv2d_hwimg_site, conv2d_stencil
     from .conv2d.ref import conv2d_ref
+    from .megakernel.ops import megakernel_segment
+    from .megakernel.ref import megakernel_ref
     from .sad.ops import sad_disparity, sad_hwimg_site
     from .sad.ref import sad_ref
 
@@ -63,6 +66,12 @@ def _register_resident() -> None:
         "sad", sad_disparity, sad_ref, sad_hwimg_site,
         source="src/repro_torch/csrc/sad.cu",
         replaces="src/repro/kernels/sad/kernel.py:20"))
+    # K3: one kernel per fused segment, CUDA C++ that the emitter writes
+    # (with csrc/mk_common.cuh) and _build compiles per segment
+    register_kernel(KernelEntry(
+        "megakernel", megakernel_segment, megakernel_ref, megakernel_segment,
+        source="src/repro_torch/core/lowering/megakernel.py",
+        replaces="src/repro/core/lowering/megakernel.py:372"))
 
 
 _register_resident()

@@ -5,6 +5,8 @@ on the same seeded numpy inputs, bit-exact (both sides are integer).
 On the CPU a wrapper takes its plain version; test_torch_card.py holds the
 tests that need the card.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -147,7 +149,14 @@ def test_wrappers_refuse_other_devices_and_types():
 
 
 def test_registry_lists_the_ported_kernels():
-    assert sorted(registry.KERNELS) == ["conv2d", "sad"]
+    assert sorted(registry.KERNELS) == ["conv2d", "megakernel", "sad"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tpu = {"conv2d": "def _conv_kernel", "sad": "def _sad_kernel",
+           "megakernel": "def emit_megakernel"}
     for e in registry.KERNELS.values():
-        assert e.source.startswith("src/repro_torch/csrc/")
-        assert e.replaces.startswith("src/repro/kernels/")
+        assert e.source.startswith("src/repro_torch/")
+        assert os.path.exists(os.path.join(root, e.source))
+        path, line = e.replaces.split(":")
+        assert path.startswith("src/repro/")
+        with open(os.path.join(root, path)) as f:
+            assert f.readlines()[int(line) - 1].startswith(tpu[e.name])
