@@ -29,6 +29,17 @@ phase prints one JSON line:
            operations over the SMs' lane rate at the maximum SM clock:
            integer ops on 64 lanes per SM, integer and f32 ops together on
            128; a box sum counts as a sliding sum)
+  kernel   (K4) flash attention's prefill and decode forms against the
+           plain version: the model's shapes (prefill B 4, S 1024, H 4,
+           Hkv 1, D 256 in bf16, with window 512 and without; decode over a
+           1024-key cache and over a 512-slot window span of a longer
+           cache), tests/test_kernels.py's four coverage classes and its
+           decode case at their tolerances, and a ragged Skv; per case the
+           max abs error, K4 ms, plain ms, scaled_dot_product_attention ms
+           (the library yardstick, never on the path) and the bound (the
+           larger of q, k, v and o once over 3.35 TB/s and 4 D flops per
+           unmasked (q, k) pair over the type's peak: 989 TFLOP/s dense
+           bf16, 67 TFLOP/s f32)
   path     CONVOLUTION 1920x1080, STEREO 720x400 nd=64, and FLOW,
            DESCRIPTOR and PYRAMID 1920x1080 through
            compile_pipeline(...).run and run_batch (4 frames) on the
@@ -39,10 +50,20 @@ phase prints one JSON line:
            the card (4 frames and 1 frame), the device-side share of a call
   profile  per app, the host-side operators of one warm run and one warm
            run_batch call (torch.profiler, CPU activity), by self time
-  kernels  one line: every kernel (K3 once per app segment) with its
-           launches on the main path (the counters are reset just before
-           the path phase), its error against the plain version, and its
-           times and bound
+  llm      gemma3-1b at full width and depth (26 layers, random weights
+           from seed 0): f32 decode_fn over a 1024-token prompt against
+           prefill_fn (atol 2e-3, rtol 1e-3); the model cut to 2 layers on
+           the card against the same on the CPU; then, in bf16 and with the
+           launch counters reset, prefill_fn on 4 x 1024 tokens and
+           launch.serve.serve (batch 4, prompt 1024, 32 generated), with
+           K4 launched 26 times per prefill_fn call and per decode step;
+           init seconds, prefill ms, decode ms per step, tokens/s, and the
+           card's top kernels over a profiled decode step
+  kernels  one line: every kernel (K3 once per app segment, K4 once per
+           form) with its launches on its main path (the counters are
+           reset just before the image path phase and again just before
+           the llm serving run), its error against the plain version, and
+           its times and bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Any mismatch, build
 failure or launch error ends the script with a nonzero exit before it.
@@ -63,9 +84,14 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64
 F32_LANES_PER_SM = 128
+BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # f32 outside the tensor cores
 TPU_KERNELS = {"conv2d": "kernels/conv2d/kernel.py::_conv_kernel",
                "sad": "kernels/sad/kernel.py::_sad_kernel",
-               "megakernel": "core/lowering/megakernel.py::emit_megakernel"}
+               "megakernel": "core/lowering/megakernel.py::emit_megakernel",
+               "flash_attention": "kernels/flash/kernel.py::_flash_kernel"}
+LLM_ARCH = "gemma3-1b"
+LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 1024, 32
 MK_APPS = ("flow", "descriptor", "pyramid")
 # odd sizes that no tile divides (PYRAMID's strides must divide its frame)
 MK_ODD = {"flow": (37, 13), "descriptor": (45, 19), "pyramid": (36, 20)}
@@ -486,6 +512,315 @@ def path_phase(torch, np, designs):
     return results
 
 
+def attention_pairs(np, sq: int, skv: int, causal: bool, window) -> int:
+    """Unmasked (q, k) pairs of one head: row i sees keys
+    max(0, i - W + 1) .. min(i, skv - 1); a row whose band is empty
+    averages every key, so it counts skv."""
+    i = np.arange(sq)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
+    n = hi - lo + 1
+    return int(np.where(n > 0, n, skv).sum())
+
+
+def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
+    """K4 against its plain version on one case, then its time, the plain
+    version's, scaled_dot_product_attention's and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import flash_attention, flash_decode
+    from repro_torch.kernels.flash.ref import attention_ref
+
+    if decode:
+        run = lambda: flash_decode(q, k, v)                     # noqa: E731
+        plain = lambda: attention_ref(q, k, v, causal=False)    # noqa: E731
+    else:
+        run = lambda: flash_attention(q, k, v, causal=causal,   # noqa: E731
+                                      window=window)
+        plain = lambda: attention_ref(q, k, v, causal=causal,   # noqa: E731
+                                      window=window)
+    got = run()
+    torch.cuda.synchronize()
+    err = float((got.float() - plain()).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"flash_attention {name}: max abs err {err} "
+                             f"above {atol}")
+    B, sq, H, D = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    line = {"phase": "kernel", "name": "flash_attention", "case": name,
+            "form": "decode" if decode else "prefill",
+            "shape": {"B": B, "Sq": sq, "Skv": skv, "H": H, "Hkv": hkv,
+                      "D": D, "causal": causal and not decode,
+                      "window": None if decode else window},
+            "dtype": str(q.dtype).split(".")[-1], "max_abs_err": err,
+            "tolerance": atol}
+    # the library yardstick: one call of scaled_dot_product_attention on
+    # (B, H, S, D) copies made outside the timing, GQA by enable_gqa, the
+    # window as a boolean band mask
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = None
+    if window and not decode:
+        i = torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None]
+        mask = (j <= i) & (j > i - window)
+    is_causal = causal and not decode and mask is None
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - plain()).abs().max())
+    one = cuda_ms(run, 1, warmup=1)
+    iters = max(5, min(500, int(200 / max(one, 1e-3))))
+    pairs = B * H * (skv if decode else attention_pairs(
+        np, sq, skv, causal, window))
+    elem = q.element_size()
+    nbytes = elem * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * D * pairs
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    line.update({
+        "ms": cuda_ms(run, iters), "plain_ms": cuda_ms(plain, 5, warmup=1),
+        "library_ms": cuda_ms(library, iters), "library_max_abs_err": lib_err,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes,
+        "flops": flops, "pairs": pairs, "peak_flops": peak})
+    line["share_of_bound"] = line["bound_ms"] / line["ms"]
+    return line
+
+
+def flash_phase(torch, np):
+    """K4 on every case; returns the main path's prefill (a local layer,
+    window 512) and decode (1024 keys) lines; every line is printed."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(4)
+
+    def randn(shape, dtype):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev).to(dtype)
+
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[LLM_ARCH]
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, W = LLM_BATCH, LLM_PROMPT, cfg.sliding_window
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = randn((B, S, H, D), bf16)
+    k = randn((B, S, Hkv, D), bf16)
+    v = randn((B, S, Hkv, D), bf16)
+    lines = {}
+    for name, window in (("main_local", W), ("main_global", None)):
+        lines[name] = flash_case(torch, np, name, q, k, v, causal=True,
+                                 window=window, decode=False, atol=3e-2)
+    # decode: the prompt's keys, and a local layer's window span of the
+    # serving cache at decode position S - 24 (a strided view of the
+    # cache, as models.layers.decode_attention passes it)
+    q1 = randn((B, 1, H, D), bf16)
+    lines["decode_full"] = flash_case(
+        torch, np, "decode_full", q1, k, v, causal=False, window=None,
+        decode=True, atol=3e-2)
+    kc = randn((B, S + LLM_GEN, Hkv, D), bf16)
+    vc = randn((B, S + LLM_GEN, Hkv, D), bf16)
+    span = slice(S - 24 - W + 1, S - 24 + 1)
+    lines["decode_window_span"] = flash_case(
+        torch, np, "decode_window_span", q1, kc[:, span], vc[:, span],
+        causal=False, window=None, decode=True, atol=3e-2)
+    # tests/test_kernels.py:43-48 coverage classes and its decode case
+    # (:60), at its tolerances; a ragged Skv no tile divides
+    for name, (b, s, h, hkv, d, window, dtype, atol) in {
+            "gqa_f32": (2, 48, 4, 2, 128, None, f32, 2e-5),
+            "window_bf16": (2, 48, 4, 4, 128, 13, bf16, 3e-2),
+            "mha_d256_f32": (1, 64, 8, 2, 256, None, f32, 2e-5),
+            "ragged_bf16": (1, 40, 4, 1, 128, None, bf16, 3e-2)}.items():
+        lines[name] = flash_case(
+            torch, np, name, randn((b, s, h, d), dtype),
+            randn((b, s, hkv, d), dtype), randn((b, s, hkv, d), dtype),
+            causal=True, window=window, decode=False, atol=atol)
+    lines["decode_f32"] = flash_case(
+        torch, np, "decode_f32", randn((2, 1, 8, 128), f32),
+        randn((2, 64, 2, 128), f32), randn((2, 64, 2, 128), f32),
+        causal=False, window=None, decode=True, atol=2e-5)
+    lines["ragged_skv"] = flash_case(
+        torch, np, "ragged_skv", randn((2, 77, 4, 128), f32),
+        randn((2, 1001, 2, 128), f32), randn((2, 1001, 2, 128), f32),
+        causal=False, window=None, decode=False, atol=2e-5)
+    lines["ragged_skv_decode"] = flash_case(
+        torch, np, "ragged_skv_decode", randn((2, 1, 4, 128), f32),
+        randn((2, 1001, 2, 128), f32), randn((2, 1001, 2, 128), f32),
+        causal=False, window=None, decode=True, atol=2e-5)
+    for line in lines.values():
+        emit(line)
+    return {"prefill": lines["main_local"], "decode": lines["decode_full"]}
+
+
+def _sync_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def llm_phase(torch, np):
+    """gemma3-1b at full width and depth: the f32 checks, then the bf16
+    serving path with the launch counters reset just before it.  Returns
+    the phase's line and K4's launches per form on the serving path."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import make_prompt, serve
+    from repro_torch.models import build_forward, init_params
+    from repro_torch.models.convert import cast_params
+    from repro_torch.models.model import tree_map, zero_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    k4 = registry.get_kernel("flash_attention")
+    cfg = ARCHS[LLM_ARCH]
+    cfg32 = cfg.replace(dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg32, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    line = {"phase": "llm", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "params": cfg.param_count(), "init_s": init_s}
+    prompt = make_prompt(cfg, LLM_BATCH, LLM_PROMPT)
+    toks = torch.from_numpy(prompt.tokens).cuda()
+
+    # f32: decode_fn over the prompt against prefill_fn (the reference's
+    # tolerance, tests/test_models.py:83), 26 launches per call and step
+    prefill_fn, decode_fn = build_forward(cfg32)
+    b32 = toks[:2]
+    start = k4.launches()
+    with torch.no_grad():
+        full = prefill_fn(params, {"tokens": b32})
+        if k4.launches() - start != cfg.n_layers:
+            raise AssertionError(f"f32 prefill_fn launched K4 "
+                                 f"{k4.launches() - start} times")
+        cache = zero_cache(cfg32, 2, LLM_PROMPT, "cuda")
+        start = k4.launches()
+        for i in range(LLM_PROMPT):
+            step, cache = decode_fn(params, cache, {
+                "tokens": b32[:, i:i + 1],
+                "positions": torch.full((2, 1), i, device="cuda")}, index=i)
+        torch.cuda.synchronize()
+    if k4.launches() - start != cfg.n_layers * LLM_PROMPT:
+        raise AssertionError(f"f32 decode launched K4 "
+                             f"{k4.launches() - start} times")
+    a, b = full.float(), step.float()
+    err = float((a - b).abs().max())
+    if not torch.allclose(b, a, atol=2e-3, rtol=1e-3):
+        raise AssertionError(f"f32 decode against prefill: max abs diff "
+                             f"{err}")
+    line["f32_decode_vs_prefill"] = {"batch": 2, "prompt": LLM_PROMPT,
+                                     "max_abs_diff": err,
+                                     "max_abs_logit": float(a.abs().max()),
+                                     "atol": 2e-3, "rtol": 1e-3}
+    del cache
+
+    # the model cut to 2 layers (its first two, both local), prefill on
+    # the card (K4) and on the CPU (the plain version), same tokens
+    cfg2 = cfg32.replace(n_layers=2)
+    p2 = {"embed": params["embed"], "norm_f": params["norm_f"],
+          "tail_slots": [tree_map(lambda t: t[0], params["period_slots"][s])
+                         for s in range(2)]}
+    pf2 = build_forward(cfg2)[0]
+    with torch.no_grad():
+        card = pf2(p2, {"tokens": b32}).float().cpu()
+        cpu = pf2(tree_map(lambda t: t.cpu(), p2),
+                  {"tokens": b32.cpu()}).float()
+    err2 = float((card - cpu).abs().max())
+    if not torch.allclose(card, cpu, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"2-layer card against CPU: max abs diff {err2}")
+    line["f32_2layer_card_vs_cpu"] = {"batch": 2, "prompt": LLM_PROMPT,
+                                      "max_abs_diff": err2,
+                                      "atol": 1e-4, "rtol": 1e-4}
+    del p2, card, cpu
+
+    # bf16 serving: the weights cast, the counters reset just before
+    params = cast_params(params, cfg)
+    torch.cuda.empty_cache()
+    prefill_fn, _ = build_forward(cfg)
+    with torch.no_grad():
+        prefill_fn(params, {"tokens": toks})            # warm
+        registry.reset_launch_counts()
+        logits, prefill_ms = _sync_ms(
+            torch, lambda: prefill_fn(params, {"tokens": toks}))
+        n_prefill = k4.launches()
+        res = serve(cfg, params, prompt, LLM_GEN, "cuda")
+        n_decode = k4.launches() - n_prefill
+    if n_prefill != cfg.n_layers:
+        raise AssertionError(f"bf16 prefill_fn launched K4 {n_prefill} "
+                             f"times, want {cfg.n_layers}")
+    if n_decode != cfg.n_layers * res.steps:
+        raise AssertionError(f"serve launched K4 {n_decode} times over "
+                             f"{res.steps} steps")
+    if res.tokens.shape != (LLM_BATCH, LLM_GEN + 1) or not bool(
+            torch.isfinite(res.logits.float()).all()) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError("serve: bad shapes or non-finite logits")
+    # the serving path's logits after the prompt (1024 decode steps)
+    # against prefill_fn's: bf16 activations round differently along the
+    # two paths; 2e-2 is about ten bf16 ulps at the logits' 0.3
+    bf16_err = float((res.prompt_logits.float()
+                      - logits[:, -1].float()).abs().max())
+    if not bf16_err <= 2e-2:
+        raise AssertionError(f"bf16 serve against prefill_fn: max abs diff "
+                             f"{bf16_err}")
+    line.update({
+        "bf16_prefill": {"batch": LLM_BATCH, "prompt": LLM_PROMPT,
+                         "ms": prefill_ms, "k4_launches": n_prefill,
+                         "tokens_per_s": LLM_BATCH * LLM_PROMPT
+                         / prefill_ms * 1e3},
+        "bf16_serve": {"batch": LLM_BATCH, "prompt": LLM_PROMPT,
+                       "gen": LLM_GEN, "steps": res.steps,
+                       "prompt_ms_per_step": res.prompt_s * 1e3 / LLM_PROMPT,
+                       "decode_ms_per_step": res.decode_s * 1e3 / LLM_GEN,
+                       "tokens_per_s": res.tokens_per_s,
+                       "k4_launches": n_decode,
+                       "prompt_logits_vs_prefill_max_abs_diff": bf16_err,
+                       "prompt_logits_vs_prefill_atol": 2e-2,
+                       "sampled_ids": res.tokens[:2, :8].tolist()},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # where a decode step's device time goes: 3 steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    _, decode_fn = build_forward(cfg)
+    cache = zero_cache(cfg, LLM_BATCH, LLM_PROMPT + 8, "cuda")
+    step_in = {"tokens": toks[:, :1],
+               "positions": torch.full((LLM_BATCH, 1), LLM_PROMPT - 1,
+                                       device="cuda")}
+    with torch.no_grad():
+        decode_fn(params, cache, step_in, index=LLM_PROMPT - 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                decode_fn(params, cache, step_in, index=LLM_PROMPT - 1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+    # the card's own events (kernels, copies), not the host operators
+    # that launched them
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
+    host_ops = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key.startswith("aten::")) / 3
+    line["decode_step_profile"] = {
+        "wall_ms": wall, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall,
+        "aten_ops_per_step": host_ops,
+        "top": [{"name": e.key[:80], "calls_per_step": e.count / 3,
+                 "ms_per_step": e.self_device_time_total / 1e3 / 3}
+                for e in events[:8]]}
+    emit(line)
+    return line, {"prefill": n_prefill, "decode": n_decode}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -513,9 +848,13 @@ def main() -> int:
 
     kern = kernel_phase(torch, np, peak_int_ops)
     kern_mk = megakernel_phase(torch, np, designs, peak_int_ops)
+    kern_k4 = flash_phase(torch, np)
     registry.reset_launch_counts()          # the main path's launches only
     path = path_phase(torch, np, designs)
     launches = {n: e.launches() for n, e in registry.KERNELS.items()}
+    # the model's path: llm_phase resets the counters just before serving
+    _, k4_launches = llm_phase(torch, np)
+    launches["flash_attention"] = sum(k4_launches.values())
     for n, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {n} was not launched on the path")
@@ -539,7 +878,14 @@ def main() -> int:
                        path[app]["launches"]),
                   segment=kern_mk[app]["segment"],
                   max_ulp=kern_mk[app]["max_ulp"])
-             for app in MK_APPS]})
+             for app in MK_APPS]
+          + [dict(line(f"flash_attention:{form}",
+                       registry.get_kernel("flash_attention"), kern_k4[form],
+                       k4_launches[form]),
+                  equal=False, tolerance=kern_k4[form]["tolerance"],
+                  case=kern_k4[form]["case"],
+                  share_of_bound=kern_k4[form]["share_of_bound"])
+             for form in ("prefill", "decode")]})
     emit({"ok": True, "device": device})
     return 0
 

@@ -17,8 +17,8 @@ def int32_tensor(name: str, t, ndim: int) -> None:
                          f"{tuple(t.shape)}")
 
 
-def route(kernel: str, *tensors: torch.Tensor) -> str:
-    """"cpu" (the plain version) or "cuda" (the kernel); any other device,
+def _device_type(kernel: str, *tensors: torch.Tensor) -> str:
+    """"cpu" or "cuda", the one device of all operands; any other device,
     or operands on different devices, raise."""
     dev = tensors[0].device
     for t in tensors[1:]:
@@ -27,11 +27,61 @@ def route(kernel: str, *tensors: torch.Tensor) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{kernel}: no kernel or plain version for device "
                          f"{dev}")
-    if dev.type == "cuda":
+    return dev.type
+
+
+def route(kernel: str, *tensors: torch.Tensor) -> str:
+    """"cpu" (the plain version) or "cuda" (the kernel, which takes
+    contiguous operands)."""
+    dev = _device_type(kernel, *tensors)
+    if dev == "cuda":
         for t in tensors:
             if not t.is_contiguous():
                 raise ValueError(f"{kernel}: operands must be contiguous")
         if tensors[0].shape[0] > MAX_FRAMES:
             raise ValueError(f"{kernel}: at most {MAX_FRAMES} frames per "
                              f"launch, got {tensors[0].shape[0]}")
-    return dev.type
+    return dev
+
+
+# K4 (csrc/flash_attn.cu) instantiates these
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+ATTENTION_HEAD_DIMS = (64, 128, 256)
+
+
+def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> str:
+    """Shapes of q (B, Sq, H, D) and k, v (B, Skv, Hkv, D), then the
+    route.  Unlike ``route``'s kernels, K4 reads through strides: a CUDA
+    operand needs only its last dim contiguous, a type of
+    ``ATTENTION_DTYPES`` and a D of ``ATTENTION_HEAD_DIMS``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{kernel}: {name} must be a 4-d tensor "
+                             f"(B, S, heads, D)")
+    B, _, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    if k.shape[1] < 1 or k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"{kernel}: {H} query heads cannot share "
+                         f"{k.shape[2]} kv heads over {k.shape[1]} keys")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{kernel}: q, k, v types {q.dtype}, {k.dtype}, "
+                        f"{v.dtype} differ")
+    dev = _device_type(kernel, q, k, v)
+    if dev == "cuda":
+        if q.dtype not in ATTENTION_DTYPES:
+            raise TypeError(f"{kernel}: the kernel takes float32 or "
+                            f"bfloat16, got {q.dtype}")
+        if D not in ATTENTION_HEAD_DIMS:
+            raise ValueError(f"{kernel}: the kernel is built for head dims "
+                             f"{ATTENTION_HEAD_DIMS}, got {D}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(3) != 1:
+                raise ValueError(f"{kernel}: {name}'s last dim must be "
+                                 f"contiguous")
+        if B * H > MAX_FRAMES:
+            raise ValueError(f"{kernel}: at most {MAX_FRAMES} (batch x "
+                             f"heads) per launch, got {B * H}")
+    return dev

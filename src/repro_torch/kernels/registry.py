@@ -7,15 +7,14 @@ patterns.py) recognizes an HWImg subgraph at a site and dispatches it to
 the registered kernel through ``site_fn``; the engine launches each fused
 segment through the ``megakernel`` entry.  Every entry carries its plain
 PyTorch version (``ref_fn``), the source it is built from, the TPU kernel
-it replaces, and a launch counter.
-
-Not registered yet: ``flash_attention`` (K4, ``src/repro/kernels/flash/``)
-comes with the port of the LLM substrate.
+it replaces, and a launch counter.  ``flash_attention`` (K4) is called by
+the model substrate (models/layers.py), not by the lowering, so it has no
+HWImg site.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from . import _build
 
@@ -25,7 +24,7 @@ class KernelEntry:
     name: str
     kernel_fn: Callable             # wrapper: CUDA kernel or plain on CPU
     ref_fn: Callable                # plain PyTorch version
-    site_fn: Callable               # HWImg-site adapter (lowering)
+    site_fn: Optional[Callable]     # HWImg-site adapter (lowering)
     source: str                     # CUDA source, repo-relative
     replaces: str                   # the TPU kernel, file:line
 
@@ -53,6 +52,8 @@ def reset_launch_counts() -> None:
 def _register_resident() -> None:
     from .conv2d.ops import conv2d_hwimg_site, conv2d_stencil
     from .conv2d.ref import conv2d_ref
+    from .flash.ops import flash_attention
+    from .flash.ref import attention_ref
     from .megakernel.ops import megakernel_segment
     from .megakernel.ref import megakernel_ref
     from .sad.ops import sad_disparity, sad_hwimg_site
@@ -72,6 +73,12 @@ def _register_resident() -> None:
         "megakernel", megakernel_segment, megakernel_ref, megakernel_segment,
         source="src/repro_torch/core/lowering/megakernel.py",
         replaces="src/repro/core/lowering/megakernel.py:372"))
+    # K4: prefill and decode forms (flash_attention, flash_decode) of one
+    # source, counted under one name
+    register_kernel(KernelEntry(
+        "flash_attention", flash_attention, attention_ref, None,
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash/kernel.py:26"))
 
 
 _register_resident()

@@ -1,0 +1,306 @@
+"""Model assembly: parameter specs, periodic layer stacking (a loop over
+repeating periods, then the tail), and the prefill and decode forwards.
+
+The counterpart of ``repro.models.model`` for the dense attention family.
+Parameters are described by a spec tree of ``P`` leaves (shape, logical
+axes, init), and the parameter tree has the reference's layout exactly:
+``period_slots`` (one dict per slot of the period, each leaf stacked over
+the periods) and ``tail_slots``, so the reference's parameters carry over
+leaf by leaf (models.convert).  ``init_params`` draws the reference's
+numbers bit for bit.  ``loss_fn`` and ``chunked_xent`` wait for the
+training slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.lowering import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class P:
+    """One parameter leaf: shape + logical sharding axes + init."""
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: str = "bfloat16"
+    init: str = "normal"           # normal | zeros | ones
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"P: shape {self.shape} and axes {self.axes} "
+                             f"differ in length")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port runs the dense attention family; MLA, MoE and Mamba wait
+    for a later slice."""
+    missing = []
+    if cfg.mla:
+        missing.append("MLA (mla_block)")
+    if cfg.moe_experts:
+        missing.append("MoE (moe_ffn)")
+    if any(kind != "attn" for kind in cfg.pattern):
+        missing.append("Mamba2/SSD (mamba_block)")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
+            f"Queue 1 item 5)")
+
+
+# --------------------------------------------------------------------------
+# trees: nested dicts and lists of leaves, walked as jax.tree walks them
+# (dict keys in sorted order, lists in order)
+
+
+def tree_leaves(tree) -> Iterator[Any]:
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_leaves(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            yield from tree_leaves(item)
+    else:
+        yield tree
+
+
+def tree_map(f: Callable, tree, *rest):
+    """``f`` over the leaves of ``tree`` (and the same leaves of ``rest``),
+    keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(f, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(f, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
+    return f(tree, *rest)
+
+
+# --------------------------------------------------------------------------
+# per-slot specs
+
+
+def _attn_specs(cfg: ModelConfig) -> Dict[str, P]:
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.dtype
+    s = {
+        "wq": P((D, H, hd), ("embed", "heads", None), dt),
+        "wk": P((D, Hkv, hd), ("embed", "kv_heads", None), dt),
+        "wv": P((D, Hkv, hd), ("embed", "kv_heads", None), dt),
+        "wo": P((H, hd, D), ("heads", None, "embed"), dt),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P((H, hd), ("heads", None), dt, "zeros")
+        s["bk"] = P((Hkv, hd), ("kv_heads", None), dt, "zeros")
+        s["bv"] = P((Hkv, hd), ("kv_heads", None), dt, "zeros")
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig, ff: int) -> Dict[str, P]:
+    D, dt = cfg.d_model, cfg.dtype
+    return {
+        "w_gate": P((D, ff), ("embed", "ff"), dt),
+        "w_up": P((D, ff), ("embed", "ff"), dt),
+        "w_down": P((ff, D), ("ff", "embed"), dt),
+    }
+
+
+def _slot_specs(cfg: ModelConfig, i: int) -> Dict[str, Any]:
+    s: Dict[str, Any] = {
+        "norm1": P((cfg.d_model,), (None,), "float32", "zeros"),
+        "attn": _attn_specs(cfg),
+        "norm2": P((cfg.d_model,), (None,), "float32", "zeros"),
+    }
+    if cfg.d_ff > 0:
+        s["mlp"] = _mlp_specs(cfg, cfg.d_ff)
+    return s
+
+
+def _stacked(n: int, spec: P) -> P:
+    return P((n,) + spec.shape, (None,) + spec.axes, spec.dtype, spec.init)
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    check_supported(cfg)
+    per = cfg.period
+    n_per = cfg.n_layers // per
+    tail = cfg.n_layers % per
+    V, D = cfg.padded_vocab, cfg.d_model
+    specs: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        specs["embed"] = P((V, D), ("vocab", None), cfg.dtype)
+    if not cfg.tie_embeddings:
+        specs["head"] = P((D, V), (None, "vocab"), cfg.dtype)
+    specs["norm_f"] = P((D,), (None,), "float32", "zeros")
+    if n_per > 0:
+        specs["period_slots"] = [
+            tree_map(lambda p: _stacked(n_per, p), _slot_specs(cfg, s))
+            for s in range(per)]
+    specs["tail_slots"] = [_slot_specs(cfg, n_per * per + i)
+                           for i in range(tail)]
+    return specs
+
+
+# --------------------------------------------------------------------------
+# materialization
+
+
+def _draw(p: P, rng: np.random.RandomState) -> np.ndarray:
+    """The reference's draw for one leaf (repro.models.model.init_params),
+    float64 (or float32 for zeros/ones) before the cast to its dtype."""
+    if p.init == "zeros":
+        return np.zeros(p.shape, np.float32)
+    if p.init == "ones":
+        return np.ones(p.shape, np.float32)
+    fan_in = p.shape[0] if len(p.shape) == 1 else int(np.prod(p.shape[:-1]))
+    return rng.normal(0, 1.0 / math.sqrt(max(1, fan_in)), p.shape)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """The reference's initialization, bit for bit: one RandomState(seed)
+    drawn leaf by leaf in jax.tree's order (sorted dict keys), each draw
+    rounded once to its dtype.  Leaves go to ``device`` one at a time."""
+    device = resolve_device(device)
+    specs = param_specs(cfg)
+    rng = np.random.RandomState(seed)
+    drawn = {id(p): torch.from_numpy(_draw(p, rng)).to(
+        DTYPES[p.dtype]).to(device) for p in tree_leaves(specs)}
+    return tree_map(lambda p: drawn[id(p)], specs)
+
+
+# --------------------------------------------------------------------------
+# cache specs (decode)
+
+
+def cache_slot_specs(cfg: ModelConfig, i: int, batch: int, seq: int
+                     ) -> Dict[str, P]:
+    w = cfg.layer_window(i)
+    if cfg.window_cache and w is not None:
+        # rolling window cache: local-attention layers never need more
+        # than `window` KV entries
+        seq = min(seq, w)
+    spec = P((batch, seq, cfg.n_kv_heads, cfg.hd),
+             ("act_batch", "kv_seq", "act_kv", None), cfg.dtype)
+    return {"k": spec, "v": spec}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
+    check_supported(cfg)
+    per = cfg.period
+    n_per = cfg.n_layers // per
+    tail = cfg.n_layers % per
+    out: Dict[str, Any] = {}
+    if n_per:
+        out["period_slots"] = [
+            tree_map(lambda p: _stacked(n_per, p),
+                     cache_slot_specs(cfg, s, batch, seq))
+            for s in range(per)]
+    out["tail_slots"] = [cache_slot_specs(cfg, n_per * per + i, batch, seq)
+                         for i in range(tail)]
+    return out
+
+
+def zero_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
+    """A zero KV cache for ``batch`` sequences of up to ``seq`` tokens."""
+    device = resolve_device(device)
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=DTYPES[p.dtype],
+                                          device=device),
+                    cache_specs(cfg, batch, seq))
+
+
+# --------------------------------------------------------------------------
+# forward
+
+
+def _block(x, slot_params, cfg: ModelConfig, slot_idx: int, *, positions,
+           cache=None, cache_pos: Optional[int] = None):
+    h = L.norm(x, slot_params["norm1"], cfg)
+    y, cache = L.attention_block(h, slot_params["attn"], cfg,
+                                 positions=positions,
+                                 window=cfg.layer_window(slot_idx),
+                                 cache=cache, cache_pos=cache_pos)
+    x = x + y
+    if "mlp" in slot_params:
+        h2 = L.norm(x, slot_params["norm2"], cfg)
+        x = x + L.mlp(h2, slot_params["mlp"], cfg)
+    return x
+
+
+def _stack_forward(params, x, cfg: ModelConfig, *, positions, cache=None,
+                   cache_pos: Optional[int] = None):
+    """Run all layers: the periods (period j's slot s reads index j of the
+    stacked leaves, where the reference scans), then the tail.  A cache is
+    written in place."""
+    per = cfg.period
+    n_per = cfg.n_layers // per
+    for j in range(n_per):
+        for s in range(per):
+            slot = tree_map(lambda t: t[j], params["period_slots"][s])
+            c = (tree_map(lambda t: t[j], cache["period_slots"][s])
+                 if cache is not None else None)
+            x = _block(x, slot, cfg, s, positions=positions, cache=c,
+                       cache_pos=cache_pos)
+    for i, slot in enumerate(params["tail_slots"]):
+        c = cache["tail_slots"][i] if cache is not None else None
+        x = _block(x, slot, cfg, n_per * per + i, positions=positions,
+                   cache=c, cache_pos=cache_pos)
+    return x
+
+
+def _embed(params, cfg: ModelConfig, tokens_or_emb):
+    if cfg.input_mode == "tokens":
+        x = params["embed"][tokens_or_emb]        # gather
+        # sqrt(d_model) rounded to the activation type first, as the
+        # reference does (34.0, not 33.94, in bf16 for d_model 1152)
+        return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+    return tokens_or_emb.to(DTYPES[cfg.dtype])
+
+
+def _head(params, cfg: ModelConfig, h):
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["head"]
+
+
+def build_forward(cfg: ModelConfig):
+    """Returns (prefill_fn, decode_fn), the reference's forwards.  f32 runs
+    want TF32 off for matrix products on the card
+    (torch.backends.cuda.matmul.allow_tf32, False by default)."""
+    check_supported(cfg)
+
+    def prefill_fn(params, batch):
+        """Full-sequence forward returning last-token logits (B, 1, V)."""
+        x = _embed(params, cfg, batch["tokens"])
+        pos = batch.get("positions")
+        if pos is None:
+            B, S = x.shape[0], x.shape[1]
+            pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        h = _stack_forward(params, x, cfg, positions=pos)
+        h = L.norm(h[:, -1:], params["norm_f"], cfg)
+        return _head(params, cfg, h)
+
+    def decode_fn(params, cache, batch, index: Optional[int] = None):
+        """One decode step against a KV cache, written in place.
+        ``batch["positions"]`` (B, 1), or (3, B, 1) for M-RoPE, carries the
+        current decode index; ``index`` is the same index on the host,
+        read from the positions (one device read) when not given.  Returns
+        (logits (B, 1, V), cache)."""
+        x = _embed(params, cfg, batch["tokens"])   # (B,1) or (B,1,D)
+        pos = batch["positions"]
+        if index is None:
+            index = int(pos.reshape(-1)[0])
+        h = _stack_forward(params, x, cfg, positions=pos, cache=cache,
+                           cache_pos=index)
+        h = L.norm(h, params["norm_f"], cfg)
+        return _head(params, cfg, h), cache
+
+    return prefill_fn, decode_fn

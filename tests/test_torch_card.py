@@ -1,6 +1,8 @@
-"""Tests of the port that need the card: the CUDA kernels (conv2d, sad and
-the generated megakernels) against their plain PyTorch versions, and the
-kernels backend on the card against the same pipeline on the CPU.  Each is
+"""Tests of the port that need the card: the CUDA kernels (conv2d, sad,
+the generated megakernels and flash attention) against their plain
+PyTorch versions, the kernels backend on the card against the same
+pipeline on the CPU, and the model substrate's forwards on the card
+against the CPU.  Each is
 marked ``card`` and skips where there is no CUDA device; run them on the
 GPU machine with
 
@@ -27,6 +29,8 @@ from repro_torch.kernels.megakernel.check import (  # noqa: E402
 from repro_torch.kernels.megakernel.ops import megakernel_segment  # noqa: E402
 from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
+from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E402
+from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -113,3 +117,84 @@ def test_megakernel_matches_plain(card, case):
                        exact=case == "descriptor")
     assert res["max_ulp"] <= FLOAT_ULP_BOUND
     assert registry.get_kernel("megakernel").launches() == 1
+
+
+# K4: tests/test_kernels.py's coverage classes (GQA f32, windowed bf16, MHA
+# D=256 f32, ragged bf16) at its tolerances, and the main path's shapes
+FLASH_CASES = [
+    (2, 48, 48, 4, 2, 128, True, None, torch.float32, 2e-5),
+    (2, 48, 48, 4, 4, 128, True, 13, torch.bfloat16, 3e-2),
+    (1, 64, 64, 8, 2, 256, True, None, torch.float32, 2e-5),
+    (1, 40, 40, 4, 1, 128, True, None, torch.bfloat16, 3e-2),
+    (2, 24, 37, 4, 2, 64, False, None, torch.float32, 2e-5),
+    (2, 40, 20, 4, 2, 64, True, 6, torch.float32, 2e-5),
+    (1, 200, 200, 4, 1, 256, True, 70, torch.bfloat16, 3e-2),
+]
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev).to(dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,causal,window,dtype,atol",
+                         FLASH_CASES)
+def test_flash_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, D, causal,
+                                    window, dtype, atol):
+    rng = np.random.RandomState(Sq + Skv + D)
+    q = _randn(rng, (B, Sq, H, D), dtype, card)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype
+    assert (out.float() - want).abs().max().item() <= atol
+    assert registry.get_kernel("flash_attention").launches() == 1
+
+
+@pytest.mark.parametrize("D,dtype,atol", [(128, torch.float32, 2e-5),
+                                          (256, torch.bfloat16, 3e-2)])
+def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
+    """tests/test_kernels.py's decode case, and a cache slice (a strided
+    view) as the model passes it."""
+    rng = np.random.RandomState(D)
+    q = _randn(rng, (2, 1, 8, D), dtype, card)
+    cache = _randn(rng, (2, 100, 2, D), dtype, card)
+    vcache = _randn(rng, (2, 100, 2, D), dtype, card)
+    for k, v in ((cache[:, :64].contiguous(), vcache[:, :64].contiguous()),
+                 (cache[:, 13:77], vcache[:, 13:77])):
+        out = flash_decode(q, k, v)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, causal=False)
+        assert (out.float() - want).abs().max().item() <= atol
+    assert registry.get_kernel("flash_attention").launches() == 2
+
+
+def test_model_forwards_on_card_match_cpu(card):
+    """Reduced gemma3-1b (head_dim 64, K4's smallest) in f32: prefill_fn
+    and the decode loop on the card against the same on the CPU, and
+    K4's launches: one per layer per call."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_forward, init_params
+    from repro_torch.models.model import zero_cache
+    cfg = reduced(ARCHS["gemma3-1b"]).replace(
+        dtype="float32", head_dim=64, attn_impl="blocked")
+    B, S = 2, 12
+    toks = np.random.RandomState(1).randint(2, cfg.vocab, (B, S))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(cfg, 0, dev)
+        prefill_fn, decode_fn = build_forward(cfg)
+        t = torch.from_numpy(toks).to(dev)
+        full = prefill_fn(params, {"tokens": t})
+        cache = zero_cache(cfg, B, S, dev)
+        for i in range(S):
+            step, cache = decode_fn(params, cache, {
+                "tokens": t[:, i:i + 1],
+                "positions": torch.full((B, 1), i, device=dev)}, index=i)
+        got[dev] = (full.cpu(), step.cpu())
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.allclose(a, b, atol=2e-4, rtol=1e-4)
+    assert registry.get_kernel("flash_attention").launches() == \
+        cfg.n_layers * (1 + S)

@@ -1,0 +1,125 @@
+"""The port's flash attention (repro_torch.kernels.flash, K4) against the
+reference's (repro.kernels.flash): on the CPU a wrapper takes its plain
+version, which is held against the Pallas kernel (interpret mode, as
+tests/test_kernels.py runs it) and the reference's oracle on the same
+numpy-seeded inputs, at tests/test_kernels.py's tolerances: atol 2e-5 in
+f32, 3e-2 in bf16 (the bf16 outputs round to bf16, and the Pallas kernel
+rounds p to bf16 before p . v).
+
+test_torch_card.py holds K4 itself against the plain version on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash.ops import flash_attention_tpu, flash_decode_tpu  # noqa: E402
+from repro.kernels.flash.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E402
+from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
+
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+# tests/test_kernels.py's four coverage classes: GQA f32, windowed bf16,
+# MHA D=256 f32, ragged bf16 (40 rows, no multiple of its 16-row tiles)
+CLASSES = [
+    (2, 48, 4, 2, 128, None, "float32"),
+    (2, 48, 4, 4, 128, 13, "bfloat16"),
+    (1, 64, 8, 2, 256, None, "float32"),
+    (1, 40, 4, 1, 128, None, "bfloat16"),
+]
+
+
+def _inputs(seed, B, Sq, Skv, H, Hkv, D, dtype):
+    """q, k, v drawn with numpy, rounded to ``dtype`` by JAX, and the same
+    bits as torch tensors."""
+    rng = np.random.RandomState(seed)
+    arrays = [jnp.asarray(rng.randn(B, S, h, D), _JAX[dtype])
+              for S, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv))]
+    tensors = [torch.from_numpy(np.array(a, np.float32)).to(_TORCH[dtype])
+               for a in arrays]
+    return arrays, tensors
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,dtype", CLASSES)
+def test_flash_attention_matches_reference(B, S, H, Hkv, D, window, dtype):
+    (jq, jk, jv), (q, k, v) = _inputs(S + D, B, S, S, H, Hkv, D, dtype)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert out.shape == (B, S, H, D) and out.dtype == _TORCH[dtype]
+    pallas = flash_attention_tpu(jq, jk, jv, causal=True, window=window,
+                                 bq=16, bk=16)
+    oracle = jax_attention_ref(jq, jk, jv, causal=True, window=window)
+    assert np.allclose(_f32(out), _f32(pallas), atol=ATOL[dtype])
+    assert np.allclose(_f32(out), _f32(oracle), atol=ATOL[dtype])
+    # the plain version itself returns f32, as the reference's does
+    assert np.allclose(_f32(attention_ref(q, k, v, causal=True,
+                                          window=window)),
+                       _f32(oracle), atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_decode_matches_reference(window):
+    """tests/test_kernels.py's decode case; the window drops no key, in
+    the reference (the query sits at position 0) and in the port."""
+    B, S, H, Hkv, D = 2, 64, 8, 2, 128
+    (jq, jk, jv), (q, k, v) = _inputs(7, B, 1, S, H, Hkv, D, "float32")
+    out = flash_decode(q, k, v, window=window)
+    pallas = flash_decode_tpu(jq, jk, jv, window=window, bk=32)
+    oracle = jax_attention_ref(jq, jk, jv, causal=False)
+    assert out.shape == (B, 1, H, D)
+    assert np.allclose(_f32(out), _f32(pallas), atol=2e-5)
+    assert np.allclose(_f32(out), _f32(oracle), atol=2e-5)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (24, 37, False, None),     # ragged Skv, no mask
+    (37, 37, True, 8),         # causal band no tile divides
+    (40, 20, True, 6),         # rows past Skv + window - 1 see no key
+])
+def test_flash_attention_masks_match_reference(Sq, Skv, causal, window):
+    """Masks the coverage classes miss, against the reference's oracle,
+    including rows whose band holds no key: both average every key."""
+    (jq, jk, jv), (q, k, v) = _inputs(Sq * Skv, 2, Sq, Skv, 4, 2, 64,
+                                      "float32")
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    oracle = jax_attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert np.allclose(_f32(out), _f32(oracle), atol=2e-5)
+
+
+def test_strided_views_give_the_same_result():
+    """The model hands K4 a slice of its KV cache and head views of its
+    projections; a view gives what its contiguous copy gives."""
+    rng = np.random.RandomState(5)
+    cache = torch.from_numpy(rng.randn(2, 30, 2, 64).astype(np.float32))
+    q = torch.from_numpy(rng.randn(2, 1, 4, 64).astype(np.float32))
+    k, v = cache[:, 3:17], cache.flip(1)[:, 3:17]
+    assert not k.is_contiguous()
+    want = flash_decode(q, k.contiguous(), v.contiguous())
+    assert torch.equal(flash_decode(q, k, v), want)
+
+
+def test_operands_are_checked():
+    q = torch.zeros(1, 4, 4, 64)
+    kv = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_attention(q, kv, torch.zeros(1, 4, 2, 32))
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_attention(q, torch.zeros(1, 4, 3, 64), torch.zeros(1, 4, 3, 64))
+    with pytest.raises(TypeError, match="types"):
+        flash_attention(q, kv.double(), kv)
+    with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):
+        flash_decode(q, kv, kv)
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card by default.
 
 - It imports neither ``jax`` nor anything of ``repro``: checked in a fresh
-  process that lowers and runs both apps, and by a scan of its sources.
+  process that lowers and runs every app and serves a reduced model, and
+  by a scan of its sources.
 - Its entry points never fall back quietly to the CPU: without a card and
   without ``device="cpu"`` they raise.
 """
@@ -39,6 +40,9 @@ def test_port_runs_without_importing_jax_or_repro():
                 d.run(inputs(rng), backend=backend, device="cpu")
                 d.run_batch(inputs(rng, frames=2), backend=backend,
                             device="cpu")
+        from repro_torch.launch.serve import main
+        main(["--arch", "gemma3-1b", "--smoke", "--batch", "2",
+              "--prompt-len", "3", "--gen", "2", "--device", "cpu"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
