@@ -16,7 +16,9 @@ phase prints one JSON line:
            emitter writes for each fused segment (FLOW, DESCRIPTOR and
            PYRAMID at 1920x1080 and at odd sizes, and a synthetic pipeline
            over every streamable op), all built from the checkout in one
-           parallel batch, with each segment's tile and shared bytes
+           parallel batch, with each segment's tile and shared bytes; K4's
+           registers and spills per form, type and head dim, with the
+           tensor-core form's shared bytes (it must not spill)
   kernel   per kernel: the CUDA kernel against its plain PyTorch version
            at the main path's shapes and at odd shapes, 3 frames each,
            which must agree exactly (max abs diff 0); for K3, each app's
@@ -29,17 +31,25 @@ phase prints one JSON line:
            operations over the SMs' lane rate at the maximum SM clock:
            integer ops on 64 lanes per SM, integer and f32 ops together on
            128; a box sum counts as a sliding sum)
-  kernel   (K4) flash attention's prefill and decode forms against the
-           plain version: the model's shapes (prefill B 4, S 1024, H 4,
-           Hkv 1, D 256 in bf16, with window 512 and without; decode over a
-           1024-key cache and over a 512-slot window span of a longer
-           cache), tests/test_kernels.py's four coverage classes and its
-           decode case at their tolerances, and a ragged Skv; per case the
-           max abs error, K4 ms, plain ms, scaled_dot_product_attention ms
-           (the library yardstick, never on the path) and the bound (the
-           larger of q, k, v and o once over 3.35 TB/s and 4 D flops per
-           unmasked (q, k) pair over the type's peak: 989 TFLOP/s dense
-           bf16, 67 TFLOP/s f32)
+  kernel   (K4) flash attention's three forms against the plain version:
+           the bf16 tensor-core prefill form (prefill_mma), the f32 SIMT
+           prefill form (prefill_simt) and the decode form, at the model's
+           shapes (prefill B 4, S 1024, H 4, Hkv 1, D 256 in bf16, with
+           window 512 and without, and the f32 check's B 2 local layer;
+           decode over a 1024-key cache and over a 512-slot window span of
+           a longer cache), tests/test_kernels.py's four coverage classes
+           and its decode case at their tolerances, a ragged Skv, and bf16
+           cases for the tensor-core form (D 64 and 256 at a ragged Sq and
+           window, a non-causal ragged Skv, empty-band rows, GQA through
+           head views of one wider tensor); each case must launch its own
+           form; per case the max abs error, K4's device ms (the
+           profiler's kernel time) and call ms (CUDA events around
+           back-to-back wrapper calls, host work included), plain ms,
+           scaled_dot_product_attention's device and call ms (the library
+           yardstick, never on the path) and the bound (the larger of q,
+           k, v and o once over 3.35 TB/s and 4 D flops per unmasked
+           (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
+           67 TFLOP/s f32)
   path     CONVOLUTION 1920x1080, STEREO 720x400 nd=64, and FLOW,
            DESCRIPTOR and PYRAMID 1920x1080 through
            compile_pipeline(...).run and run_batch (4 frames) on the
@@ -52,18 +62,22 @@ phase prints one JSON line:
            run_batch call (torch.profiler, CPU activity), by self time
   llm      gemma3-1b at full width and depth (26 layers, random weights
            from seed 0): f32 decode_fn over a 1024-token prompt against
-           prefill_fn (atol 2e-3, rtol 1e-3); the model cut to 2 layers on
-           the card against the same on the CPU; then, in bf16 and with the
-           launch counters reset, prefill_fn on 4 x 1024 tokens and
-           launch.serve.serve (batch 4, prompt 1024, 32 generated), with
-           K4 launched 26 times per prefill_fn call and per decode step;
+           prefill_fn (atol 2e-3, rtol 1e-3), the f32 prefill_fn launching
+           the SIMT prefill form 26 times and the tensor-core form never;
+           the model cut to 2 layers on the card against the same on the
+           CPU; then, in bf16 and with the launch counters reset,
+           prefill_fn on 4 x 1024 tokens (the tensor-core form 26 times,
+           the SIMT form never) and launch.serve.serve (batch 4, prompt
+           1024, 32 generated), with the decode form launched 26 times per
+           decode step; one more bf16 prefill_fn call under the profiler
+           for its device time, K4's share of it and its top kernels;
            init seconds, prefill ms, decode ms per step, tokens/s, and the
            card's top kernels over a profiled decode step
   kernels  one line: every kernel (K3 once per app segment, K4 once per
            form) with its launches on its main path (the counters are
-           reset just before the image path phase and again just before
-           the llm serving run), its error against the plain version, and
-           its times and bound
+           reset just before the image path phase, just before the f32
+           prefill_fn call and just before the bf16 prefill_fn call), its
+           error against the plain version, and its times and bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Any mismatch, build
 failure or launch error ends the script with a nonzero exit before it.
@@ -318,6 +332,7 @@ def build_phase(designs):
     whose emitted text is the card's; the card's lowering then loads the
     cached builds."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops as flash_ops
     segments = {}
     for label, (_uf, design) in designs.items():
         lp = design.lower("kernels", device="cpu")
@@ -331,7 +346,18 @@ def build_phase(designs):
         gen = pool.submit(_build.build_generated,
                           {k: mk.source for k, mk in segments.items()})
         built, gen = csrc.result(), gen.result()
+    k4 = flash_ops.resources(built["flash_attn"])
+    mma_dims = sorted(k4.get("prefill_mma", {}))
+    if mma_dims != ["bf16_d128", "bf16_d256", "bf16_d64"]:
+        raise AssertionError(f"K4 tensor-core form built for {mma_dims}")
+    for dim, use in k4["prefill_mma"].items():
+        if use.get("spill_stores", 1) or use.get("spill_loads", 1):
+            raise AssertionError(f"K4 tensor-core form spills at {dim}: "
+                                 f"{use}")
+    if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
+        raise AssertionError("the SIMT prefill form has a bf16 build")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          "k4_forms": k4,
           "kernels": {n: {"nvcc_s": b.seconds, "ptxas": ptxas_summary(b.log)}
                       for n, b in built.items()},
           "generated": {k: {"segment": mk.name, "nvcc_s": gen[k].seconds,
@@ -528,8 +554,11 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
     version's, scaled_dot_product_attention's and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
+    from repro_torch.kernels.flash.ops import form_launches, prefill_form
+    from repro_torch.kernels.timing import device_ms
     from repro_torch.kernels.flash.ref import attention_ref
 
+    form = "decode" if decode else prefill_form(q.dtype)
     if decode:
         run = lambda: flash_decode(q, k, v)                     # noqa: E731
         plain = lambda: attention_ref(q, k, v, causal=False)    # noqa: E731
@@ -538,8 +567,14 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
                                       window=window)
         plain = lambda: attention_ref(q, k, v, causal=causal,   # noqa: E731
                                       window=window)
+    before = form_launches()
     got = run()
     torch.cuda.synchronize()
+    after = form_launches()
+    if any(after[f] - before[f] != (f == form) for f in after):
+        raise AssertionError(f"flash_attention {name}: launched "
+                             f"{ {f: after[f] - before[f] for f in after} }, "
+                             f"want {form} once")
     err = float((got.float() - plain()).abs().max())
     if not err <= atol:
         raise AssertionError(f"flash_attention {name}: max abs err {err} "
@@ -547,7 +582,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
     B, sq, H, D = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     line = {"phase": "kernel", "name": "flash_attention", "case": name,
-            "form": "decode" if decode else "prefill",
+            "form": form,
             "shape": {"B": B, "Sq": sq, "Skv": skv, "H": H, "Hkv": hkv,
                       "D": D, "causal": causal and not decode,
                       "window": None if decode else window},
@@ -570,7 +605,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
 
     lib_err = float((library().transpose(1, 2).float() - plain()).abs().max())
     one = cuda_ms(run, 1, warmup=1)
-    iters = max(5, min(500, int(200 / max(one, 1e-3))))
+    iters = max(5, min(200, int(200 / max(one, 1e-3))))
     pairs = B * H * (skv if decode else attention_pairs(
         np, sq, skv, causal, window))
     elem = q.element_size()
@@ -579,9 +614,15 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
+    # ms: the kernel's device time (the profiler's events); call_ms: CUDA
+    # events around back-to-back wrapper calls, which the wrapper's host
+    # work bounds when the kernel is short; the same two for the library
     line.update({
-        "ms": cuda_ms(run, iters), "plain_ms": cuda_ms(plain, 5, warmup=1),
-        "library_ms": cuda_ms(library, iters), "library_max_abs_err": lib_err,
+        "ms": device_ms(run, iters), "call_ms": cuda_ms(run, iters),
+        "plain_ms": cuda_ms(plain, 5, warmup=1),
+        "library_ms": device_ms(library, iters),
+        "library_call_ms": cuda_ms(library, iters),
+        "library_max_abs_err": lib_err,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes,
@@ -591,8 +632,9 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
 
 
 def flash_phase(torch, np):
-    """K4 on every case; returns the main path's prefill (a local layer,
-    window 512) and decode (1024 keys) lines; every line is printed."""
+    """K4 on every case; returns each form's line at its main path's
+    shapes (a bf16 and an f32 local layer, window 512, and decode over
+    1024 keys); every line is printed."""
     dev = torch.device("cuda")
     rng = np.random.RandomState(4)
 
@@ -648,9 +690,32 @@ def flash_phase(torch, np):
         torch, np, "ragged_skv_decode", randn((2, 1, 4, 128), f32),
         randn((2, 1001, 2, 128), f32), randn((2, 1001, 2, 128), f32),
         causal=False, window=None, decode=True, atol=2e-5)
+    # the SIMT form at the llm phase's f32 check: a local layer, batch 2
+    lines["main_local_f32"] = flash_case(
+        torch, np, "main_local_f32", q[:2].float(), k[:2].float(),
+        v[:2].float(), causal=True, window=W, decode=False, atol=2e-5)
+    # the tensor-core form's edges: D 64 and 256 at a ragged Sq and
+    # window, a non-causal ragged Skv, rows 25.. of Sq 40 with no key of
+    # Skv 20 in their band (window 6), and GQA with q, k, v as head views
+    # of one wider (B, S, H + 2 Hkv, D) tensor
+    for name, (b, sq, skv, h, hkv, d, causal, window) in {
+            "ragged_window_d64_bf16": (1, 200, 200, 4, 1, 64, True, 70),
+            "ragged_window_d256_bf16": (1, 200, 200, 4, 1, 256, True, 70),
+            "ragged_skv_bf16": (2, 77, 1001, 4, 2, 128, False, None),
+            "empty_band_bf16": (2, 40, 20, 4, 2, 64, True, 6)}.items():
+        lines[name] = flash_case(
+            torch, np, name, randn((b, sq, h, d), bf16),
+            randn((b, skv, hkv, d), bf16), randn((b, skv, hkv, d), bf16),
+            causal=causal, window=window, decode=False, atol=3e-2)
+    qkv = randn((2, 150, 8 + 2 * 2, 128), bf16)
+    lines["gqa_head_views_bf16"] = flash_case(
+        torch, np, "gqa_head_views_bf16", qkv[:, :, :8], qkv[:, :, 8:10],
+        qkv[:, :, 10:], causal=True, window=40, decode=False, atol=3e-2)
     for line in lines.values():
         emit(line)
-    return {"prefill": lines["main_local"], "decode": lines["decode_full"]}
+    return {"prefill_mma": lines["main_local"],
+            "prefill_simt": lines["main_local_f32"],
+            "decode": lines["decode_full"]}
 
 
 def _sync_ms(torch, fn):
@@ -667,6 +732,8 @@ def llm_phase(torch, np):
     the phase's line and K4's launches per form on the serving path."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import registry
+    from repro_torch.kernels.flash.ops import form_launches
+    from repro_torch.kernels.timing import device_events
     from repro_torch.launch.serve import make_prompt, serve
     from repro_torch.models import build_forward, init_params
     from repro_torch.models.convert import cast_params
@@ -687,16 +754,26 @@ def llm_phase(torch, np):
     prompt = make_prompt(cfg, LLM_BATCH, LLM_PROMPT)
     toks = torch.from_numpy(prompt.tokens).cuda()
 
+    def forms_were(what, **want):
+        got = form_launches()
+        if got != {f: want.get(f, 0) for f in got}:
+            raise AssertionError(f"{what} launched K4's forms {got}, want "
+                                 f"{want}")
+        return got
+
     # f32: decode_fn over the prompt against prefill_fn (the reference's
-    # tolerance, tests/test_models.py:83), 26 launches per call and step
+    # tolerance, tests/test_models.py:83), 26 launches per call and step;
+    # the prefill takes the SIMT form (the counters reset just before)
     prefill_fn, decode_fn = build_forward(cfg32)
     b32 = toks[:2]
-    start = k4.launches()
     with torch.no_grad():
+        registry.reset_launch_counts()
         full = prefill_fn(params, {"tokens": b32})
-        if k4.launches() - start != cfg.n_layers:
+        n_simt = forms_were("f32 prefill_fn",
+                            prefill_simt=cfg.n_layers)["prefill_simt"]
+        if k4.launches() != cfg.n_layers:
             raise AssertionError(f"f32 prefill_fn launched K4 "
-                                 f"{k4.launches() - start} times")
+                                 f"{k4.launches()} times")
         cache = zero_cache(cfg32, 2, LLM_PROMPT, "cuda")
         start = k4.launches()
         for i in range(LLM_PROMPT):
@@ -707,6 +784,8 @@ def llm_phase(torch, np):
     if k4.launches() - start != cfg.n_layers * LLM_PROMPT:
         raise AssertionError(f"f32 decode launched K4 "
                              f"{k4.launches() - start} times")
+    forms_were("f32 prefill_fn and decode loop", prefill_simt=cfg.n_layers,
+               decode=cfg.n_layers * LLM_PROMPT)
     a, b = full.float(), step.float()
     err = float((a - b).abs().max())
     if not torch.allclose(b, a, atol=2e-3, rtol=1e-3):
@@ -747,8 +826,11 @@ def llm_phase(torch, np):
         logits, prefill_ms = _sync_ms(
             torch, lambda: prefill_fn(params, {"tokens": toks}))
         n_prefill = k4.launches()
+        forms_were("bf16 prefill_fn", prefill_mma=cfg.n_layers)
         res = serve(cfg, params, prompt, LLM_GEN, "cuda")
         n_decode = k4.launches() - n_prefill
+        forms_were("bf16 prefill_fn and serve", prefill_mma=cfg.n_layers,
+                   decode=n_decode)
     if n_prefill != cfg.n_layers:
         raise AssertionError(f"bf16 prefill_fn launched K4 {n_prefill} "
                              f"times, want {cfg.n_layers}")
@@ -768,8 +850,10 @@ def llm_phase(torch, np):
         raise AssertionError(f"bf16 serve against prefill_fn: max abs diff "
                              f"{bf16_err}")
     line.update({
+        "f32_prefill_simt_launches": n_simt,
         "bf16_prefill": {"batch": LLM_BATCH, "prompt": LLM_PROMPT,
                          "ms": prefill_ms, "k4_launches": n_prefill,
+                         "k4_form": "prefill_mma",
                          "tokens_per_s": LLM_BATCH * LLM_PROMPT
                          / prefill_ms * 1e3},
         "bf16_serve": {"batch": LLM_BATCH, "prompt": LLM_PROMPT,
@@ -782,6 +866,18 @@ def llm_phase(torch, np):
                        "prompt_logits_vs_prefill_atol": 2e-2,
                        "sampled_ids": res.tokens[:2, :8].tolist()},
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # where a bf16 prefill_fn call's device time goes: one call under the
+    # profiler, its device time against the unprofiled call's wall
+    with torch.no_grad():
+        dev_ms, by_name = device_events(
+            lambda: prefill_fn(params, {"tokens": toks}), 1, warmup=1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    line["bf16_prefill"].update({
+        "device_ms": dev_ms, "device_busy_share": dev_ms / prefill_ms,
+        "k4_device_ms": sum(ms for name, ms in by_name.items()
+                            if "flash_mma_kernel" in name),
+        "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]})
 
     # where a decode step's device time goes: 3 steps under the profiler
     from torch.profiler import ProfilerActivity, profile
@@ -818,7 +914,8 @@ def llm_phase(torch, np):
                  "ms_per_step": e.self_device_time_total / 1e3 / 3}
                 for e in events[:8]]}
     emit(line)
-    return line, {"prefill": n_prefill, "decode": n_decode}
+    return line, {"prefill_mma": n_prefill, "prefill_simt": n_simt,
+                  "decode": n_decode}
 
 
 def main() -> int:
@@ -852,7 +949,9 @@ def main() -> int:
     registry.reset_launch_counts()          # the main path's launches only
     path = path_phase(torch, np, designs)
     launches = {n: e.launches() for n, e in registry.KERNELS.items()}
-    # the model's path: llm_phase resets the counters just before serving
+    # the model's paths: llm_phase resets the counters just before the f32
+    # prefill_fn call (the SIMT form's path) and just before the bf16
+    # prefill_fn call and serving (the tensor-core and decode forms')
     _, k4_launches = llm_phase(torch, np)
     launches["flash_attention"] = sum(k4_launches.values())
     for n, count in launches.items():
@@ -885,7 +984,7 @@ def main() -> int:
                   equal=False, tolerance=kern_k4[form]["tolerance"],
                   case=kern_k4[form]["case"],
                   share_of_bound=kern_k4[form]["share_of_bound"])
-             for form in ("prefill", "decode")]})
+             for form in ("prefill_mma", "prefill_simt", "decode")]})
     emit({"ok": True, "device": device})
     return 0
 

@@ -1,5 +1,6 @@
-// K4: flash attention with an online softmax, a prefill form and a decode
-// form, for float and bf16.
+// K4: flash attention with an online softmax, in three forms: a prefill
+// form on the tensor cores for bf16 (flash_attn_mma.cuh), a SIMT prefill
+// form for float (below) and a decode form for both.
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // (driver flash_bhsd, wrappers flash_attention_tpu / flash_decode_tpu).
@@ -18,16 +19,22 @@
 // holds no key sees every key at -1e30 and so averages them uniformly, as
 // the plain version (attention_ref) does.
 //
-// Prefill form: one block of 256 threads per (b*H + h, 64-row q tile),
-// looping over 64-row KV tiles from the first to the last that meets the
-// tile's causal and window band (tiles wholly outside it are skipped).  All
-// operands sit in shared memory as f32: Q (64 x D), K transposed (D x 64),
-// V (64 x D) and the score tile; for D = 256 that is 219,136 bytes, so the
-// launcher raises the block's dynamic shared memory limit.  Each thread
-// computes a 4 x 4 block of scores (float4 reads of Q rows and K^T
-// columns); each warp owns 8 query rows for the softmax and for the
-// f32 accumulator (8 rows x D/32 columns in registers), so m and l live in
-// registers and no tile-sized accumulator goes through shared memory.
+// bf16 prefill: flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a
+// cp.async ring); its note gives the design.
+//
+// f32 prefill (the SIMT form): one block of 256 threads per (b*H + h,
+// 64-row q tile), looping over 64-row KV tiles from the first to the last
+// that meets the tile's causal and window band (tiles wholly outside it are
+// skipped).  All operands sit in shared memory as f32: Q (64 x D), K
+// transposed (D x 64), V (64 x D) and the score tile; for D = 256 that is
+// 219,136 bytes, so the launcher raises the block's dynamic shared memory
+// limit.  Each thread computes a 4 x 4 block of scores (float4 reads of Q
+// rows and K^T columns); each warp owns 8 query rows for the softmax and
+// for the f32 accumulator (8 rows x D/32 columns in registers), so m and l
+// live in registers and no tile-sized accumulator goes through shared
+// memory.  f32 stays off the tensor cores on purpose: their f32 input is
+// TF32, whose 10-bit mantissa would break the f32 tolerance of 2e-5 that
+// the reference's tests hold this form to.
 //
 // Decode form (Sq = 1): one block of 8 warps per (b, h).  Each lane holds
 // D/32 elements of q and of the accumulator; warp w takes keys w, w+8, ...,
@@ -36,14 +43,17 @@
 //
 // Bound on an H100: at the main path's prefill (B 4, S 1024, H 4, Hkv 1,
 // D 256) the work is about 8.6e9 flops for the causal layers, 8.7 us at the
-// bf16 tensor-core rate, and 8 MB of traffic (2.5 us): bound by operations.
-// This kernel runs its products on the f32 FMA lanes (no mma), so it can at
-// best reach the 67 TFLOP/s f32 rate; wgmma and TMA are the next step.  A
-// decode step reads the cache span once and is bound by bytes.
+// bf16 tensor-core rate, and 21 MB of q, k, v and out (6.3 us): bound by
+// operations.  The f32 SIMT form runs its products on the f32 FMA lanes
+// and can at best reach the 67 TFLOP/s f32 rate; the bf16 form uses the
+// tensor cores through mma.sync.  A decode step reads the cache span once
+// and is bound by bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attn_mma.cuh"   // Strides, launch_mma
 
 namespace {
 
@@ -54,10 +64,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kBQ / kWarps;   // 8
 constexpr int kUnroll = 4;       // keys in flight per warp in the decode form
 constexpr float kMaskAdd = -1e30f;
-
-struct Strides {                 // element strides of (B, S, H, D); D is 1
-  long long b, s, h;
-};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -359,17 +365,16 @@ cudaError_t launch_decode(void* out, const void* q, const void* k,
 
 // dtype: 0 float32, 1 bfloat16.  D: 64, 128 or 256.  window 0 = none.
 // Strides are in elements, (b, s, h) for each of q, k, v.
-#define K4_DISPATCH(CALL)                                                  \
+#define K4_DISPATCH_D(CALL, T)                                             \
   do {                                                                     \
-    if (dtype == 0 && D == 64) return int(CALL(float, 64));                \
-    if (dtype == 0 && D == 128) return int(CALL(float, 128));              \
-    if (dtype == 0 && D == 256) return int(CALL(float, 256));              \
-    if (dtype == 1 && D == 64) return int(CALL(__nv_bfloat16, 64));        \
-    if (dtype == 1 && D == 128) return int(CALL(__nv_bfloat16, 128));      \
-    if (dtype == 1 && D == 256) return int(CALL(__nv_bfloat16, 256));      \
+    if (D == 64) return int(CALL(T, 64));                                  \
+    if (D == 128) return int(CALL(T, 128));                                \
+    if (D == 256) return int(CALL(T, 256));                                \
     return int(cudaErrorInvalidValue);                                     \
   } while (0)
 
+// bf16 prefill takes the tensor-core form and f32 the SIMT form; the SIMT
+// form has no bf16 instantiation
 extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  const void* v, int dtype, int B, int H,
                                  int Hkv, int D, int sq, int skv,
@@ -380,11 +385,17 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_PREFILL(T, DD)                                                  \
+#define K4_PREFILL_SIMT(T, DD)                                             \
   launch_prefill<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv,  \
                         causal, window, scale, st)
-  K4_DISPATCH(K4_PREFILL);
-#undef K4_PREFILL
+#define K4_PREFILL_MMA(T, DD)                                              \
+  launch_mma<DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv, causal, \
+                 window, scale, st)
+  if (dtype == 0) K4_DISPATCH_D(K4_PREFILL_SIMT, float);
+  if (dtype == 1) K4_DISPATCH_D(K4_PREFILL_MMA, __nv_bfloat16);
+  return int(cudaErrorInvalidValue);
+#undef K4_PREFILL_SIMT
+#undef K4_PREFILL_MMA
 }
 
 extern "C" int flash_decode_launch(void* out, const void* q, const void* k,
@@ -399,6 +410,33 @@ extern "C" int flash_decode_launch(void* out, const void* q, const void* k,
 #define K4_DECODE(T, DD)                                                   \
   launch_decode<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, skv,       \
                        scale, st)
-  K4_DISPATCH(K4_DECODE);
+  if (dtype == 0) K4_DISPATCH_D(K4_DECODE, float);
+  if (dtype == 1) K4_DISPATCH_D(K4_DECODE, __nv_bfloat16);
+  return int(cudaErrorInvalidValue);
 #undef K4_DECODE
+}
+
+// The tensor-core form's raw scores q . k^T (f32, unscaled, unmasked) into
+// out (B*H, sq, skv): a card test of its QK^T fragments alone.  q, k bf16.
+extern "C" int flash_mma_scores_launch(float* out, const void* q,
+                                       const void* k, int B, int H, int Hkv,
+                                       int D, int sq, int skv, long long qsb,
+                                       long long qss, long long qsh,
+                                       long long ksb, long long kss,
+                                       long long ksh, void* stream) {
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K4_SCORES(T, DD)                                                   \
+  launch_mma_scores<DD>(out, q, k, qs, ks, B, H, H / Hkv, sq, skv, st)
+  K4_DISPATCH_D(K4_SCORES, __nv_bfloat16);
+#undef K4_SCORES
+}
+
+// The tensor-core form's dynamic shared memory per block at head dim D
+// (Q and the K/V ring, padded rows), or 0 for a D it is not built for.
+extern "C" int flash_mma_smem_bytes(int D) {
+  if (D == 64) return int(mma::smem_bytes<64>());
+  if (D == 128) return int(mma::smem_bytes<128>());
+  if (D == 256) return int(mma::smem_bytes<256>());
+  return 0;
 }

@@ -1,0 +1,433 @@
+// K4's bf16 prefill form on the tensor cores: mma.sync m16n8k16 (bf16 in,
+// f32 accumulate), operands from shared memory through ldmatrix, tiles
+// brought in by cp.async into a two-stage ring.  Included by flash_attn.cu,
+// whose launcher sends every bf16 prefill here; f32 prefill stays on the
+// SIMT form there.
+//
+// Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
+// for bf16 operands, with the function written at the top of flash_attn.cu
+// (scores in f32, -1e30 where the causal or window band drops a key, no
+// weight past skv, p rounded to bf16 before p . v, l summing the unrounded
+// p, out = acc / max(l, 1e-30) in bf16).
+//
+// Bound on an H100: at the main path's prefill (B 4, S 1024, H 4, Hkv 1,
+// D 256, causal) the products are about 8.6e9 flops, 8.7 us at the dense
+// bf16 tensor-core rate, against 6.3 us for the 21 MB of q, k, v and out:
+// bound by operations.  mma.sync reaches only part of that rate (wgmma,
+// whose B operand four warps read from shared memory once, is the way to
+// all of it).  What bounds this form instead is shared memory: every warp
+// reads the whole K and V tile through ldmatrix, and its Q rows again for
+// every key tile, 40 KB per warp per 32-key tile at D 256.
+//
+// Tiles.  One block of 4 warps per (b*H + h, 64-row q tile); warp w owns
+// query rows 16w .. 16w+15 for the whole softmax, so m and l live in
+// registers and no block-wide reduction is needed.  At D 256 a thread
+// holds the 16 x 256 f32 O accumulator of its warp as 128 registers, so Q
+// is not held in registers: it stays in shared memory and is re-read
+// through ldmatrix for every key tile.  Key tiles hold 64 keys, but 32 at
+// D 256 (key_tile): with a 64-key score tile beside the accumulator ptxas
+// spilled 72 bytes at 255 registers and the form ran much slower;
+// with 32 it holds 255 registers, no spill, and two blocks fit an SM.
+//
+// Shared memory: Q (64 x D) and a two-stage ring of K and V tiles
+// (2 x 2 x BK x D), all bf16, each row padded by 8 elements (16 bytes).
+// The padding makes consecutive rows start 16 bytes apart modulo 128, so
+// the 8 row addresses of each 8x8 ldmatrix fall in 8 different bank groups
+// (no conflicts) without an XOR swizzle's address arithmetic.  101,376
+// bytes at D 256 (BK 32), 87,040 at D 128 and 46,080 at D 64 (BK 64); the
+// launcher opts in above 48 KB on every launch.
+//
+// Fragments (PTX ISA, mma.m16n8k16 .bf16): S = Q K^T takes A from Q with
+// ldmatrix.x4 (16 rows x 16 d) and B from K's rows with ldmatrix.x4 (two
+// n8 blocks of keys x 16 d; K's row-major [key][d] tile is the "col"
+// operand as it stands).  The m16n8 f32 C fragment of S is, element for
+// element, the A fragment of the next product, so P goes to bf16 pairs in
+// registers and O += P V never sends P through shared memory; V's B
+// fragments come from its [key][d] tile through ldmatrix.x4.trans.
+//
+// Copies: 16-byte cp.async.cg per (row, 8 elements); rows past sq or skv
+// are zero-filled with the src-size 0 form.  Tile j+1's copies are started
+// before tile j is computed; cp.async.wait_group 1 and __syncthreads then
+// make tile j visible.  Every row start must be 16-byte aligned: the
+// Python wrapper raises unless each operand's data_ptr() is a multiple of
+// 16 bytes and its (b, s, h) strides multiples of 8 elements.
+//
+// Softmax: a thread holds 2 rows of the score fragment (rows g and g+8 of
+// its warp's 16); the row max finishes with two __shfl_xor over the 4
+// threads of a quad, l is kept per thread and summed over the quad once,
+// at the end.  A tile wholly inside every row's band skips the masking.
+//
+// Schedule: q tiles in launch order (blockIdx.x).  Reversing it, so the
+// causal tiles with the most key tiles start first, measured level with
+// the plain order on the model's grid (256 blocks, two per SM: one wave).
+// Epilogue: each warp writes acc / max(l, 1e-30) as bf16 pairs straight
+// from its fragments; staging them through shared memory for 16-byte rows
+// measured slower.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+struct Strides {                 // element strides of (B, S, H, D); D is 1
+  long long b, s, h;
+};
+
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;                 // query rows per block, 16 per warp
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 8;                 // bf16 elements of padding per row
+constexpr float kMaskAdd = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys per tile: 64, but 32 at D 256, where a 64-key score tile beside
+// the 128-register accumulator made ptxas spill
+template <int D> __host__ __device__ constexpr int key_tile() {
+  return D == 256 ? 32 : 64;
+}
+template <int D> __host__ __device__ constexpr int row_stride() {
+  return D + kPad;
+}
+template <int D> __host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(bf16) * size_t(row_stride<D>()) * (kBQ + 2 * 2 * key_tile<D>());
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src-size 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ROWS rows of D elements from g (row r0 + r at g + (r0 + r) * stride)
+// into a padded shared tile; rows at or past `limit` are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
+                                          long long stride, int r0, int limit,
+                                          int tid) {
+  constexpr int CH = D / 8;              // 16-byte chunks per row
+  static_assert((ROWS * CH) % kThreads == 0, "tile chunks per thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * CH / kThreads; ++j) {
+    const int i = tid + j * kThreads, r = i / CH, c = i % CH;
+    const bool in = r0 + r < limit;
+    const bf16* src = in ? g + (r0 + r) * stride + c * 8 : g;
+    cp_async16(smem_u32(s + r * row_stride<D>() + c * 8), src, in);
+  }
+}
+
+// lane's row and column (elements) in the 16x16 block that ldmatrix.x4
+// reads for an A fragment, or for V's B fragments with .trans: matrices
+// (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+// ... and for K's B fragments of two n8 key blocks: (keys 0-7, d 0-7),
+// (keys 0-7, d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15)
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_col(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
+
+// s = q . k^T for a warp's 16 query rows (sQw) against a BK-key tile (sKt)
+template <int D, int BK = key_tile<D>()>
+__device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4],
+                                            const bf16* sQw, const bf16* sKt,
+                                            int lane) {
+  constexpr int RS = row_stride<D>();
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+  const uint32_t qa = smem_u32(sQw + a_row(lane) * RS + a_col(lane));
+  const uint32_t kb = smem_u32(sKt + b_row(lane) * RS + b_col(lane));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, qa + kk * 32);
+#pragma unroll
+    for (int nb = 0; nb < BK / 16; ++nb) {
+      uint32_t b[4];
+      ldsm_x4(b, kb + nb * 16 * RS * 2 + kk * 32);
+      mma_bf16(s[2 * nb], a, b[0], b[1]);
+      mma_bf16(s[2 * nb + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
+                 const bf16* __restrict__ k, const bf16* __restrict__ v,
+                 Strides qs, Strides ks, Strides vs, int H, int g, int sq,
+                 int skv, int causal, int window, float scale) {
+  constexpr int RS = row_stride<D>(), BK = key_tile<D>();
+  constexpr int NO = D / 8;              // n8 blocks of the O accumulator
+  static_assert(BK % 16 == 0 && BK >= 16, "key tile: a multiple of 16");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][RS]
+  bf16* sK = sQ + kBQ * RS;                       // [2][BK][RS]
+  bf16* sV = sK + 2 * BK * RS;                   // [2][BK][RS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tig = lane & 3;       // fragment row, column pair
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / g;
+  const int q0 = blockIdx.x * kBQ, q1 = min(q0 + kBQ, sq);
+  const int w0 = q0 + warp * 16;                  // the warp's first row
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  // the keys this tile's band meets (as the SIMT form); a row with no key
+  // in its band (only with a window and sq > skv) needs every key, at -1e30
+  int kv_lo = 0, kv_hi = causal ? min(skv, q1) : skv;
+  if (window > 0) {
+    if (q1 - window >= skv) kv_hi = skv;
+    else kv_lo = max(0, q0 - window + 1);
+  }
+
+  load_tile<D, kBQ>(sQ, qb, qs.s, q0, sq, tid);
+  if (kv_lo < kv_hi) {
+    load_tile<D, BK>(sK, kb, ks.s, kv_lo, skv, tid);
+    load_tile<D, BK>(sV, vb, vs.s, kv_lo, skv, tid);
+  }
+  cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  float m_r[2] = {kMaskAdd, kMaskAdd}, l_r[2] = {0.f, 0.f};
+  const bf16* sQw = sQ + warp * 16 * RS;
+  const int vrow = a_row(lane), vcol = a_col(lane);
+
+  int stage = 0;
+  for (int t0 = kv_lo; t0 < kv_hi; t0 += BK, stage ^= 1) {
+    if (t0 + BK < kv_hi) {              // tile j+1 into the other stage
+      load_tile<D, BK>(sK + (stage ^ 1) * BK * RS, kb, ks.s, t0 + BK, skv,
+                        tid);
+      load_tile<D, BK>(sV + (stage ^ 1) * BK * RS, vb, vs.s, t0 + BK, skv,
+                        tid);
+    }
+    cp_async_commit();                   // (possibly empty) group of j+1
+    cp_async_wait<1>();                  // Q and tile j have landed
+    __syncthreads();
+
+    float s[BK / 8][4];
+    tile_scores<D>(s, sQw, sK + stage * BK * RS, lane);
+
+    // scale and mask; a tile inside every row's band of this warp skips
+    // the per-element test
+    const bool inside = t0 + BK <= skv &&
+                        (!causal || t0 + BK - 1 <= w0) &&
+                        (window <= 0 || t0 > w0 + 15 - window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[n][c] * scale;
+        if (!inside) {
+          const int row = w0 + gr + (c >> 1) * 8;
+          const int key = t0 + n * 8 + tig * 2 + (c & 1);
+          bool keep = !causal || key <= row;
+          if (window > 0) keep = keep && key > row - window;
+          x = key < skv ? x + (keep ? 0.f : kMaskAdd) : -INFINITY;
+        }
+        s[n][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f((m_r[r] - mx[r]) * kLog2e);
+      m_r[r] = mx[r];
+      l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = exp2f((s[n][c] - m_r[c >> 1]) * kLog2e);
+        l_r[c >> 1] += p;                // the unrounded p, as the reference
+        s[n][c] = p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += round_to_bf16(P) . V: S's C fragments are P's A fragments
+    const uint32_t vbase =
+        smem_u32(sV + stage * BK * RS + vrow * RS + vcol);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int nb = 0; nb < D / 16; ++nb) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vbase + kk * 16 * RS * 2 + nb * 32);
+        mma_bf16(o[2 * nb], a, bv[0], bv[1]);
+        mma_bf16(o[2 * nb + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                     // stage is free for tile j+2
+  }
+  cp_async_wait<0>();
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    den[r] = fmaxf(l_r[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + gr + r * 8;
+    if (row >= sq) continue;
+    bf16* orow = out + ((size_t(b) * sq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + tig * 2) =
+          pack_bf16(o[n][2 * r] / den[r], o[n][2 * r + 1] / den[r]);
+  }
+}
+
+// The raw scores q . k^T (f32, unscaled, unmasked) of one (q tile, key
+// tile) per block, through the same copies and fragments as the prefill
+// form: the card test of the QK^T fragments alone.  out: (B*H, sq, skv).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_mma_scores_kernel(float* __restrict__ out, const bf16* __restrict__ q,
+                        const bf16* __restrict__ k, Strides qs, Strides ks,
+                        int H, int g, int sq, int skv) {
+  constexpr int RS = row_stride<D>(), BK = key_tile<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + kBQ * RS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / g;
+  const int w0 = blockIdx.x * kBQ + warp * 16, t0 = blockIdx.z * BK;
+  load_tile<D, kBQ>(sQ, q + b * qs.b + h * qs.h, qs.s, blockIdx.x * kBQ, sq,
+                    tid);
+  load_tile<D, BK>(sK, k + b * ks.b + hk * ks.h, ks.s, t0, skv, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float s[BK / 8][4];
+  tile_scores<D>(s, sQ + warp * 16 * RS, sK, lane);
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = w0 + gr + (c >> 1) * 8;
+      const int key = t0 + n * 8 + tig * 2 + (c & 1);
+      if (row < sq && key < skv)
+        out[(size_t(bh) * sq + row) * skv + key] = s[n][c];
+    }
+}
+
+}  // namespace mma
+
+template <int D>
+cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
+                       Strides qs, Strides ks, Strides vs, int B, int H,
+                       int g, int sq, int skv, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma::smem_bytes<D>();
+  // dynamic shared memory above 48 KB needs the opt-in (on every launch:
+  // the attribute belongs to the current device)
+  const cudaError_t err = cudaFuncSetAttribute(
+      mma::flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + mma::kBQ - 1) / mma::kBQ, B * H, 1);
+  mma::flash_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+      static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
+      static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v), qs,
+      ks, vs, H, g, sq, skv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma_scores(float* out, const void* q, const void* k,
+                              Strides qs, Strides ks, int B, int H, int g,
+                              int sq, int skv, cudaStream_t stream) {
+  constexpr size_t smem =
+      sizeof(mma::bf16) * mma::row_stride<D>() *
+      (mma::kBQ + mma::key_tile<D>());
+  const cudaError_t err = cudaFuncSetAttribute(
+      mma::flash_mma_scores_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + mma::kBQ - 1) / mma::kBQ, B * H,
+                  (skv + mma::key_tile<D>() - 1) / mma::key_tile<D>());
+  mma::flash_mma_scores_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+      out, static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
+      qs, ks, H, g, sq, skv);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -143,6 +144,34 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, Built]:
     return {n: _LIBS[n] for n in names}
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Per entry function (mangled name) of a ``-Xptxas -v`` log: its
+    registers, stack frame and spill bytes."""
+    usage, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return usage
+
+
 def build_generated(sources: Dict[str, str]) -> Dict[str, Built]:
     """Build (or load from the cache) emitter-written CUDA sources, given
     as label -> text; one ``nvcc`` per missing library, all started
@@ -189,14 +218,17 @@ def generated_function(name: str, text: str, symbol: str,
     return _FUNCS[key]
 
 
-def launch(kernel: str, fn, *args) -> None:
+def launch(kernel: str, fn, *args, form: str = "") -> None:
     """Call a launcher, raise on a nonzero ``cudaError_t`` and count the
-    launch under ``kernel``."""
+    launch under ``kernel`` and, given a ``form``, under
+    ``"<kernel>:<form>"`` too."""
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel!r} failed to launch: "
-                           f"cudaError_t {err}")
-    _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+        raise RuntimeError(f"CUDA kernel {kernel!r}"
+                           f"{f' ({form})' if form else ''} failed to "
+                           f"launch: cudaError_t {err}")
+    for key in (kernel, f"{kernel}:{form}") if form else (kernel,):
+        _LAUNCHES[key] = _LAUNCHES.get(key, 0) + 1
 
 
 def launch_count(kernel: str) -> int:

@@ -85,3 +85,32 @@ def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{kernel}: at most {MAX_FRAMES} (batch x "
                              f"heads) per launch, got {B * H}")
     return dev
+
+
+# the bf16 prefill form (csrc/flash_attn_mma.cuh) copies 16-byte rows
+MMA_ALIGN_BYTES = 16
+MMA_STRIDE_ELEMS = 8
+
+
+def mma_misalignment(t: torch.Tensor):
+    """Why ``t`` breaks the tensor-core form's 16-byte copies, or None:
+    its data_ptr() must be a multiple of 16 bytes and its (b, s, h)
+    strides multiples of 8 elements.  A dim of size 1 is never stepped
+    over, so its stride does not matter."""
+    if t.data_ptr() % MMA_ALIGN_BYTES:
+        return (f"data_ptr() {t.data_ptr():#x} is not a multiple of "
+                f"{MMA_ALIGN_BYTES} bytes")
+    for dim in range(3):
+        if t.shape[dim] > 1 and t.stride(dim) % MMA_STRIDE_ELEMS:
+            return (f"stride {t.stride(dim)} of dim {dim} is not a multiple "
+                    f"of {MMA_STRIDE_ELEMS} elements")
+    return None
+
+
+def mma_aligned(kernel: str, **operands: torch.Tensor) -> None:
+    """Raise unless every operand meets ``mma_misalignment``'s rule."""
+    for name, t in operands.items():
+        why = mma_misalignment(t)
+        if why is not None:
+            raise ValueError(f"{kernel}: the bf16 prefill form needs "
+                             f"16-byte aligned rows; {name}'s {why}")

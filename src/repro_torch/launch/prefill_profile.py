@@ -1,0 +1,95 @@
+"""Time one model's prefill on the card: the wall of a ``prefill_fn``
+call, where one call's device time goes, and K4's prefill alone at the
+model's local and global layer shapes.
+
+    PYTHONPATH=src python -m repro_torch.launch.prefill_profile \\
+        [--arch gemma3-1b] [--batch 4] [--prompt-len 1024] [--calls 5]
+
+The model runs in its config's type (bf16 for gemma3-1b) with the random
+weights of ``init_params`` (seed 0).  The script uses only the package's
+public model API (``init_params``, ``build_forward``,
+``kernels.flash.flash_attention``) and the profiler, so the same file can
+time an earlier revision of the package put first on ``PYTHONPATH``: two
+revisions compare within one run on one card (a revision older than
+``kernels/timing.py`` needs that file copied into it first).  Prints one
+JSON line, then the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels.flash import flash_attention
+from repro_torch.kernels.timing import device_events
+from repro_torch.launch.serve import make_prompt
+from repro_torch.models import build_forward, init_params
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma3-1b", choices=sorted(ARCHS))
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--calls", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("prefill_profile: needs a CUDA card")
+    cfg = ARCHS[args.arch]
+    B, S = args.batch, args.prompt_len
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "batch": B, "prompt": S}
+
+    # K4 alone at the model's layer shapes (random q, k, v from seed 4)
+    rng = np.random.RandomState(4)
+    dtype = getattr(torch, cfg.dtype)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, h, cfg.hd).astype(
+        np.float32)).cuda().to(dtype)
+        for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    for layer, window in (("local", cfg.sliding_window), ("global", None)):
+        events = device_events(lambda: flash_attention(
+            q, k, v, causal=True, window=window), 50, warmup=1)[1]
+        out[f"k4_{layer}_ms"] = sum(events.values())
+        out[f"k4_{layer}_kernels"] = sorted(events)
+    del q, k, v
+
+    # the model: wall of warm calls (host clock), then one profiled call
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    prefill_fn, _ = build_forward(cfg)
+    toks = torch.from_numpy(make_prompt(cfg, B, S).tokens).cuda()
+    with torch.no_grad():
+        prefill_fn(params, {"tokens": toks})
+        walls = []
+        for _ in range(args.calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill_fn(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        events = device_events(lambda: prefill_fn(params, {"tokens": toks}),
+                               1, warmup=1)[1]
+    device_ms = sum(events.values())
+    top = sorted(events.items(), key=lambda kv: -kv[1])
+    out.update({
+        "wall_ms": statistics.median(walls), "wall_ms_all": walls,
+        "device_ms": device_ms,
+        "k4_device_ms": sum(ms for name, ms in events.items()
+                            if "flash_" in name),
+        "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]})
+    print(json.dumps(out), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -30,6 +30,8 @@ from repro_torch.kernels.megakernel.ops import megakernel_segment  # noqa: E402
 from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
 from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E402
+from repro_torch.kernels.flash.ops import (  # noqa: E402
+    form_launches, mma_scores, prefill_form)
 from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
 
 pytestmark = pytest.mark.card
@@ -120,7 +122,10 @@ def test_megakernel_matches_plain(card, case):
 
 
 # K4: tests/test_kernels.py's coverage classes (GQA f32, windowed bf16, MHA
-# D=256 f32, ragged bf16) at its tolerances, and the main path's shapes
+# D=256 f32, ragged bf16) at its tolerances, and the main path's shapes;
+# then bf16 cases for the tensor-core form: D 64/128/256 at a ragged Sq
+# and window, a non-causal ragged Skv, a window with empty-band rows (rows
+# 25.. of Sq 40 see no key of Skv 20) and GQA at D 256
 FLASH_CASES = [
     (2, 48, 48, 4, 2, 128, True, None, torch.float32, 2e-5),
     (2, 48, 48, 4, 4, 128, True, 13, torch.bfloat16, 3e-2),
@@ -129,6 +134,12 @@ FLASH_CASES = [
     (2, 24, 37, 4, 2, 64, False, None, torch.float32, 2e-5),
     (2, 40, 20, 4, 2, 64, True, 6, torch.float32, 2e-5),
     (1, 200, 200, 4, 1, 256, True, 70, torch.bfloat16, 3e-2),
+    (1, 200, 200, 4, 1, 64, True, 70, torch.bfloat16, 3e-2),
+    (1, 200, 200, 4, 1, 128, True, 70, torch.bfloat16, 3e-2),
+    (2, 77, 1001, 4, 2, 128, False, None, torch.bfloat16, 3e-2),
+    (2, 40, 20, 4, 2, 64, True, 6, torch.bfloat16, 3e-2),
+    (2, 40, 20, 4, 2, 256, True, 6, torch.bfloat16, 3e-2),
+    (2, 130, 130, 8, 2, 256, True, None, torch.bfloat16, 3e-2),
 ]
 
 
@@ -151,6 +162,67 @@ def test_flash_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, D, causal,
     assert out.dtype == dtype
     assert (out.float() - want).abs().max().item() <= atol
     assert registry.get_kernel("flash_attention").launches() == 1
+    # bf16 takes the tensor-core form, f32 the SIMT form
+    form = prefill_form(dtype)
+    assert form == ("prefill_mma" if dtype == torch.bfloat16
+                    else "prefill_simt")
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": 0, form: 1}
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_mma_scores_match_qk(card, D):
+    """The tensor-core form's QK^T fragments alone: its raw scores against
+    q . k^T in f32 (bf16 products are exact in f32; only the order of the
+    sum differs), GQA and a q tile and key tile that Sq 77 and Skv 100 cut
+    short."""
+    rng = np.random.RandomState(D)
+    q = _randn(rng, (2, 77, 4, D), torch.bfloat16, card)
+    k = _randn(rng, (2, 100, 2, D), torch.bfloat16, card)
+    got = mma_scores(q, k)
+    torch.cuda.synchronize()
+    want = torch.einsum("bqhgd,bkhd->bhgqk",
+                        q.float().reshape(2, 77, 2, 2, D),
+                        k.float()).reshape(2, 4, 77, 100)
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+def test_flash_bf16_strided_head_views(card):
+    """GQA with q, k, v as head views of one wider (B, S, H + 2 Hkv, D)
+    projection, as a fused QKV product would hand them over: strided
+    along s and offset, but 16-byte aligned."""
+    rng = np.random.RandomState(11)
+    H, Hkv, D = 8, 2, 128
+    qkv = _randn(rng, (2, 150, H + 2 * Hkv, D), torch.bfloat16, card)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    assert not q.is_contiguous()
+    out = flash_attention(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=40)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+    assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=True,
+                                            window=40))
+    assert form_launches()["prefill_mma"] == 2
+
+
+def test_flash_bf16_misaligned_raises(card):
+    """A bf16 operand the 16-byte copies cannot take raises; no other
+    form runs in its place."""
+    rng = np.random.RandomState(12)
+    H, D = 4, 64
+    wide = _randn(rng, (1, 32, H * D + 4), torch.bfloat16, card)
+    q = wide[:, :, :H * D].unflatten(2, (H, D))       # s stride H*D + 4
+    kv = _randn(rng, (1, 32, 1, D), torch.bfloat16, card)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q, kv, kv)
+    flat = _randn(rng, (32 * H * D + 1,), torch.bfloat16, card)
+    q_off = flat[1:].view(1, 32, H, D)                 # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(q_off, kv, kv)
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": 0}
+    assert registry.get_kernel("flash_attention").launches() == 0
 
 
 @pytest.mark.parametrize("D,dtype,atol", [(128, torch.float32, 2e-5),
@@ -169,6 +241,7 @@ def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
         want = attention_ref(q, k, v, causal=False)
         assert (out.float() - want).abs().max().item() <= atol
     assert registry.get_kernel("flash_attention").launches() == 2
+    assert form_launches()["decode"] == 2
 
 
 def test_model_forwards_on_card_match_cpu(card):

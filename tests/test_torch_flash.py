@@ -123,3 +123,90 @@ def test_operands_are_checked():
     with pytest.raises(ValueError, match="device"):
         flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
 
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+def test_mma_alignment_rule_accepts_aligned_views():
+    """The tensor-core form's rule on CPU tensors: contiguous operands,
+    head views of a fused QKV projection and a slice of a KV cache keep
+    16-byte rows; a size-1 dim's stride is never stepped over."""
+    from repro_torch.kernels._checks import mma_aligned, mma_misalignment
+    qkv = _bf16(2, 50, 12, 128)
+    cache = _bf16(2, 100, 2, 64)
+    views = {"contiguous": _bf16(2, 50, 4, 64),
+             "q_heads": qkv[:, :, :8], "k_heads": qkv[:, :, 8:10],
+             "cache_slice": cache[:, 13:77],
+             "size1_dims": _bf16(1, 50, 1, 64).as_strided(
+                 (1, 50, 1, 64), (3, 64, 5, 1))}
+    for name, t in views.items():
+        assert mma_misalignment(t) is None, name
+    mma_aligned("k4", **views)
+
+
+@pytest.mark.parametrize("case", ["s_stride", "h_stride", "offset"])
+def test_mma_alignment_rule_rejects_misaligned(case):
+    from repro_torch.kernels._checks import mma_aligned, mma_misalignment
+    if case == "s_stride":        # rows H*D + 4 elements apart
+        t = _bf16(1, 32, 4 * 64 + 4)[:, :, :256].unflatten(2, (4, 64))
+        want = "stride 260 of dim 1"
+    elif case == "h_stride":
+        t = _bf16(1, 32, 4, 68)[..., :64]
+        want = "stride 68 of dim 2"
+    else:                         # 2 bytes past an aligned start
+        t = _bf16(32 * 4 * 64 + 8)[1:1 + 32 * 4 * 64].view(1, 32, 4, 64)
+        want = "not a multiple of 16 bytes"
+    assert want in mma_misalignment(t)
+    with pytest.raises(ValueError, match="16-byte aligned rows; q's"):
+        mma_aligned("k4", q=t)
+
+
+def test_prefill_form_by_dtype():
+    from repro_torch.kernels.flash.ops import FORMS, prefill_form
+    assert prefill_form(torch.bfloat16) == "prefill_mma"
+    assert prefill_form(torch.float32) == "prefill_simt"
+    assert set(FORMS) == {"prefill_mma", "prefill_simt", "decode"}
+
+
+def test_cpu_route_takes_plain_version():
+    """On the CPU a bf16 prefill takes attention_ref, even through views
+    the tensor-core form would refuse, and counts no launch of any
+    form."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash.ops import form_launches
+    registry.reset_launch_counts()
+    rng = np.random.RandomState(9)
+    wide = torch.from_numpy(rng.randn(1, 20, 4 * 64 + 4).astype(
+        np.float32)).to(torch.bfloat16)
+    q = wide[:, :, :256].unflatten(2, (4, 64))
+    kv = torch.from_numpy(rng.randn(1, 20, 2, 64).astype(np.float32)).to(
+        torch.bfloat16)
+    out = flash_attention(q, kv, kv, causal=True, window=7)
+    want = attention_ref(q, kv, kv, causal=True, window=7).to(torch.bfloat16)
+    assert torch.equal(out, want)
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": 0}
+    assert registry.get_kernel("flash_attention").launches() == 0
+
+
+def test_form_counts_sit_beside_the_registry_count():
+    """A launch counts under flash_attention and under its form; the
+    registry's reset clears both.  (A stand-in launcher: no card here.)"""
+    from repro_torch.kernels import _build, registry
+    from repro_torch.kernels.flash.ops import KERNEL, form_launches
+    registry.reset_launch_counts()
+    for form in ("prefill_mma", "prefill_mma", "decode"):
+        _build.launch(KERNEL, lambda: 0, form=form)
+    assert form_launches() == {"prefill_mma": 2, "prefill_simt": 0,
+                               "decode": 1}
+    entry = registry.get_kernel(KERNEL)
+    assert entry.launches() == 3
+    _build.launch(KERNEL, lambda: 0, form="prefill_simt")
+    assert form_launches()["prefill_simt"] == 1 and entry.launches() == 4
+    registry.reset_launch_counts()
+    assert entry.launches() == 0 and sum(form_launches().values()) == 0
+    with pytest.raises(RuntimeError, match="prefill_mma"):
+        _build.launch(KERNEL, lambda: 2, form="prefill_mma")
+    assert entry.launches() == 0
