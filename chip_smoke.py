@@ -17,8 +17,10 @@ phase prints one JSON line:
            PYRAMID at 1920x1080 and at odd sizes, and a synthetic pipeline
            over every streamable op), all built from the checkout in one
            parallel batch, with each segment's tile and shared bytes; K4's
-           registers and spills per form, type and head dim, with the
-           tensor-core form's shared bytes (it must not spill)
+           registers and spills per kernel, type and head dim (and head
+           group for the decode form's split kernel, beside its merge
+           kernel), with the tensor-core form's shared bytes (it must not
+           spill)
   kernel   per kernel: the CUDA kernel against its plain PyTorch version
            at the main path's shapes and at odd shapes, 3 frames each,
            which must agree exactly (max abs diff 0); for K3, each app's
@@ -37,7 +39,8 @@ phase prints one JSON line:
            shapes (prefill B 4, S 1024, H 4, Hkv 1, D 256 in bf16, with
            window 512 and without, and the f32 check's B 2 local layer;
            decode over a 1024-key cache and over a 512-slot window span of
-           a longer cache), tests/test_kernels.py's four coverage classes
+           a longer cache, with its split), a short decode span (64 keys),
+           MHA decode in f32, tests/test_kernels.py's four coverage classes
            and its decode case at their tolerances, a ragged Skv, and bf16
            cases for the tensor-core form (D 64 and 256 at a ragged Sq and
            window, a non-causal ragged Skv, empty-band rows, GQA through
@@ -72,7 +75,8 @@ phase prints one JSON line:
            decode step; one more bf16 prefill_fn call under the profiler
            for its device time, K4's share of it and its top kernels;
            init seconds, prefill ms, decode ms per step, tokens/s, and the
-           card's top kernels over a profiled decode step
+           card's top kernels over a profiled decode step, with K4's share
+           of its device time (split and merge kernels)
   kernels  one line: every kernel (K3 once per app segment, K4 once per
            form) with its launches on its main path (the counters are
            reset just before the image path phase, just before the f32
@@ -356,6 +360,11 @@ def build_phase(designs):
                                  f"{use}")
     if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
         raise AssertionError("the SIMT prefill form has a bf16 build")
+    if len(k4.get("decode_split", {})) != 24 or \
+            len(k4.get("decode_merge", {})) != 2:
+        raise AssertionError(f"K4's decode kernels built as "
+                             f"{k4.get('decode_split')}, "
+                             f"{k4.get('decode_merge')}")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "k4_forms": k4,
           "kernels": {n: {"nvcc_s": b.seconds, "ptxas": ptxas_summary(b.log)}
@@ -554,7 +563,8 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
     version's, scaled_dot_product_attention's and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
-    from repro_torch.kernels.flash.ops import form_launches, prefill_form
+    from repro_torch.kernels.flash.ops import (decode_split, form_launches,
+                                               prefill_form)
     from repro_torch.kernels.timing import device_ms
     from repro_torch.kernels.flash.ref import attention_ref
 
@@ -588,6 +598,9 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
                       "window": None if decode else window},
             "dtype": str(q.dtype).split(".")[-1], "max_abs_err": err,
             "tolerance": atol}
+    if decode:
+        line["split"] = dict(zip(("kc", "nsplit"),
+                                 decode_split(skv, B * hkv)))
     # the library yardstick: one call of scaled_dot_product_attention on
     # (B, H, S, D) copies made outside the timing, GQA by enable_gqa, the
     # window as a boolean band mask
@@ -667,6 +680,15 @@ def flash_phase(torch, np):
     lines["decode_window_span"] = flash_case(
         torch, np, "decode_window_span", q1, kc[:, span], vc[:, span],
         causal=False, window=None, decode=True, atol=3e-2)
+    # a short span (a few splits of 16 keys), and MHA (g 1) in f32 at the
+    # model's head dim over the prompt's keys
+    lines["decode_short"] = flash_case(
+        torch, np, "decode_short", q1, k[:, :64], v[:, :64], causal=False,
+        window=None, decode=True, atol=3e-2)
+    lines["decode_g1_f32"] = flash_case(
+        torch, np, "decode_g1_f32", randn((B, 1, H, D), f32),
+        randn((B, S, H, D), f32), randn((B, S, H, D), f32), causal=False,
+        window=None, decode=True, atol=2e-5)
     # tests/test_kernels.py:43-48 coverage classes and its decode case
     # (:60), at its tolerances; a ragged Skv no tile divides
     for name, (b, s, h, hkv, d, window, dtype, atol) in {
@@ -903,11 +925,13 @@ def llm_phase(torch, np):
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
+    k4_ms = sum(e.self_device_time_total for e in events
+                if "flash_decode" in e.key) / 1e3 / 3
     host_ops = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.key.startswith("aten::")) / 3
     line["decode_step_profile"] = {
-        "wall_ms": wall, "device_ms": device_ms,
+        "wall_ms": wall, "device_ms": device_ms, "k4_device_ms": k4_ms,
         "device_busy_share": device_ms / wall,
         "aten_ops_per_step": host_ops,
         "top": [{"name": e.key[:80], "calls_per_step": e.count / 3,

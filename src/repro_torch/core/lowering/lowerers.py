@@ -37,10 +37,16 @@ def _f32(a):
 
 
 def _float_div(a, b):
-    # FloatDiv's b == 0 -> 0 rule (hwimg.FloatDiv)
+    # FloatDiv's b == 0 -> 0 rule (hwimg.FloatDiv).  numpy divides
+    # float32(a) by an integer divisor in float64 and the executor rounds
+    # the quotient once to float32; an integer divisor above 2**24 would
+    # lose bits in float32.  A float or bool divisor stays in float32.
     safe = torch.where(b == 0, torch.ones_like(b), b)
-    return torch.where(b != 0, _f32(a) / _f32(safe),
-                       torch.zeros((), dtype=torch.float32, device=a.device))
+    zero = torch.zeros((), dtype=torch.float32, device=a.device)
+    if b.is_floating_point() or b.dtype == torch.bool:
+        return torch.where(b != 0, _f32(a) / _f32(safe), zero)
+    q = _f32(a).to(torch.float64) / safe.to(torch.float64)
+    return torch.where(b != 0, q.to(torch.float32), zero)
 
 
 def _float_sqrt(a):
@@ -48,11 +54,22 @@ def _float_sqrt(a):
     # -0.0 to +0.0 and keeps NaN).  torch's CPU float32 sqrt is not
     # correctly rounded (its vector path misses the IEEE result in about
     # 0.7 % of inputs); the float64 root rounded once to float32 is, since
-    # double rounding is innocuous for sqrt when 53 >= 2 * 24 + 2.
+    # double rounding is innocuous for sqrt when 53 >= 2 * 24 + 2.  An
+    # integer operand goes to float64 straight from int64, as numpy takes
+    # its root, never through float32.
+    if not a.is_floating_point():
+        x = torch.clamp(a.to(torch.int64), min=0).to(torch.float64)
+        return torch.sqrt(x).to(torch.float32)
     x = _f32(a)
     x = torch.where(x <= 0, torch.zeros((), dtype=x.dtype, device=x.device),
                     x)
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def _int_operand(a):
+    # numpy promotes a bool operand of - and abs to an integer; torch
+    # refuses both on bool
+    return a.to(torch.int64) if a.dtype == torch.bool else a
 
 
 def _rshift(n: int) -> Callable:
@@ -64,9 +81,9 @@ def _rshift(n: int) -> Callable:
 _TORCH_FNS: Dict[str, Callable[[Dict[str, Any]], Callable]] = {
     "Add": lambda p: (lambda a, b: a + b),
     "AddAsync": lambda p: (lambda a, b: a + b),
-    "Sub": lambda p: (lambda a, b: a - b),
+    "Sub": lambda p: (lambda a, b: _int_operand(a) - _int_operand(b)),
     "Mul": lambda p: (lambda a, b: a * b),
-    "Abs": lambda p: torch.abs,
+    "Abs": lambda p: (lambda a: torch.abs(_int_operand(a))),
     "AbsDiff": lambda p: (
         lambda a, b: torch.abs(a.to(torch.int64) - b.to(torch.int64))),
     "Max": lambda p: torch.maximum,

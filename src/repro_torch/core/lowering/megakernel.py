@@ -648,6 +648,11 @@ def _c_point_fn(fn, args: List[Tuple[str, str]]) -> Tuple[str, str]:
     """The C expression and C type of point function ``fn`` on ``args``
     ((expression, C type) each), with the port's torch semantics."""
     name, p = fn.name, dict(fn.params)
+    if name in ("Sub", "Abs"):
+        # a bool operand counts as 0 / 1 (numpy promotes it; the lowerers
+        # cast it to int64)
+        args = [(f"static_cast<long long>({e})", "long long")
+                if t == "bool" else (e, t) for e, t in args]
     xs = [e for e, _ in args]
     ts = [t for _, t in args]
     ints = all(t == "long long" for t in ts)

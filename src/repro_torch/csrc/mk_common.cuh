@@ -14,7 +14,9 @@
 //   - the float point functions, each one IEEE operation rounded to
 //     nearest (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn,
 //     __ll2float_rn), with FloatDiv's b == 0 -> 0 rule and FloatSqrt's
-//     clamp at 0.  Generated sources build with -fmad=false as well.
+//     clamp at 0; FloatDiv by an integer and FloatSqrt of an integer in
+//     double (__ddiv_rn, __dsqrt_rn), rounded once to float, as numpy
+//     computes them.  Generated sources build with -fmad=false as well.
 //
 // Reads outside a node's frame are zero-filled by the generated code
 // itself, which knows each node's frame size.
@@ -95,9 +97,25 @@ __device__ __forceinline__ float mk_fdiv(A a, B b) {
   return b != static_cast<B>(0) ? __fdiv_rn(mk_f32(a), mk_f32(b)) : 0.0f;
 }
 
+// an integer divisor: numpy divides float32(a) by it in double, and the
+// quotient is rounded once to float (a divisor above 2^24 would lose bits
+// in float)
+template <class A>
+__device__ __forceinline__ float mk_fdiv(A a, long long b) {
+  return b != 0LL ? __double2float_rn(__ddiv_rn(
+                        static_cast<double>(mk_f32(a)), __ll2double_rn(b)))
+                  : 0.0f;
+}
+
 template <class A>
 __device__ __forceinline__ float mk_fsqrt(A a) {
   // np.maximum(a, 0): -0.0 becomes +0.0, NaN stays NaN
   const float x = mk_f32(a);
   return __fsqrt_rn(x <= 0.0f ? 0.0f : x);
+}
+
+// an integer radicand: numpy takes its root in double straight from the
+// integer, then it is rounded once to float
+__device__ __forceinline__ float mk_fsqrt(long long a) {
+  return __double2float_rn(__dsqrt_rn(__ll2double_rn(a < 0LL ? 0LL : a)));
 }

@@ -87,30 +87,31 @@ def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
     return dev
 
 
-# the bf16 prefill form (csrc/flash_attn_mma.cuh) copies 16-byte rows
-MMA_ALIGN_BYTES = 16
-MMA_STRIDE_ELEMS = 8
+# K4's bf16 prefill form (csrc/flash_attn_mma.cuh) and its decode form
+# (csrc/flash_attn.cu) move rows 16 bytes at a time
+ROW_ALIGN_BYTES = 16
 
 
-def mma_misalignment(t: torch.Tensor):
-    """Why ``t`` breaks the tensor-core form's 16-byte copies, or None:
-    its data_ptr() must be a multiple of 16 bytes and its (b, s, h)
-    strides multiples of 8 elements.  A dim of size 1 is never stepped
+def row_misalignment(t: torch.Tensor):
+    """Why ``t``'s rows break 16-byte copies, or None: its data_ptr() must
+    be a multiple of 16 bytes and its (b, s, h) strides multiples of 16
+    bytes (8 bf16 or 4 f32 elements).  A dim of size 1 is never stepped
     over, so its stride does not matter."""
-    if t.data_ptr() % MMA_ALIGN_BYTES:
+    if t.data_ptr() % ROW_ALIGN_BYTES:
         return (f"data_ptr() {t.data_ptr():#x} is not a multiple of "
-                f"{MMA_ALIGN_BYTES} bytes")
+                f"{ROW_ALIGN_BYTES} bytes")
     for dim in range(3):
-        if t.shape[dim] > 1 and t.stride(dim) % MMA_STRIDE_ELEMS:
-            return (f"stride {t.stride(dim)} of dim {dim} is not a multiple "
-                    f"of {MMA_STRIDE_ELEMS} elements")
+        step = t.stride(dim) * t.element_size()
+        if t.shape[dim] > 1 and step % ROW_ALIGN_BYTES:
+            return (f"stride {t.stride(dim)} of dim {dim} ({step} bytes) is "
+                    f"not a multiple of {ROW_ALIGN_BYTES} bytes")
     return None
 
 
-def mma_aligned(kernel: str, **operands: torch.Tensor) -> None:
-    """Raise unless every operand meets ``mma_misalignment``'s rule."""
+def rows_aligned(kernel: str, form: str, **operands: torch.Tensor) -> None:
+    """Raise unless every operand meets ``row_misalignment``'s rule."""
     for name, t in operands.items():
-        why = mma_misalignment(t)
+        why = row_misalignment(t)
         if why is not None:
-            raise ValueError(f"{kernel}: the bf16 prefill form needs "
-                             f"16-byte aligned rows; {name}'s {why}")
+            raise ValueError(f"{kernel}: the {form} form needs 16-byte "
+                             f"aligned rows; {name}'s {why}")

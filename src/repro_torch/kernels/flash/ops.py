@@ -6,10 +6,12 @@ A CUDA tensor launches ``csrc/flash_attn.cu`` (or raises); a CPU tensor
 takes the plain version in ref.py; any other device raises.  Operands may
 be strided views (a slice of a KV cache, a head split of a projection):
 only the last dim must be contiguous.  A bf16 prefill goes to the
-tensor-core form (``csrc/flash_attn_mma.cuh``), which copies 16-byte rows:
-its operands must also meet ``_checks.mma_misalignment``'s rule, or the
-wrapper raises (there is no other bf16 prefill form to fall back to).  An
-f32 prefill goes to the SIMT form.
+tensor-core form (``csrc/flash_attn_mma.cuh``), an f32 prefill to the SIMT
+form.  The decode form splits the keys over blocks (``decode_split``) and
+merges the splits in a second kernel, both behind one launcher.  The
+tensor-core and decode forms copy 16-byte rows: their operands must also
+meet ``_checks.row_misalignment``'s rule, or the wrapper raises (there is
+no other form to fall back to).
 
 Every launch counts under ``flash_attention`` and under its form,
 ``flash_attention:<form>`` for the forms of ``FORMS``; ``form_launches``
@@ -31,22 +33,32 @@ FORMS = ("prefill_mma", "prefill_simt", "decode")
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 7 + (_LL,) * 9
                      + (_I, _I, ctypes.c_float, _P))
-_DECODE_ARGTYPES = ((_P,) * 4 + (_I,) * 6 + (_LL,) * 8
+_DECODE_ARGTYPES = ((_P,) * 5 + (_I,) * 8 + (_LL,) * 8
                     + (ctypes.c_float, _P))
 _SCORES_ARGTYPES = (_P,) * 3 + (_I,) * 6 + (_LL,) * 6 + (_P,)
 
-# a kernel of the library by its mangled name: form, type, head dim
-_ENTRY = re.compile(r"(flash_(?:mma|prefill|decode)_kernel)I(.*?)Li(\d+)E")
+# the decode form's split: about one block per SM over its grid, chunks of
+# at least MIN_CHUNK keys (csrc/flash_attn.cu dec::kMaxSplits = SMS)
+SMS = 132
+MIN_CHUNK = 16
+
+# a kernel of the library by its mangled name: kernel, type, head dim and
+# the decode split kernel's head-group width
+_ENTRY = re.compile(r"(flash_(?:mma|prefill|decode_split|decode_merge)"
+                    r"_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?"
+                    r"(?:Li(\d+)E)?")
 _FORM_OF = {"flash_mma_kernel": "prefill_mma",
             "flash_prefill_kernel": "prefill_simt",
-            "flash_decode_kernel": "decode"}
+            "flash_decode_split_kernel": "decode_split",
+            "flash_decode_merge_kernel": "decode_merge"}
 
 
 def resources(built: _build.Built) -> dict:
-    """Per form, then per type and head dim ("bf16_d256"): ptxas's
-    registers, stack and spill bytes for each kernel of a built
-    ``flash_attn`` library, and the tensor-core form's shared bytes per
-    block."""
+    """Per kernel (the two prefill forms, the decode form's split and
+    merge kernels), then per type, head dim and head group ("bf16_d256",
+    "bf16_d256_g4", "bf16"): ptxas's registers, stack and spill bytes for
+    each kernel of a built ``flash_attn`` library, and the tensor-core
+    form's shared bytes per block."""
     smem = built.lib.flash_mma_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     out = {}
@@ -54,12 +66,13 @@ def resources(built: _build.Built) -> dict:
         m = _ENTRY.search(name)
         if not m:
             continue
-        form, D = _FORM_OF[m.group(1)], int(m.group(3))
-        dtype = "f32" if m.group(2) == "f" else "bf16"
+        form, D, G = _FORM_OF[m.group(1)], m.group(3), m.group(4)
+        key = ("f32" if m.group(2) == "f" else "bf16") + (
+            f"_d{D}" if D else "") + (f"_g{G}" if G else "")
         entry = dict(use)
         if form == "prefill_mma":
-            entry["smem_bytes"] = smem(D)
-        out.setdefault(form, {})[f"{dtype}_d{D}"] = entry
+            entry["smem_bytes"] = smem(int(D))
+        out.setdefault(form, {})[key] = entry
     return out
 
 
@@ -69,6 +82,21 @@ def _strides(t: torch.Tensor):
 
 def _dtype_code(t: torch.Tensor) -> int:
     return _checks.ATTENTION_DTYPES.index(t.dtype)
+
+
+def decode_split(skv: int, blocks: int):
+    """(kc, nsplit): the decode form's split of ``skv`` keys into nsplit
+    chunks of kc keys, chunk c holding keys [c*kc, min((c+1)*kc, skv)),
+    for ``blocks`` (b, kv head) pairs.  The split kernel's grid is
+    (nsplit, blocks): nsplit aims at one block per SM, but no chunk but
+    the last has fewer than MIN_CHUNK keys, none is empty, and a span
+    shorter than 2 * MIN_CHUNK keys stays one chunk."""
+    if skv < 1 or blocks < 1:
+        raise ValueError(f"{KERNEL}: cannot split {skv} keys over {blocks} "
+                         f"blocks")
+    nsplit = max(1, min(-(-SMS // blocks), skv // MIN_CHUNK))
+    kc = -(-skv // nsplit)
+    return kc, -(-skv // kc)
 
 
 def prefill_form(dtype: torch.dtype) -> str:
@@ -94,7 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              window=window).to(q.dtype)
     form = prefill_form(q.dtype)
     if form == "prefill_mma":
-        _checks.mma_aligned(KERNEL, q=q, k=k, v=v)
+        _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -117,26 +145,33 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token decode: q (B, 1, H, D) against every key of the
     (B, S, Hkv, D) caches it is given, no mask.  As in the reference, the
     query sits at position 0, so ``window`` drops no key: a caller passes
-    the span of the cache it wants seen."""
+    the span of the cache it wants seen.  On the card: the split kernel
+    over ``decode_split``'s chunks, then the merge kernel, one counted
+    launch; the f32 workspace of the splits' (m, l, acc) is allocated
+    here."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{KERNEL}: decode takes q of shape (B, 1, H, D), "
                          f"got {tuple(q.shape)}")
     if _checks.attention(KERNEL, q, k_cache, v_cache) == "cpu":
         return attention_ref(q, k_cache, v_cache,
                              causal=False).to(q.dtype)
+    _checks.rows_aligned(KERNEL, "decode", q=q, k=k_cache, v=v_cache)
     B, _, H, D = q.shape
     _, Skv, Hkv, _ = k_cache.shape
+    kc, nsplit = decode_split(Skv, B * Hkv)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    ws = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                     device=q.device)
     fn = _build.function("flash_attn", "flash_decode_launch",
                          _DECODE_ARGTYPES)
     qsb, _, qsh = _strides(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.launch(KERNEL, fn, out.data_ptr(), q.data_ptr(),
-                      k_cache.data_ptr(), v_cache.data_ptr(), _dtype_code(q),
-                      B, H, Hkv, D, Skv, qsb, qsh, *_strides(k_cache),
-                      *_strides(v_cache), 1.0 / math.sqrt(D), stream,
-                      form="decode")
+        _build.launch(KERNEL, fn, out.data_ptr(), ws.data_ptr(),
+                      q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                      _dtype_code(q), B, H, Hkv, D, Skv, kc, nsplit, qsb, qsh,
+                      *_strides(k_cache), *_strides(v_cache),
+                      1.0 / math.sqrt(D), stream, form="decode")
     return out
 
 
@@ -148,7 +183,7 @@ def mma_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if q.dtype != torch.bfloat16 or q.device.type != "cuda":
         raise ValueError("mma_scores takes bf16 CUDA operands")
     _checks.attention(KERNEL, q, k, k)
-    _checks.mma_aligned(KERNEL, q=q, k=k)
+    _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     out = torch.empty((B, H, Sq, Skv), dtype=torch.float32, device=q.device)

@@ -1,7 +1,8 @@
 """Checks of K3 against its plain version, shared by ``chip_smoke.py`` and
-the card tests: leaf-wise comparison of a segment's outputs (integers
-exact, f32 within ``FLOAT_ULP_BOUND`` ULPs) and a synthetic pipeline over
-every op the emitter streams."""
+the tests: leaf-wise comparison of a segment's outputs (integers exact,
+f32 within ``FLOAT_ULP_BOUND`` ULPs), a synthetic pipeline over every op
+the emitter streams, and probes of the point functions' integer edge
+cases."""
 from __future__ import annotations
 
 import numpy as np
@@ -89,3 +90,49 @@ def all_ops_pipeline(c, w: int = 37, h: int = 13):
                             big)
 
     return AllOps()
+
+
+def point_fn_probes(c):
+    """Pipelines at the edges of the point functions' integer semantics,
+    built from either package's core ``c``, each with its input frames
+    (the first is the exact input that found the fault): FloatSqrt and
+    FloatDiv on UInt(32) values above 2**24, where numpy computes in
+    float64 from the integers, and Sub and Abs with a Bool operand, which
+    numpy promotes to an integer.  ``sqrt`` is a lone node and stays
+    generic; ``sqrt_fused`` (an identity Max first) is FloatSqrt of an
+    integer inside a fused segment.  Returns name -> (UserFunction,
+    (frames, h, w) int64 array)."""
+
+    def probe(name, ty, body):
+        class Probe(c.UserFunction):
+            def __init__(self):
+                super().__init__(name, ty)
+
+            def define(self, x):
+                return body(x)
+
+        return Probe()
+
+    u32, u8 = c.Array2d(c.UInt(32), 8, 4), c.Array2d(c.UInt(8), 6, 3)
+    big = np.stack([np.random.RandomState(s).randint(2 ** 24, 2 ** 32, (4, 8))
+                    | 1 for s in (0, 1)]).astype(np.int64)
+    small = np.stack([np.random.RandomState(s).randint(0, 256, (3, 6))
+                      for s in (0, 1)]).astype(np.int64)
+
+    def gt(a):
+        return c.Map(c.Gt)(a, c.Const(c.UInt(8), 100))
+
+    return {
+        "sqrt": (probe("sqrt", u32, lambda x: c.Map(c.FloatSqrt)(x)), big),
+        "sqrt_fused": (probe("sqrtf", u32, lambda x: c.Map(c.FloatSqrt)(
+            c.Map(c.Max)(x, c.Const(c.UInt(32), 0)))), big),
+        "div_by_shift": (probe("divs", u32, lambda x: c.Map(c.FloatDiv)(
+            x, c.Map(c.Rshift(3))(x))), big),
+        "div_float_by_int": (probe("divf", u32, lambda x: c.Map(c.FloatDiv)(
+            c.Map(c.ToFloat)(c.Map(c.RemoveMSBs(24))(x)), x)), big),
+        "sub_bool_int": (probe("sbi", u8, lambda a: c.Map(c.Sub)(gt(a), a)),
+                         small),
+        "sub_int_bool": (probe("sib", u8, lambda a: c.Map(c.Sub)(a, gt(a))),
+                         small),
+        "abs_bool": (probe("absb", u8, lambda a: c.Map(c.Abs)(gt(a))), small),
+    }

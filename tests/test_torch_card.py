@@ -25,7 +25,7 @@ from repro_torch.kernels.conv2d.ops import conv2d_stencil  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.sad.ops import sad_disparity  # noqa: E402
 from repro_torch.kernels.megakernel.check import (  # noqa: E402
-    all_ops_pipeline, check_leaves)
+    all_ops_pipeline, check_leaves, point_fn_probes)
 from repro_torch.kernels.megakernel.ops import megakernel_segment  # noqa: E402
 from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
@@ -119,6 +119,29 @@ def test_megakernel_matches_plain(card, case):
                        exact=case == "descriptor")
     assert res["max_ulp"] <= FLOAT_ULP_BOUND
     assert registry.get_kernel("megakernel").launches() == 1
+
+
+@pytest.mark.parametrize("probe", sorted(point_fn_probes(port_core)))
+def test_point_fn_probes_on_card_match_cpu(card, probe):
+    """FloatDiv by and FloatSqrt of integers above 2**24 and Sub and Abs
+    of a Bool, on the kernels backend on the card (K3's double-precision
+    mk_fdiv / mk_fsqrt overloads and its bool Sub / Abs in every probe but
+    the lone-node ``sqrt``), against the torch backend on the CPU bit for
+    bit: test_torch_pipeline.py holds the latter to the executor."""
+    uf, x = point_fn_probes(port_core)[probe]
+    key = f"{uf.name}.in"
+    design = compile_pipeline(uf, options=CompileOptions(backend="kernels"))
+    cpu = compile_pipeline(uf, options=CompileOptions(backend="torch",
+                                                      device="cpu"))
+    fused = len(design.lower().megakernels)
+    assert fused == (probe != "sqrt")
+    for f in range(len(x)):
+        got, want = design.run({key: x[f]}), cpu.run({key: x[f]})
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    got, want = design.run_batch({key: x}), cpu.run_batch({key: x})
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert registry.get_kernel("megakernel").launches() == fused * (
+        len(x) + 1)
 
 
 # K4: tests/test_kernels.py's coverage classes (GQA f32, windowed bf16, MHA
@@ -225,23 +248,60 @@ def test_flash_bf16_misaligned_raises(card):
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
-@pytest.mark.parametrize("D,dtype,atol", [(128, torch.float32, 2e-5),
-                                          (256, torch.bfloat16, 3e-2)])
+DECODE_SKV = (1, 7, 32, 33, 100, 512, 1024, 1056)
+DECODE_G = (1, 3, 4, 8, 16)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
 def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
-    """tests/test_kernels.py's decode case, and a cache slice (a strided
-    view) as the model passes it."""
+    """The split-KV decode form over one chunk and many (skv 1 .. 1056),
+    GQA groups of 1, 4 and 8 query heads per kv head (and 3 and 16, which
+    leave a head group part empty or take two), each on a contiguous
+    cache and on a cache slice (a strided view, as the model passes it);
+    one counted launch per call."""
     rng = np.random.RandomState(D)
-    q = _randn(rng, (2, 1, 8, D), dtype, card)
-    cache = _randn(rng, (2, 100, 2, D), dtype, card)
-    vcache = _randn(rng, (2, 100, 2, D), dtype, card)
-    for k, v in ((cache[:, :64].contiguous(), vcache[:, :64].contiguous()),
-                 (cache[:, 13:77], vcache[:, 13:77])):
-        out = flash_decode(q, k, v)
-        torch.cuda.synchronize()
-        want = attention_ref(q, k, v, causal=False)
-        assert (out.float() - want).abs().max().item() <= atol
-    assert registry.get_kernel("flash_attention").launches() == 2
-    assert form_launches()["decode"] == 2
+    calls = 0
+    for g in DECODE_G:
+        Hkv = 2
+        q = _randn(rng, (2, 1, g * Hkv, D), dtype, card)
+        for skv in DECODE_SKV:
+            cache = _randn(rng, (2, skv + 20, Hkv, D), dtype, card)
+            vcache = _randn(rng, (2, skv + 20, Hkv, D), dtype, card)
+            for k, v in ((cache[:, :skv].contiguous(),
+                          vcache[:, :skv].contiguous()),
+                         (cache[:, 13:13 + skv], vcache[:, 13:13 + skv])):
+                out = flash_decode(q, k, v)
+                torch.cuda.synchronize()
+                calls += 1
+                want = attention_ref(q, k, v, causal=False)
+                assert out.dtype == dtype and out.shape == q.shape
+                err = (out.float() - want).abs().max().item()
+                assert err <= atol, (g, skv, err)
+    assert registry.get_kernel("flash_attention").launches() == calls
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": calls}
+
+
+def test_flash_decode_misaligned_raises(card):
+    """A decode operand whose rows the 16-byte loads cannot take raises
+    and launches nothing: no other form runs in its place."""
+    rng = np.random.RandomState(13)
+    D = 128
+    q = _randn(rng, (2, 1, 4, D), torch.float32, card)
+    kv = _randn(rng, (2, 64, 1, D), torch.float32, card)
+    wide = _randn(rng, (2, 64, 1, D + 2), torch.float32, card)
+    flat = _randn(rng, (2 * 4 * D + 4,), torch.bfloat16, card)
+    for args in ((q, wide[..., :D], kv),                 # s stride 520 B
+                 (q, kv, wide[..., 2:]),                 # 8 bytes in
+                 (flat[1:1 + 2 * 4 * D].view(2, 1, 4, D),  # 2 bytes in
+                  kv.to(torch.bfloat16), kv.to(torch.bfloat16))):
+        with pytest.raises(ValueError, match="decode form needs 16-byte"):
+            flash_decode(*args)
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": 0}
+    assert registry.get_kernel("flash_attention").launches() == 0
 
 
 def test_model_forwards_on_card_match_cpu(card):

@@ -133,7 +133,7 @@ def test_mma_alignment_rule_accepts_aligned_views():
     """The tensor-core form's rule on CPU tensors: contiguous operands,
     head views of a fused QKV projection and a slice of a KV cache keep
     16-byte rows; a size-1 dim's stride is never stepped over."""
-    from repro_torch.kernels._checks import mma_aligned, mma_misalignment
+    from repro_torch.kernels._checks import row_misalignment, rows_aligned
     qkv = _bf16(2, 50, 12, 128)
     cache = _bf16(2, 100, 2, 64)
     views = {"contiguous": _bf16(2, 50, 4, 64),
@@ -142,13 +142,13 @@ def test_mma_alignment_rule_accepts_aligned_views():
              "size1_dims": _bf16(1, 50, 1, 64).as_strided(
                  (1, 50, 1, 64), (3, 64, 5, 1))}
     for name, t in views.items():
-        assert mma_misalignment(t) is None, name
-    mma_aligned("k4", **views)
+        assert row_misalignment(t) is None, name
+    rows_aligned("k4", "bf16 prefill", **views)
 
 
 @pytest.mark.parametrize("case", ["s_stride", "h_stride", "offset"])
 def test_mma_alignment_rule_rejects_misaligned(case):
-    from repro_torch.kernels._checks import mma_aligned, mma_misalignment
+    from repro_torch.kernels._checks import row_misalignment, rows_aligned
     if case == "s_stride":        # rows H*D + 4 elements apart
         t = _bf16(1, 32, 4 * 64 + 4)[:, :, :256].unflatten(2, (4, 64))
         want = "stride 260 of dim 1"
@@ -158,9 +158,60 @@ def test_mma_alignment_rule_rejects_misaligned(case):
     else:                         # 2 bytes past an aligned start
         t = _bf16(32 * 4 * 64 + 8)[1:1 + 32 * 4 * 64].view(1, 32, 4, 64)
         want = "not a multiple of 16 bytes"
-    assert want in mma_misalignment(t)
+    assert want in row_misalignment(t)
     with pytest.raises(ValueError, match="16-byte aligned rows; q's"):
-        mma_aligned("k4", q=t)
+        rows_aligned("k4", "bf16 prefill", q=t)
+
+
+def test_row_alignment_rule_counts_bytes():
+    """The decode form's rule is the same 16 bytes for both types: an f32
+    stride of 4 elements keeps rows aligned where a bf16 one does not, and
+    the cache slices the model's decode step passes (k_cache[:, lo:cur+1],
+    stepping by Hkv * D elements) are aligned for every lo."""
+    from repro_torch.kernels._checks import row_misalignment, rows_aligned
+    f32 = torch.zeros(1, 8, 2, 68)[..., :64]              # h stride 68
+    assert row_misalignment(f32) is None
+    assert "136 bytes" in row_misalignment(_bf16(1, 8, 2, 68)[..., :64])
+    odd = torch.zeros(1, 8, 2, 66)[..., :64]              # 264 bytes
+    assert "264 bytes" in row_misalignment(odd)
+    for dtype in (torch.float32, torch.bfloat16):
+        cache = torch.zeros(4, 1056, 1, 256, dtype=dtype)
+        for lo in (0, 1, 7, 513):
+            rows_aligned("k4", "decode", k=cache[:, lo:1024])
+    with pytest.raises(ValueError, match="decode form needs 16-byte"):
+        rows_aligned("k4", "decode", q=odd)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8, 16, 100, 132, 500])
+def test_decode_split_covers_every_key_once(blocks):
+    """Every key in exactly one chunk, no chunk empty, at most one block
+    per SM's worth of splits, no chunk but the last below MIN_CHUNK keys,
+    and spans shorter than 2 * MIN_CHUNK keys kept whole (no one-key
+    pieces)."""
+    from repro_torch.kernels.flash.ops import MIN_CHUNK, SMS, decode_split
+    for skv in range(1, 2100):
+        kc, nsplit = decode_split(skv, blocks)
+        chunks = [range(c * kc, min((c + 1) * kc, skv))
+                  for c in range(nsplit)]
+        assert [j for ch in chunks for j in ch] == list(range(skv))
+        assert all(len(ch) > 0 for ch in chunks)
+        assert 1 <= nsplit <= max(1, -(-SMS // blocks))
+        assert nsplit == 1 or kc >= MIN_CHUNK
+        if skv < 2 * MIN_CHUNK:
+            assert nsplit == 1
+    with pytest.raises(ValueError, match="cannot split"):
+        decode_split(0, blocks)
+
+
+def test_decode_split_fills_the_card_on_the_main_path():
+    """gemma3-1b's decode (B 4, Hkv 1): at least 128 split blocks over the
+    prompt's 1024 keys, over the 1056-slot cache and over a local layer's
+    512-slot span; chunks of 32 keys at 1024."""
+    from repro_torch.kernels.flash.ops import decode_split
+    assert decode_split(1024, 4) == (32, 32)
+    for skv in (512, 1024, 1056):
+        kc, nsplit = decode_split(skv, 4)
+        assert 4 * nsplit >= 128
 
 
 def test_prefill_form_by_dtype():

@@ -51,7 +51,7 @@ from repro_torch.core.lowering.megakernel import (  # noqa: E402
     WHOLE, _map_streams_input, _winsum_geometry, emit_megakernel)
 from repro_torch.kernels import _build, registry  # noqa: E402
 from repro_torch.kernels.megakernel.check import (  # noqa: E402
-    all_ops_pipeline, check_leaves)
+    all_ops_pipeline, check_leaves, point_fn_probes)
 from repro_torch.kernels.megakernel.ops import megakernel_segment  # noqa: E402
 from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.stream import MK_SMEM_LIMIT  # noqa: E402
@@ -446,6 +446,10 @@ _SHIM = textwrap.dedent(r"""
     inline float __fdiv_rn(float a, float b) { return a / b; }
     inline float __fsqrt_rn(float a) { return std::sqrt(a); }
     inline float __ll2float_rn(long long a) { return (float)a; }
+    inline double __ll2double_rn(long long a) { return (double)a; }
+    inline double __ddiv_rn(double a, double b) { return a / b; }
+    inline double __dsqrt_rn(double a) { return std::sqrt(a); }
+    inline float __double2float_rn(double a) { return (float)a; }
     inline float __int_as_float(int a) {
       float f; std::memcpy(&f, &a, 4); return f;
     }
@@ -520,6 +524,29 @@ def test_generated_source_on_the_host_matches_executor(case, tile, host_cxx,
     design = compile_pipeline(_ufs(case)[1], options=CompileOptions(
         backend="kernels", device="cpu"))
     _assert_matches_executor(case, design, _batch(case, seed=1))
+
+
+FUSED_PROBES = sorted(n for n in point_fn_probes(port_core) if n != "sqrt")
+
+
+@pytest.mark.parametrize("probe", FUSED_PROBES)
+def test_generated_source_on_the_host_matches_executor_on_probes(
+        probe, host_cxx, monkeypatch):
+    """FloatDiv by and FloatSqrt of integers above 2**24 (double, rounded
+    once), and Sub and Abs of a Bool, in one fused segment each, as
+    generated C++ on the host against the executor, bit for bit."""
+    _with_site(monkeypatch, (8, 32), _host_site(host_cxx))
+    juf, x = point_fn_probes(jax_core)[probe]
+    uf = point_fn_probes(port_core)[probe][0]
+    design = compile_pipeline(uf, options=CompileOptions(
+        backend="kernels", device="cpu"))
+    assert len(design.lower().megakernels) == 1
+    key = f"{uf.name}.in"
+    got = np.asarray(design.run_batch({key: x}))
+    for f in range(len(x)):
+        want = evaluate(juf.build()[1], {key: x[f]})
+        assert want.dtype == got.dtype
+        assert want.tobytes() == got[f].tobytes()
 
 
 # --------------------------------------------------------------------------

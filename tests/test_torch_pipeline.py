@@ -33,6 +33,7 @@ from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
 from repro_torch.apps import (from_reference, golden_convolution,  # noqa: E402
                               golden_descriptor, golden_flow, golden_pyramid,
                               golden_stereo)
+from repro_torch.kernels.megakernel.check import point_fn_probes  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 3
@@ -344,6 +345,26 @@ def test_float_sqrt_is_correctly_rounded():
     want = port_core.FloatSqrt.np_fn(a)
     assert got.dtype == want.dtype == np.float32
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernels"])
+@pytest.mark.parametrize("probe", sorted(point_fn_probes(port_core)))
+def test_point_fn_probes_match_executor(probe, backend):
+    """FloatSqrt and FloatDiv on UInt(32) values above 2**24 (numpy works
+    from the integers in float64, never through float32) and Sub and Abs
+    with a Bool operand (numpy promotes it; torch refuses bool - and abs):
+    run and run_batch give the executor's values and types bit for bit."""
+    juf, x = point_fn_probes(jax_core)[probe]
+    uf = point_fn_probes(port_core)[probe][0]
+    key = f"{uf.name}.in"
+    design = compile_pipeline(uf, options=CompileOptions(backend=backend,
+                                                         device="cpu"))
+    batch = np.asarray(design.run_batch({key: x}))
+    for f in range(len(x)):
+        want = evaluate(juf.build()[1], {key: x[f]})
+        one = np.asarray(design.run({key: x[f]}))
+        assert want.dtype == one.dtype == batch.dtype
+        assert want.tobytes() == one.tobytes() == batch[f].tobytes()
 
 
 def test_node_values_end_at_the_run_output():
