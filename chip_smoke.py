@@ -19,16 +19,18 @@ phase prints one JSON line:
            parallel batch, with each segment's tile and shared bytes; K4's
            registers and spills per kernel, type and head dim (and head
            group for the decode form's split kernel, beside its merge
-           kernel), with the tensor-core form's shared bytes (it must not
-           spill)
+           kernel), with the tensor-core form's shared bytes; that form,
+           K2 and every generated segment must not spill
   kernel   per kernel: the CUDA kernel against its plain PyTorch version
            at the main path's shapes and at odd shapes, 3 frames each,
            which must agree exactly (max abs diff 0); for K3, each app's
            segment at 1920x1080 with 1 frame and with 3, each app at an odd
            size and the synthetic pipeline, where integer leaves must agree
            exactly, float leaves within FLOAT_ULP_BOUND ULPs and DESCRIPTOR's
-           exactly; then the kernel's time (CUDA events over many launches),
-           the plain version's, the library yardstick's, and the bound (the
+           exactly; then the kernel's device time (the profiler's kernel
+           events, ``kernels/timing.py``) with its call time beside it
+           (CUDA events around back-to-back calls, host work included), the
+           plain version's, the library yardstick's, and the bound (the
            larger of bytes over 3.35 TB/s and the function's least
            operations over the SMs' lane rate at the maximum SM clock:
            integer ops on 64 lanes per SM, integer and f32 ops together on
@@ -203,6 +205,7 @@ def bound(nbytes: int, int_ops: int, peak_int_ops: float, f32_ops: int = 0):
 
 def kernel_phase(torch, np, peak_int_ops):
     import torch.nn.functional as F
+    from repro_torch.kernels.timing import device_ms
     from repro_torch.apps.convolution import SHIFT, default_kernel
     from repro_torch.kernels.conv2d.ops import conv2d_stencil
     from repro_torch.kernels.conv2d.ref import conv2d_ref
@@ -249,9 +252,13 @@ def kernel_phase(torch, np, peak_int_ops):
                                        peak_int_ops)
     results["conv2d"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: conv2d_stencil(p1, k_main, SHIFT), 200),
+        # ms: the kernel's device time; call_ms: CUDA events around
+        # back-to-back wrapper calls, host work included
+        "ms": device_ms(lambda: conv2d_stencil(p1, k_main, SHIFT), 200),
+        "call_ms": cuda_ms(lambda: conv2d_stencil(p1, k_main, SHIFT), 200),
         "plain_ms": cuda_ms(lambda: conv2d_ref(p1, k_main, SHIFT), 10),
-        "library_ms": cuda_ms(library, 50),
+        "library_ms": device_ms(library, 50),
+        "library_call_ms": cuda_ms(library, 50),
         "bound_ms": b_ms, "bound_by": b_by,
         "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
         "shape": {"p": [n, hp, wp], "k": [kh, kw], "out": list(out1.shape)},
@@ -269,10 +276,19 @@ def kernel_phase(torch, np, peak_int_ops):
     r_odd = u8(tuple(l_odd.shape))
     tie = torch.full((3, oh + obh - 1, ow + obw - 1 + ond - 1), 7,
                      dtype=torch.int32, device=dev)
+    # R repeats every 5 columns, so disparities 5 apart tie: the first wins
+    r_rep = l_main[:, :, :5].repeat(1, 1, -(-l_main.shape[2] // 5))[
+        :, :, :l_main.shape[2]].contiguous()
+    # blocks wider than a warp, which the kernel's general form takes
+    wh, ww, wnd, wbh, wbw = 13, 300, 4, 60, 40
+    l_wide = u8((3, wh + wbh - 1, ww + wbw - 1 + wnd - 1))
+    r_wide = u8(tuple(l_wide.shape))
     err = 0
     for name, l, r, prm in [("main", l_main, r_main, (nd, bh, bw)),
+                            ("period5_ties", l_main, r_rep, (nd, bh, bw)),
                             ("odd", l_odd, r_odd, (ond, obh, obw)),
-                            ("all_tie", tie, tie.clone(), (ond, obh, obw))]:
+                            ("all_tie", tie, tie.clone(), (ond, obh, obw)),
+                            ("wide", l_wide, r_wide, (wnd, wbh, wbw))]:
         got = sad_disparity(l, r, nd=prm[0], bh=prm[1], bw=prm[2])
         err = max(err, check_equal(f"sad {name}", got,
                                    sad_ref(l, r, nd=prm[0], bh=prm[1],
@@ -290,13 +306,15 @@ def kernel_phase(torch, np, peak_int_ops):
     _, h, w = out1.shape
     hp, wp = h + bh - 1, w + bw - 1
     int_ops = nd * (hp * wp + 2 * hp * w + 2 * h * w + h * w)
-    # the kernel's own count: every block summed directly
+    # the direct sum's count: every block summed from its taps
     direct_ops = out1.numel() * nd * (bh * bw + 1)
     b_ms, b_by, t_bytes, t_ops = bound(nbytes, int_ops, peak_int_ops)
     results["sad"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: sad_disparity(l1, r1, nd=nd, bh=bh, bw=bw),
-                      50),
+        "ms": device_ms(lambda: sad_disparity(l1, r1, nd=nd, bh=bh, bw=bw),
+                        50),
+        "call_ms": cuda_ms(lambda: sad_disparity(l1, r1, nd=nd, bh=bh,
+                                                 bw=bw), 50),
         "plain_ms": cuda_ms(lambda: sad_ref(l1, r1, nd=nd, bh=bh, bw=bw),
                             2, warmup=1),
         "library_ms": None,
@@ -358,6 +376,14 @@ def build_phase(designs):
         if use.get("spill_stores", 1) or use.get("spill_loads", 1):
             raise AssertionError(f"K4 tensor-core form spills at {dim}: "
                                  f"{use}")
+    # K2's forms and every generated segment: a segment's launch bounds
+    # name the blocks per SM its shared memory allows, which caps its
+    # registers, so a spill there is one nobody chose
+    for name, b in [("sad", built["sad"])] + [(f"megakernel {k}", g)
+                                             for k, g in gen.items()]:
+        for fn, use in _build.ptxas_usage(b.log).items():
+            if use.get("spill_stores", 1) or use.get("spill_loads", 1):
+                raise AssertionError(f"{name} spills in {fn}: {use}")
     if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
         raise AssertionError("the SIMT prefill form has a bf16 build")
     if len(k4.get("decode_split", {})) != 24 or \
@@ -372,6 +398,9 @@ def build_phase(designs):
           "generated": {k: {"segment": mk.name, "nvcc_s": gen[k].seconds,
                             "ptxas": ptxas_summary(gen[k].log),
                             "tile": list(mk.tile), "smem_bytes": mk.smem_bytes,
+                            "min_blocks": mk.min_blocks,
+                            "phases": len(mk.levels),
+                            "stored_windows": len(mk.stored),
                             "fused_nodes": mk.n_nodes,
                             "lines": mk.source.count("\n")}
                         for k, mk in segments.items()}})
@@ -383,6 +412,7 @@ def megakernel_phase(torch, np, designs, peak_int_ops):
     from repro_torch.kernels.megakernel.check import check_leaves
     from repro_torch.kernels.megakernel.ops import megakernel_segment
     from repro_torch.kernels.megakernel.ref import megakernel_ref
+    from repro_torch.kernels.timing import device_ms
 
     rng = np.random.RandomState(3)
     results = {}
@@ -419,7 +449,10 @@ def megakernel_phase(torch, np, designs, peak_int_ops):
             line.update({
                 "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
                 "max_ulp": max(c["max_ulp"] for c in checks.values()),
-                "ms": cuda_ms(lambda: megakernel_segment(mk, *seg1), iters),
+                "ms": device_ms(lambda: megakernel_segment(mk, *seg1),
+                                iters),
+                "call_ms": cuda_ms(lambda: megakernel_segment(mk, *seg1),
+                                   iters),
                 "plain_ms": cuda_ms(lambda: megakernel_ref(mk, *seg1), 2,
                                     warmup=1),
                 "library_ms": None,
@@ -991,6 +1024,7 @@ def main() -> int:
                 "replaces": e.replaces, "tpu": TPU_KERNELS[e.name],
                 "launches": n_launch, "equal": k["max_abs_err"] == 0,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "call_ms": k["call_ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 

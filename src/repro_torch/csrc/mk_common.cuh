@@ -5,8 +5,9 @@
 // side of the window plumbing in kernels/stream.py and of the port's
 // LOWERERS semantics:
 //
-//   - floor division (Upsample's demand floors offsets that go negative at
-//     the frame's top and left edges; C++ `/` truncates toward zero);
+//   - floor division and the minimum of window offsets, in int (Upsample's
+//     demand floors offsets that go negative at the frame's top and left
+//     edges; C++ `/` truncates toward zero);
 //   - the wrap masks of torch_mask on the int64 carrier (unsigned widths
 //     mask, signed widths mask and sign-extend);
 //   - integer arithmetic in unsigned long long, cast back: signed overflow
@@ -27,15 +28,15 @@
 
 typedef unsigned long long mk_u64;
 
-__device__ __forceinline__ long long mk_floordiv(long long a, long long b) {
+// ---- tile geometry: window offsets and coordinates are int ---------------
+
+__device__ __forceinline__ int mk_floordiv(int a, int b) {
   // b > 0
-  const long long q = a / b;
+  const int q = a / b;
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-__device__ __forceinline__ long long mk_min(long long a, long long b) {
-  return a < b ? a : b;
-}
+__device__ __forceinline__ int mk_min(int a, int b) { return a < b ? a : b; }
 
 // ---- wrap masks (torch_mask), widths of at most 62 bits -------------------
 

@@ -25,6 +25,9 @@ MK_BLOCK_ROWS = 8
 MK_TILE_COLS = 32
 MK_THREADS = 256                        # threads per block
 MK_SMEM_LIMIT = 232_448                 # shared memory one H100 block can use
+MK_SM_SMEM = 233_472                    # shared memory of one H100 SM
+MK_SMEM_RESERVED = 1_024                # of it, reserved per resident block
+MK_SM_THREADS = 2_048                   # resident threads per SM
 
 
 def nbytes(shape: Tuple[int, ...], dtype: torch.dtype) -> int:

@@ -43,7 +43,9 @@ from repro.core.executor import evaluate  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
 from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
 from repro_torch.apps import PIPELINES  # noqa: E402
-from repro_torch.core.hwimg import map_reshape_plans, type_shape  # noqa: E402
+from repro_torch.core.dtypes import Float  # noqa: E402
+from repro_torch.core.hwimg import (  # noqa: E402
+    map_reshape_plans, scalar_of, type_shape)
 from repro_torch.core.lowering import engine as port_engine  # noqa: E402
 from repro_torch.core.lowering.lowerers import (  # noqa: E402
     LOWERERS, torch_mask, torch_point_fn)
@@ -148,7 +150,8 @@ def test_row_demands_match_reference(app, reference):
 def test_full_hd_segments_fit_and_report_reference_counts(app, reference):
     lp = _full_hd(app)
     (mk,) = lp.megakernels
-    assert f"__global__ void __launch_bounds__({mk.threads})" in mk.source
+    assert (f"__global__ void __launch_bounds__({mk.threads}, "
+            f"{mk.min_blocks})") in mk.source
     assert f"{mk.kernel_name}(" in mk.source and "mk_launch" in mk.source
     assert mk.tile == (8, 32) and 0 < mk.smem_bytes <= MK_SMEM_LIMIT
     assert (mk.n_nodes, mk.n_winsum, mk.float_nodes) == COUNTS[app]
@@ -256,7 +259,7 @@ class _Tile:
     """The windows of one output tile."""
 
     def __init__(self, mk, env: Dict[int, Any], r0: int, c0: int):
-        self.mk, self.env = mk, env
+        self.mk, self.env, self.r0, self.c0 = mk, env, r0, c0
         self.nodes = {n.uid: n for n in mk.nodes}
         self.win: Dict[int, Tuple[Any, int, int]] = {}
         for u in mk.stored:
@@ -279,6 +282,14 @@ class _Tile:
                 return tuple(take_window(e, r, rows, c, cols) for e in v)
             return take_window(v, r, rows, c, cols)
         n = self.nodes[u]
+        if u in self.mk.inline:
+            # computed where it is read: only ever over its own window
+            own = (self.mk.rows[u].off(self.r0), self.mk.rows[u].size,
+                   self.mk.cols[u].off(self.c0), self.mk.cols[u].size)
+            assert (r, rows, c, cols) == own, (n, (r, rows, c, cols), own)
+            h, w = type_shape(n.ty)[:2]
+            return mask_outside_frame(torch_mask(
+                self._compute(n, r, rows, c, cols), n.ty), r, c, h, w)
         if n.op == "Stencil":
             l, b, sh, sw = _winsum_geometry(n)
             x = self.read(n.inputs[0], r + b, rows + sh - 1, c + l,
@@ -438,7 +449,7 @@ _SHIM = textwrap.dedent(r"""
     #define __global__
     #define __device__
     #define __forceinline__ inline
-    #define __launch_bounds__(n)
+    #define __launch_bounds__(...)
     #define __syncthreads() ((void)0)
     inline float __fmul_rn(float a, float b) { return a * b; }
     inline float __fadd_rn(float a, float b) { return a + b; }
@@ -550,38 +561,197 @@ def test_generated_source_on_the_host_matches_executor_on_probes(
 
 
 # --------------------------------------------------------------------------
+# the kernel's layout: registers, shared memory and phases
+
+def test_flow_keeps_patches_and_its_float_tail_in_registers():
+    """FLOW at 1920x1080 and 8x32 tiles: the two Sobel patch products fold
+    into their Reduces, no float node has a window, only the five products
+    that the box sums read are stored (in 32 bits), and three phases (the
+    products, the column sums, the rest and the outputs) need two
+    barriers."""
+    lp = _full_hd("flow")
+    task = _mk_task(lp)
+    mk = emit_megakernel(lp.ir, task.nodes, task.in_uids, task.out_uids,
+                         tile_cols=32)
+    assert mk.tile == (8, 32) and mk.smem_bytes <= 48 * 1024
+    patch_maps = {n.uid for n in mk.nodes
+                  if n.op == "Map" and len(type_shape(n.ty)) > 2
+                  and n.uid not in mk.skip}
+    floats = {n.uid for n in mk.nodes
+              if isinstance(scalar_of(n.ty), Float)}
+    assert len(patch_maps) == 2 and patch_maps <= mk.inline
+    assert len(floats) == 16 and not floats & set(mk.stored)
+    stored = [lp.ir.nodes[u] for u in mk.stored]
+    assert [(n.op, n.params["fn"].name) for n in stored] == [("Map", "Mul")] * 5
+    assert mk.source.count("int* w") == 5 and "long long* w" not in mk.source
+    assert mk.source.count("__syncthreads()") == mk.barriers == 2
+    assert mk.min_blocks >= 4
+
+
+def _layout_uf(c, probe: str):
+    """The layout probes, built from either package's core ``c``:
+    ``two_readers``, a 3x3 patch product read by two Reduces (it stays
+    stored); ``wide_box``, a 10x40 box sum, wider than either test tile;
+    ``wrap32``, an Int(32) product that wraps, stored for a 3x3 sum (which
+    wraps again); ``above31``, UInt(32) values above 2**31, stored for a
+    3x3 maximum."""
+
+    def two_readers(x):
+        k = c.Const(c.Array2d(c.UInt(4), 3, 3),
+                    np.arange(1, 10).reshape(3, 3))
+        prod = c.Map(c.Mul)(c.Stencil(-1, 1, -1, 1)(x), k)
+        return c.Concat(c.Reduce(c.Add)(prod), c.Reduce(c.Max)(prod))
+
+    def wide_box(x):
+        return c.Reduce(c.Add)(c.Map(c.AddMSBs(12))(
+            c.Stencil(-39, 0, -9, 0)(x)))
+
+    def wrap32(x):
+        a = c.Map(c.Sub)(x, c.Const(c.UInt(16), 60000))         # Int(17)
+        p = c.Map(c.RemoveMSBs(2))(c.Map(c.Mul)(a, a))          # Int(32)
+        return c.Reduce(c.Add)(c.Stencil(-1, 1, -1, 1)(p))
+
+    def above31(x):
+        v = c.Map(c.Max)(x, c.Const(c.UInt(32), 5))
+        return c.Reduce(c.Max)(c.Stencil(-1, 1, -1, 1)(v))
+
+    body, ty = {"two_readers": (two_readers, c.UInt(8)),
+                "wide_box": (wide_box, c.UInt(8)),
+                "wrap32": (wrap32, c.UInt(16)),
+                "above31": (above31, c.UInt(32))}[probe]
+    w, h = (50, 30) if probe == "wide_box" else (37, 13)
+
+    class Probe(c.UserFunction):
+        def __init__(self):
+            super().__init__(probe, c.Array2d(ty, w, h))
+
+        def define(self, x):
+            return body(x)
+
+    return Probe()
+
+
+def _layout_probe(name):
+    """(frames, the layout property the probe checks)."""
+    rng = np.random.RandomState(8)
+    if name == "wide_box":
+        x = rng.randint(0, 256, (FRAMES, 30, 50))
+    elif name == "wrap32":
+        x = rng.randint(0, 2 ** 16, (FRAMES, 13, 37))
+    elif name == "above31":
+        x = rng.randint(2 ** 31, 2 ** 32, (FRAMES, 13, 37)) ^ (
+            rng.randint(0, 2, (FRAMES, 13, 37)) << 31)
+    else:
+        x = rng.randint(0, 256, (FRAMES, 13, 37))
+
+    def stored_patch(mk):
+        return any(len(type_shape(n.ty)) > 2 and n.uid in mk.stored
+                   for n in mk.nodes)
+
+    return x, {
+        "two_readers": stored_patch,
+        "wide_box": lambda mk: mk.n_winsum == 1
+        and mk.cols[next(iter(mk.winsum))].size < 40,
+        "wrap32": lambda mk: "int* w" in mk.source,
+        "above31": lambda mk: "unsigned* w" in mk.source,
+    }[name]
+
+
+@pytest.mark.parametrize("tile", [(3, 5), (8, 32)])
+@pytest.mark.parametrize("probe", ["two_readers", "wide_box", "wrap32",
+                                   "above31"])
+def test_layout_probes_match_executor(probe, tile, host_cxx, monkeypatch):
+    """Each layout case as generated C++ on the host with g++, and as the
+    CPU model of the tiling, against the executor bit for bit."""
+    x, layout = _layout_probe(probe)
+    key = f"{probe}.in"
+    want = [evaluate(_layout_uf(jax_core, probe).build()[1], {key: f})
+            for f in x]
+    if probe == "wrap32":               # the products do wrap
+        a = x.astype(np.int64) - 60000
+        assert (a * a >= 2 ** 31).any()
+    for site in (_host_site(host_cxx), evaluate_tiles):
+        _with_site(monkeypatch, tile, site)
+        design = compile_pipeline(_layout_uf(port_core, probe),
+                                  options=CompileOptions(backend="kernels",
+                                                         device="cpu"))
+        (mk,) = design.lower().megakernels
+        assert layout(mk)
+        got = _flat(design.run_batch({key: x}))
+        for f, w_ in enumerate(want):
+            w_ = _flat(w_)
+            assert [a.dtype for a in w_] == [g.dtype for g in got]
+            assert all(a.tobytes() == g[f].tobytes()
+                       for a, g in zip(w_, got))
+
+
+def test_frames_past_int_range_index_in_64_bits():
+    """A device-memory index within a frame is an int while the frame has
+    fewer than 2**31 elements (FLOW at 1080p) and 64-bit past that (a
+    3x3 sum over a 47000 x 46000 frame)."""
+    flow = _mk_task(_full_hd("flow")).mk
+    assert "static_cast<long long>(y" not in flow.source
+
+    class Huge(port_core.UserFunction):
+        def __init__(self):
+            super().__init__("huge", port_core.Array2d(port_core.UInt(8),
+                                                       47000, 46000))
+
+        def define(self, x):
+            return port_core.Reduce(port_core.Add)(
+                port_core.Stencil(-1, 1, -1, 1)(x))
+
+    design = compile_pipeline(Huge(), options=CompileOptions(
+        backend="kernels", device="cpu"))
+    (mk,) = design.lower().megakernels
+    assert 47000 * 46000 >= 2 ** 31
+    reads = re.findall(r"in0\[f \* fs0 \+ ([^\]]*)\]", mk.source)
+    writes = re.findall(r"out0\[f \* \d+ \+ ([^\]]*)\]", mk.source)
+    assert reads and writes
+    assert all(i.startswith("static_cast<long long>(") for i in reads + writes)
+
+
+# --------------------------------------------------------------------------
 # emitter rules
 
-class _Wide(port_core.UserFunction):
-    """A 13x13 patch product: its window needs 346,112 B at 8x32 tiles."""
+def _wide(c):
+    """A 17x17 patch product read by two Reduces, built from either
+    package's core ``c``: the product stays stored, and its window needs
+    295,936 B at 8x32 tiles."""
 
-    def __init__(self, c=port_core):
-        super().__init__("wide", c.Array2d(c.UInt(8), 40, 20))
-        self.c = c
+    class Wide(c.UserFunction):
+        def __init__(self):
+            super().__init__("wide", c.Array2d(c.UInt(8), 40, 20))
 
-    def define(self, x):
-        c = self.c
-        k = c.Const(c.Array2d(c.UInt(2), 13, 13),
-                    np.arange(169).reshape(13, 13) % 4)
-        return c.Reduce(c.Add)(c.Map(c.Mul)(c.Stencil(-6, 6, -6, 6)(x), k))
+        def define(self, x):
+            k = c.Const(c.Array2d(c.UInt(2), 17, 17),
+                        np.arange(289).reshape(17, 17) % 4)
+            prod = c.Map(c.Mul)(c.Stencil(-8, 8, -8, 8)(x), k)
+            return c.Concat(c.Reduce(c.Add)(prod), c.Reduce(c.Max)(prod))
+
+    return Wide()
 
 
 def test_tile_columns_halve_until_the_windows_fit(monkeypatch):
-    design = compile_pipeline(_Wide(), options=CompileOptions(
+    design = compile_pipeline(_wide(port_core), options=CompileOptions(
         backend="kernels", device="cpu"))
     (mk,) = design.lower().megakernels
     assert mk.tile == (8, 16) and mk.smem_bytes <= MK_SMEM_LIMIT
     assert "CUDA tile 8x16" in mk.report_line()
     x = np.random.RandomState(2).randint(0, 256, (FRAMES, 20, 40))
-    want = np.stack([evaluate(_Wide(jax_core).build()[1], {"wide.in": f})
-                     for f in x])
-    assert np.array_equal(design.run_batch({"wide.in": x}), want)
+    want = [_flat(evaluate(_wide(jax_core).build()[1], {"wide.in": f}))
+            for f in x]
+    got = _flat(design.run_batch({"wide.in": x}))
+    assert all(np.array_equal(g[f], w_) for f in range(FRAMES)
+               for g, w_ in zip(got, want[f]))
     # the CPU model of the tiling at the emitted tile agrees
     monkeypatch.setitem(registry.KERNELS, "megakernel", dataclasses.replace(
         registry.get_kernel("megakernel"), site_fn=evaluate_tiles))
-    tiled = compile_pipeline(_Wide(), options=CompileOptions(
+    tiled = compile_pipeline(_wide(port_core), options=CompileOptions(
         backend="kernels", device="cpu"))
-    assert np.array_equal(tiled.run_batch({"wide.in": x}), want)
+    got = _flat(tiled.run_batch({"wide.in": x}))
+    assert all(np.array_equal(g[f], w_) for f in range(FRAMES)
+               for g, w_ in zip(got, want[f]))
 
 
 class _Total(port_core.UserFunction):
