@@ -19,11 +19,14 @@ phase prints one JSON line:
            parallel batch, with each segment's tile and shared bytes; K4's
            registers and spills per kernel, type and head dim (and head
            group for the decode form's split kernel, beside its merge
-           kernel), with the tensor-core form's shared bytes; that form,
-           K2 and every generated segment must not spill
+           kernel), with each prefill form's shared bytes, and K1's per
+           form; K1, both prefill forms, K2 and every generated segment
+           must not spill
   kernel   per kernel: the CUDA kernel against its plain PyTorch version
            at the main path's shapes and at odd shapes, 3 frames each,
-           which must agree exactly (max abs diff 0); for K3, each app's
+           which must agree exactly (max abs diff 0); K1 also at 1x1,
+           11x2 and 2x16 taps (its general form) and with taps near 2^23
+           whose int32 sums wrap (8x8 and 3x5); for K3, each app's
            segment at 1920x1080 with 1 frame and with 3, each app at an odd
            size and the synthetic pipeline, where integer leaves must agree
            exactly, float leaves within FLOAT_ULP_BOUND ULPs and DESCRIPTOR's
@@ -46,7 +49,11 @@ phase prints one JSON line:
            and its decode case at their tolerances, a ragged Skv, and bf16
            cases for the tensor-core form (D 64 and 256 at a ragged Sq and
            window, a non-causal ragged Skv, empty-band rows, GQA through
-           head views of one wider tensor); each case must launch its own
+           head views of one wider tensor); f32 cases for the SIMT form
+           (the f32 check's local and global layers at B 2, D 256 at a
+           ragged Sq and window 70, GQA with g 4 at Sq 130, head views of
+           one wider tensor, and a view whose rows are not 16-byte
+           aligned); each case must launch its own
            form; per case the max abs error, K4's device ms (the
            profiler's kernel time) and call ms (CUDA events around
            back-to-back wrapper calls, host work included), plain ms,
@@ -228,6 +235,18 @@ def kernel_phase(torch, np, peak_int_ops):
         np.int32)).to(dev)
     cases += [(f"odd_shift{s}", u8((3, 13 + 2, 37 + 4)), k_odd, s)
               for s in (0, 11)]
+    # the general form at other tap shapes, and sums that wrap: taps near
+    # 2^23 make each product near 2^31, so the int32 sums overflow
+    for kh, kw in ((1, 1), (11, 2), (2, 16)):
+        k_g = torch.from_numpy(rng.randint(0, 64, (kh, kw)).astype(
+            np.int32)).to(dev)
+        cases.append((f"taps_{kh}x{kw}", u8((3, 13 + kh - 1, 37 + kw - 1)),
+                      k_g, 11))
+    for kh, kw in ((8, 8), (3, 5)):
+        k_w = torch.from_numpy(rng.randint(2 ** 23 - 64, 2 ** 23, (
+            kh, kw)).astype(np.int32)).to(dev)
+        cases.append((f"wrap_{kh}x{kw}", u8((3, 40 + kh - 1, 96 + kw - 1)),
+                      k_w, 11))
     err = 0
     for name, p, k, s in cases:
         err = max(err, check_equal(f"conv2d {name}", conv2d_stencil(p, k, s),
@@ -369,30 +388,31 @@ def build_phase(designs):
                           {k: mk.source for k, mk in segments.items()})
         built, gen = csrc.result(), gen.result()
     k4 = flash_ops.resources(built["flash_attn"])
-    mma_dims = sorted(k4.get("prefill_mma", {}))
-    if mma_dims != ["bf16_d128", "bf16_d256", "bf16_d64"]:
-        raise AssertionError(f"K4 tensor-core form built for {mma_dims}")
-    for dim, use in k4["prefill_mma"].items():
-        if use.get("spill_stores", 1) or use.get("spill_loads", 1):
-            raise AssertionError(f"K4 tensor-core form spills at {dim}: "
-                                 f"{use}")
-    # K2's forms and every generated segment: a segment's launch bounds
-    # name the blocks per SM its shared memory allows, which caps its
-    # registers, so a spill there is one nobody chose
-    for name, b in [("sad", built["sad"])] + [(f"megakernel {k}", g)
-                                             for k, g in gen.items()]:
+    if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
+        raise AssertionError("the SIMT prefill form has a bf16 build")
+    for form, dtype in (("prefill_mma", "bf16"), ("prefill_simt", "f32")):
+        dims = sorted(k4.get(form, {}))
+        if dims != [f"{dtype}_d{d}" for d in (128, 256, 64)]:
+            raise AssertionError(f"K4's {form} form built for {dims}")
+        for dim, use in k4[form].items():
+            if use.get("spill_stores", 1) or use.get("spill_loads", 1):
+                raise AssertionError(f"K4's {form} form spills at {dim}: "
+                                     f"{use}")
+    # K1's and K2's forms and every generated segment: a segment's launch
+    # bounds name the blocks per SM its shared memory allows, which caps
+    # its registers, so a spill there is one nobody chose
+    for name, b in [("conv2d", built["conv2d"]), ("sad", built["sad"])] + [
+            (f"megakernel {k}", g) for k, g in gen.items()]:
         for fn, use in _build.ptxas_usage(b.log).items():
             if use.get("spill_stores", 1) or use.get("spill_loads", 1):
                 raise AssertionError(f"{name} spills in {fn}: {use}")
-    if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
-        raise AssertionError("the SIMT prefill form has a bf16 build")
     if len(k4.get("decode_split", {})) != 24 or \
             len(k4.get("decode_merge", {})) != 2:
         raise AssertionError(f"K4's decode kernels built as "
                              f"{k4.get('decode_split')}, "
                              f"{k4.get('decode_merge')}")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "k4_forms": k4,
+          "k1": _build.ptxas_usage(built["conv2d"].log), "k4_forms": k4,
           "kernels": {n: {"nvcc_s": b.seconds, "ptxas": ptxas_summary(b.log)}
                       for n, b in built.items()},
           "generated": {k: {"segment": mk.name, "nvcc_s": gen[k].seconds,
@@ -745,10 +765,34 @@ def flash_phase(torch, np):
         torch, np, "ragged_skv_decode", randn((2, 1, 4, 128), f32),
         randn((2, 1001, 2, 128), f32), randn((2, 1001, 2, 128), f32),
         causal=False, window=None, decode=True, atol=2e-5)
-    # the SIMT form at the llm phase's f32 check: a local layer, batch 2
+    # the SIMT form at the llm phase's f32 check: a local and a global
+    # layer, batch 2
+    q32, k32, v32 = q[:2].float(), k[:2].float(), v[:2].float()
     lines["main_local_f32"] = flash_case(
-        torch, np, "main_local_f32", q[:2].float(), k[:2].float(),
-        v[:2].float(), causal=True, window=W, decode=False, atol=2e-5)
+        torch, np, "main_local_f32", q32, k32, v32, causal=True, window=W,
+        decode=False, atol=2e-5)
+    lines["main_global_f32"] = flash_case(
+        torch, np, "main_global_f32", q32, k32, v32, causal=True,
+        window=None, decode=False, atol=2e-5)
+    del q32, k32, v32
+    # the SIMT form's edges: D 256 at a ragged Sq and window, GQA with g 4
+    # at a ragged Sq, head views of one wider f32 tensor (16-byte rows),
+    # and a view whose rows are not 16-byte aligned (4-byte copies)
+    for name, (b, sq, h, hkv, d, window) in {
+            "ragged_window_d256_f32": (1, 200, 4, 1, 256, 70),
+            "gqa4_ragged_d256_f32": (2, 130, 8, 2, 256, None)}.items():
+        lines[name] = flash_case(
+            torch, np, name, randn((b, sq, h, d), f32),
+            randn((b, sq, hkv, d), f32), randn((b, sq, hkv, d), f32),
+            causal=True, window=window, decode=False, atol=2e-5)
+    qkv32 = randn((2, 150, 8 + 2 * 2, 128), f32)
+    lines["gqa_head_views_f32"] = flash_case(
+        torch, np, "gqa_head_views_f32", qkv32[:, :, :8], qkv32[:, :, 8:10],
+        qkv32[:, :, 10:], causal=True, window=40, decode=False, atol=2e-5)
+    wide = randn((2, 96, 4 * 64 + 1), f32)[:, :, 1:].unflatten(2, (4, 64))
+    lines["misaligned_view_f32"] = flash_case(
+        torch, np, "misaligned_view_f32", wide, wide[:, :, :2],
+        wide[:, :, 2:], causal=True, window=None, decode=False, atol=2e-5)
     # the tensor-core form's edges: D 64 and 256 at a ragged Sq and
     # window, a non-causal ragged Skv, rows 25.. of Sq 40 with no key of
     # Skv 20 in their band (window 6), and GQA with q, k, v as head views

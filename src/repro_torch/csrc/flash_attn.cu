@@ -26,19 +26,28 @@
 // bf16 prefill: flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a
 // cp.async ring); its note gives the design.
 //
-// f32 prefill (the SIMT form): one block of 256 threads per (b*H + h,
-// 64-row q tile), looping over 64-row KV tiles from the first to the last
-// that meets the tile's causal and window band (tiles wholly outside it are
-// skipped).  All operands sit in shared memory as f32: Q (64 x D), K
-// transposed (D x 64), V (64 x D) and the score tile; for D = 256 that is
-// 219,136 bytes, so the launcher raises the block's dynamic shared memory
-// limit.  Each thread computes a 4 x 4 block of scores (float4 reads of Q
-// rows and K^T columns); each warp owns 8 query rows for the softmax and
-// for the f32 accumulator (8 rows x D/32 columns in registers), so m and l
-// live in registers and no tile-sized accumulator goes through shared
-// memory.  f32 stays off the tensor cores on purpose: their f32 input is
-// TF32, whose 10-bit mantissa would break the f32 tolerance of 2e-5 that
-// the reference's tests hold this form to.
+// f32 prefill (the SIMT form, simt::flash_prefill_kernel): one block of 8
+// warps per (b*H + h, 64-row q tile), the q tiles in reverse order,
+// looping over 32-key tiles from the first to the last that meets the
+// tile's causal and window band (tiles wholly outside it are skipped).  K
+// and V tiles come in through a two-stage ring of 16-byte cp.async.cg
+// copies (4-byte ones when a row start is not 16-byte aligned), zero-filled
+// past skv; the next tile's copies run under this tile's math, with one
+// barrier per tile.  K and V stay row-major in shared memory as f32.  Each
+// warp owns 8 query rows for the whole softmax, and each lane owns D/32
+// columns of Q, K and O.  Q lives in registers (8 rows x D/32 a lane), so
+// a K float4 read feeds 8 rows: per 4 keys a lane forms 32 partial dot
+// products over its columns and a reduce-scatter of 31 shuffles leaves it
+// one full score.  p goes through the warp's own 8 x 32 tile (a
+// __syncwarp, no block barrier) to O += P V, where a lane holds 8 rows x
+// D/32 columns of O and reads 4 keys of p per broadcast float4.  At D 256
+// a thread holds 255 registers and the block 148,736 bytes of shared
+// memory: one block per SM.  What bounds it: per 32-key tile an SM issues
+// 8,192 cycles of FMAs and about 8,100 of shared-memory and shuffle
+// traffic (4 bytes a lane a cycle), and with 2 warps a scheduler the two
+// barely overlap.  f32 stays off the tensor cores on purpose: their f32
+// input is TF32, whose 10-bit mantissa would break the f32 tolerance of
+// 2e-5 that the reference's tests hold this form to.
 //
 // Decode form (Sq = 1), split-KV: a split kernel on a grid (nsplit,
 // B*Hkv, head groups) whose block (c, b*Hkv + hk) takes keys [c*kc,
@@ -72,11 +81,6 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per prefill block
-constexpr int kBK = 64;          // keys per KV tile
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kBQ / kWarps;   // 8
 constexpr float kMaskAdd = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -105,41 +109,129 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
-constexpr size_t prefill_smem_bytes() {
-  return sizeof(float) * (size_t(kBQ) * (D + 4) + size_t(D) * (kBK + 4) +
-                          size_t(kBK) * D + size_t(kBQ) * (kBK + 4));
+// ---- f32 prefill form: SIMT ---------------------------------------------
+
+namespace simt {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRW = 8;                 // query rows per warp
+constexpr int kBQ = kWarps * kRW;      // query rows per block
+constexpr int kBK = 32;                // keys per tile
+constexpr int kPS = kBK + 4;           // row stride of a warp's p tile
+
+// K and V rows padded by 16 floats: a row starts 64 bytes on from the one
+// before it modulo 128, which spreads the four rows that a warp's K read
+// meets (see the kernel) over all 8 bank groups
+template <int D> __host__ __device__ constexpr int row_stride() {
+  return D + 16;
+}
+// a two-stage ring of K and V tiles, each warp's p tile and its rows'
+// corrections
+template <int D> __host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t(2 * 2 * kBK) * row_stride<D>() +
+                          size_t(kWarps) * kRW * (kPS + 1));
 }
 
+// 4 bytes global -> shared; src-size 0 writes zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// rows [r0, r0 + kBK) of one head into a shared [kBK][row_stride] tile,
+// rows at or past lim zero-filled: a 16-byte cp.async per 4 floats when
+// every row start is 16-byte aligned (vec), else a 4-byte one per float
+template <int D>
+__device__ __forceinline__ void load_tile(float* s, const float* g,
+                                          long long stride, int r0, int lim,
+                                          bool vec, int tid) {
+  constexpr int RS = row_stride<D>();
+  if (vec) {
+    constexpr int NV = D / 4;
+#pragma unroll 4
+    for (int i = tid; i < kBK * NV; i += kThreads) {
+      const int r = i / NV, c = (i % NV) * 4;
+      const bool in = r0 + r < lim;
+      mma::cp_async16(mma::smem_u32(s + r * RS + c),
+                      in ? g + (r0 + r) * stride + c : g, in);
+    }
+  } else {
+    for (int i = tid; i < kBK * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = r0 + r < lim;
+      cp_async4(mma::smem_u32(s + r * RS + c),
+                in ? g + (r0 + r) * stride + c : g, in);
+    }
+  }
+}
+
+// VW floats at p into f (VW 4 or 2; p aligned to VW floats)
+template <int VW>
+__device__ __forceinline__ void load_vec(float* f, const float* p) {
+  if (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    f[0] = t.x;
+    f[1] = t.y;
+    f[2] = t.z;
+    f[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    f[0] = t.x;
+    f[1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float part(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// Block (b*H + h, q tile): kBQ query rows, the q tiles in reverse order
+// (the longest causal tiles start first when the grid takes more than one
+// wave).  Warp w owns rows 8w .. 8w+7 for the whole softmax, and lane L
+// owns columns c(L) = {L*VW + 32*VW*n + e} of D (VW = min(4, D/32)) for
+// Q, K and O alike.
+//   S = Q K^T  Q lives in registers: lane L holds its columns of the
+//              warp's 8 rows.  Per 4 keys a lane forms 32 partial dot
+//              products over its columns (8 rows x 4 keys, one K float4 read
+//              per key and vector: 8 FMAs per word read), and a
+//              reduce-scatter over the warp (5 shuffle steps, 31 shuffles)
+//              leaves lane L the full score of row L/4, key L%4.  So that
+//              every step sends and keeps the same slots on every lane
+//              (no selects), lane L's slot s holds the partial of index
+//              s ^ L: its Q registers hold rows in the order r ^ (L/4) and
+//              it reads keys in the order k ^ (L%4).
+//   softmax    row max and sum over the 4 lanes of a row by 2 shuffles;
+//              p and each row's correction go to the warp's own p tile
+//              (no block barrier: __syncwarp);
+//   O += P V   lane L holds all 8 rows x its D/32 columns of O and reads p
+//              as broadcast float4 (4 keys of a row) and V rows as float4.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
                      const T* __restrict__ k, const T* __restrict__ v,
                      Strides qs, Strides ks, Strides vs, int H, int g, int sq,
-                     int skv, int causal, int window, float scale) {
-  constexpr int QS = D + 4;      // padded row strides (float4-aligned)
-  constexpr int KS = kBK + 4;
-  constexpr int PS = kBK + 4;
-  constexpr int CPT = D / 32;    // accumulator columns per lane
+                     int skv, int causal, int window, float scale, int vec) {
+  static_assert(sizeof(T) == sizeof(float), "the SIMT form is f32 only");
+  constexpr int RS = row_stride<D>();
+  constexpr int CPL = D / 32;              // columns per lane
+  constexpr int VW = CPL < 4 ? CPL : 4;    // floats per vector
+  constexpr int NVEC = CPL / VW;
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);   // [kBQ][QS]
-  float* sKt = sQ + kBQ * QS;                    // [D][KS]
-  float* sV = sKt + D * KS;                      // [kBK][D]
-  float* sP = sV + kBK * D;                      // [kBQ][PS]
+  float* sK = reinterpret_cast<float*>(smem4);   // [2][kBK][RS]
+  float* sV = sK + 2 * kBK * RS;                 // [2][kBK][RS]
+  float* sP = sV + 2 * kBK * RS;                 // [kWarps][kRW][kPS]
+  float* sC = sP + kWarps * kRW * kPS;           // [kWarps][kRW]
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / g;
-  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rl = lane >> 2, kl = lane & 3;   // slot order; then row and key
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / g;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int q1 = min(q0 + kBQ, sq);
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    sQ[r * QS + d] = q0 + r < sq ? to_f(qb[(q0 + r) * qs.s + d]) : 0.f;
-  }
+  const float* qb = reinterpret_cast<const float*>(q) + b * qs.b + h * qs.h;
+  const float* kb = reinterpret_cast<const float*>(k) + b * ks.b + hk * ks.h;
+  const float* vb = reinterpret_cast<const float*>(v) + b * vs.b + hk * vs.h;
 
   // the keys this tile's band meets; a row with no key in its band (only
   // possible with a window and sq > skv) needs every key, at -1e30
@@ -148,122 +240,180 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
     if (q1 - window >= skv) kv_hi = skv;
     else kv_lo = max(0, q0 - window + 1);
   }
+  const int ntiles = (kv_hi - kv_lo + kBK - 1) / kBK;
 
-  float acc[kRowsPerWarp][CPT];
-  float m_r[kRowsPerWarp], l_r[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m_r[rr] = kMaskAdd;
-    l_r[rr] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[rr][c] = 0.f;
+  if (ntiles > 0) {
+    load_tile<D>(sK, kb, ks.s, kv_lo, skv, vec, tid);
+    load_tile<D>(sV, vb, vs.s, kv_lo, skv, vec, tid);
   }
-  const int rg = tid >> 4, cg = tid & 15;   // score rows rg*4.., cols cg*4..
+  mma::cp_async_commit();
 
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += kBK) {
-    __syncthreads();   // Q is loaded; the previous tile's K, V, P are read
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const bool in = t0 + c < skv;
-      sKt[d * KS + c] = in ? to_f(kb[(t0 + c) * ks.s + d]) : 0.f;
-      sV[c * D + d] = in ? to_f(vb[(t0 + c) * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
+  // this lane's columns of the warp's rows, row r ^ rl in slot r
+  float qv[kRW][CPL];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < kRW; ++r) {
+    const int qi = q0 + warp * kRW + (r ^ rl);
+    const float* qrow = qb + (long long)qi * qs.s + lane * VW;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+    for (int n = 0; n < NVEC; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&sQ[(rg * 4 + i) * QS + d]);
+      for (int e = 0; e < VW; ++e) qv[r][n * VW + e] = 0.f;
+      if (qi < sq) {
+        if (vec) {
+          load_vec<VW>(&qv[r][n * VW], qrow + 32 * VW * n);
+        } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        kv[u] = *reinterpret_cast<const float4*>(&sKt[(d + u) * KS + cg * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] += qv[i].x * kv[0].x; s[i][1] += qv[i].x * kv[0].y;
-        s[i][2] += qv[i].x * kv[0].z; s[i][3] += qv[i].x * kv[0].w;
-        s[i][0] += qv[i].y * kv[1].x; s[i][1] += qv[i].y * kv[1].y;
-        s[i][2] += qv[i].y * kv[1].z; s[i][3] += qv[i].y * kv[1].w;
-        s[i][0] += qv[i].z * kv[2].x; s[i][1] += qv[i].z * kv[2].y;
-        s[i][2] += qv[i].z * kv[2].z; s[i][3] += qv[i].z * kv[2].w;
-        s[i][0] += qv[i].w * kv[3].x; s[i][1] += qv[i].w * kv[3].y;
-        s[i][2] += qv[i].w * kv[3].z; s[i][3] += qv[i].w * kv[3].w;
+          for (int e = 0; e < VW; ++e) qv[r][n * VW + e] = qrow[32 * VW * n + e];
+        }
       }
     }
+  }
+
+  float m = kMaskAdd, l = 0.f;             // of row rl
+  float acc[kRW][CPL];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i, qi = q0 + r;
+  for (int r = 0; r < kRW; ++r)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+  float* pw = sP + warp * kRW * kPS;
+  float* cw = sC + warp * kRW;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = kv_lo + it * kBK;
+    const float* sKt = sK + (it & 1) * kBK * RS;
+    const float* sVt = sV + (it & 1) * kBK * RS;
+    mma::cp_async_wait<0>();
+    __syncthreads();   // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) {
+      const int nxt = ((it + 1) & 1) * kBK * RS;
+      load_tile<D>(sK + nxt, kb, ks.s, t0 + kBK, skv, vec, tid);
+      load_tile<D>(sV + nxt, vb, vs.s, t0 + kBK, skv, vec, tid);
+    }
+    mma::cp_async_commit();   // (possibly empty) next tile
+
+    // x[c]: the score of row rl, key 4c + kl
+    float x[kBK / 4];
+#pragma unroll
+    for (int c = 0; c < kBK / 4; ++c) {
+      float pt[kRW * 4];   // slot r*4 + j: row r ^ rl, key 4c + (j ^ kl)
+#pragma unroll
+      for (int s = 0; s < kRW * 4; ++s) pt[s] = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = cg * 4 + j, kj = t0 + c;
-        float x = -INFINITY;                  // past the keys: no weight
-        if (kj < skv) {
-          bool keep = !causal || kj <= qi;
-          if (window > 0) keep = keep && kj > qi - window;
-          x = s[i][j] * scale + (keep ? 0.f : kMaskAdd);
+        const float* krow = sKt + (4 * c + (j ^ kl)) * RS + lane * VW;
+#pragma unroll
+        for (int n = 0; n < NVEC; ++n) {
+          float kk[VW];
+          load_vec<VW>(kk, krow + 32 * VW * n);
+#pragma unroll
+          for (int r = 0; r < kRW; ++r)
+#pragma unroll
+            for (int e = 0; e < VW; ++e)
+              pt[r * 4 + j] += qv[r][n * VW + e] * kk[e];
         }
-        sP[r * PS + c] = x;
       }
+#pragma unroll
+      for (int lv = 4; lv >= 0; --lv) {      // half = 16, 8, 4, 2, 1
+#pragma unroll
+        for (int s = 0; s < 16; ++s)
+          if (s < (1 << lv))
+            pt[s] += __shfl_xor_sync(0xffffffffu, pt[s + (1 << lv)], 1 << lv);
+      }
+      x[c] = pt[0];
     }
-    __syncthreads();
 
-    // online softmax: warp `warp` owns rows warp*8 .. warp*8+7 of sP and
-    // of the accumulator, so only __syncwarp separates it from p . v
+    // online softmax over the tile: row rl on lanes 4rl .. 4rl+3
+    const int qi = q0 + warp * kRW + rl;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      float* prow = sP + (warp * kRowsPerWarp + rr) * PS;
-      const float x0 = prow[lane], x1 = prow[lane + 32];
-      const float m_new = fmaxf(m_r[rr], warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      const float corr = expf(m_r[rr] - m_new);
-      l_r[rr] = l_r[rr] * corr + warp_sum(p0 + p1);
-      m_r[rr] = m_new;
-      prow[lane] = round_to<T>(p0);
-      prow[lane + 32] = round_to<T>(p1);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[rr][c] *= corr;
+    for (int c = 0; c < kBK / 4; ++c) {
+      const int kj = t0 + 4 * c + kl;
+      float val = -INFINITY;                   // past the keys: no weight
+      if (kj < skv) {
+        bool keep = !causal || kj <= qi;
+        if (window > 0) keep = keep && kj > qi - window;
+        val = x[c] * scale + (keep ? 0.f : kMaskAdd);
+      }
+      x[c] = val;
+      mx = fmaxf(mx, val);
     }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kBK / 4; ++c) {
+      const float p = expf(x[c] - m_new);
+      sum += p;
+      pw[rl * kPS + 4 * c + kl] = round_to<T>(p);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l = l * corr + sum;
+    m = m_new;
+    if (kl == 0) cw[rl] = corr;
     __syncwarp();
 
+    const float4 c03 = *reinterpret_cast<const float4*>(cw);
+    const float4 c47 = *reinterpret_cast<const float4*>(cw + 4);
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) {
+      const float cr = part(r < 4 ? c03 : c47, r & 3);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[r][c] *= cr;
+    }
 #pragma unroll 2
     for (int c0 = 0; c0 < kBK; c0 += 4) {
-      float4 p4[kRowsPerWarp];
+      float4 p4[kRW];
 #pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr)
-        p4[rr] = *reinterpret_cast<const float4*>(
-            &sP[(warp * kRowsPerWarp + rr) * PS + c0]);
+      for (int r = 0; r < kRW; ++r)
+        p4[r] = *reinterpret_cast<const float4*>(pw + r * kPS + c0);
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float v0 = sV[(c0 + 0) * D + lane + 32 * c];
-        const float v1 = sV[(c0 + 1) * D + lane + 32 * c];
-        const float v2 = sV[(c0 + 2) * D + lane + 32 * c];
-        const float v3 = sV[(c0 + 3) * D + lane + 32 * c];
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = sVt + (c0 + u) * RS + lane * VW;
+        float vv[CPL];
 #pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          acc[rr][c] += p4[rr].x * v0;
-          acc[rr][c] += p4[rr].y * v1;
-          acc[rr][c] += p4[rr].z * v2;
-          acc[rr][c] += p4[rr].w * v3;
+        for (int n = 0; n < NVEC; ++n)
+          load_vec<VW>(&vv[n * VW], vrow + 32 * VW * n);
+#pragma unroll
+        for (int r = 0; r < kRW; ++r) {
+          const float pr = part(p4[r], u);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[r][c] += pr * vv[c];
         }
       }
     }
   }
 
+  // l of row r sits on lanes 4r .. 4r+3
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int qi = q0 + warp * kRowsPerWarp + rr;
+  for (int r = 0; r < kRW; ++r) {
+    const float lr = __shfl_sync(0xffffffffu, l, 4 * r);
+    const int qi = q0 + warp * kRW + r;
     if (qi >= sq) continue;
-    const float den = fmaxf(l_r[rr], 1e-30f);
-    T* orow = out + ((size_t(b) * sq + qi) * H + h) * D;
+    const float den = fmaxf(lr, 1e-30f);
+    float* orow = reinterpret_cast<float*>(out) +
+                  ((size_t(b) * sq + qi) * H + h) * D + lane * VW;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[lane + 32 * c] = from_f<T>(acc[rr][c] / den);
+    for (int n = 0; n < NVEC; ++n) {
+      if (VW == 4) {
+        *reinterpret_cast<float4*>(orow + 128 * n) = make_float4(
+            acc[r][4 * n] / den, acc[r][4 * n + 1] / den,
+            acc[r][4 * n + 2] / den, acc[r][4 * n + 3] / den);
+      } else {
+        *reinterpret_cast<float2*>(orow) =
+            make_float2(acc[r][0] / den, acc[r][1] / den);
+      }
+    }
   }
+}
+
+// every row start of one operand 16-byte aligned: its pointer, and its
+// (b, s, h) strides multiples of 4 floats
+__host__ inline bool rows_aligned16(const void* p, const Strides& s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 &&
+         s.s % 4 == 0 && s.h % 4 == 0;
 }
 
 template <typename T, int D>
@@ -271,20 +421,24 @@ cudaError_t launch_prefill(void* out, const void* q, const void* k,
                            const void* v, Strides qs, Strides ks, Strides vs,
                            int B, int H, int g, int sq, int skv, int causal,
                            int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = prefill_smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D>();
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
   // the attribute belongs to the current device)
   const cudaError_t err = cudaFuncSetAttribute(
       flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, B * H, 1);
+  const int vec = rows_aligned16(q, qs) && rows_aligned16(k, ks) &&
+                  rows_aligned16(v, vs);
+  const dim3 grid(B * H, (sq + kBQ - 1) / kBQ, 1);
   flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs, H, g,
-      sq, skv, causal, window, scale);
+      sq, skv, causal, window, scale, vec);
   return cudaGetLastError();
 }
+
+}  // namespace simt
 
 // ---- decode form: split-KV ----------------------------------------------
 
@@ -669,8 +823,8 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K4_PREFILL_SIMT(T, DD)                                             \
-  launch_prefill<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv,  \
-                        causal, window, scale, st)
+  simt::launch_prefill<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq,  \
+                              skv, causal, window, scale, st)
 #define K4_PREFILL_MMA(T, DD)                                              \
   launch_mma<DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv, causal, \
                  window, scale, st)
@@ -730,5 +884,13 @@ extern "C" int flash_mma_smem_bytes(int D) {
   if (D == 64) return int(mma::smem_bytes<64>());
   if (D == 128) return int(mma::smem_bytes<128>());
   if (D == 256) return int(mma::smem_bytes<256>());
+  return 0;
+}
+
+// The same for the SIMT form (Q, the K/V ring, the warps' p tiles).
+extern "C" int flash_simt_smem_bytes(int D) {
+  if (D == 64) return int(simt::smem_bytes<64>());
+  if (D == 128) return int(simt::smem_bytes<128>());
+  if (D == 256) return int(simt::smem_bytes<256>());
   return 0;
 }

@@ -57,10 +57,14 @@ def resources(built: _build.Built) -> dict:
     """Per kernel (the two prefill forms, the decode form's split and
     merge kernels), then per type, head dim and head group ("bf16_d256",
     "bf16_d256_g4", "bf16"): ptxas's registers, stack and spill bytes for
-    each kernel of a built ``flash_attn`` library, and the tensor-core
+    each kernel of a built ``flash_attn`` library, and each prefill
     form's shared bytes per block."""
-    smem = built.lib.flash_mma_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    smem = {}
+    for form, symbol in (("prefill_mma", "flash_mma_smem_bytes"),
+                         ("prefill_simt", "flash_simt_smem_bytes")):
+        fn = getattr(built.lib, symbol)
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        smem[form] = fn
     out = {}
     for name, use in _build.ptxas_usage(built.log).items():
         m = _ENTRY.search(name)
@@ -70,8 +74,8 @@ def resources(built: _build.Built) -> dict:
         key = ("f32" if m.group(2) == "f" else "bf16") + (
             f"_d{D}" if D else "") + (f"_g{G}" if G else "")
         entry = dict(use)
-        if form == "prefill_mma":
-            entry["smem_bytes"] = smem(int(D))
+        if form in smem:
+            entry["smem_bytes"] = smem[form](int(D))
         out.setdefault(form, {})[key] = entry
     return out
 

@@ -12,7 +12,11 @@ from seed 0.  Each kernel is first held against its plain version
 of one call (``kernels/timing.device_ms``: the profiler's kernel events).
 Each K3 line carries the segment's registers and spills from ptxas, its
 shared bytes, the blocks per SM its ``__launch_bounds__`` names (where the
-revision has them) and its barriers.
+revision has them) and its barriers.  K1's line carries, for each kernel
+in its library, the registers and spills and what its SASS
+(``cuobjdump -sass``) holds: instructions, global loads, register moves
+into uniform registers (``R2UR``), IMADs and the IMADs that read a uniform
+register.
 
 The script uses only the package's kernel wrappers, its lowering and
 ``kernels/timing.py``, so the same file times an earlier revision of the
@@ -24,7 +28,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
+from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,6 +69,40 @@ def time_segment(label: str, mk, seg, iters: int, exact: bool) -> dict:
             "ms": device_ms(lambda: megakernel_segment(mk, *seg), iters)}
 
 
+_SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_profile(name: str) -> dict:
+    """Per kernel of built library ``name`` (mangled name -> counts): its
+    ptxas registers and spills, and its SASS instructions by kind."""
+    built = _build.build_all([name])[name]
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(built.path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    out, ops = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            ops = out.setdefault(fn, {"ops": Counter(), "imad_uniform": 0})
+            continue
+        m = _SASS_INSN.search(line) if ops is not None else None
+        if m:
+            ops["ops"][m.group(1)] += 1
+            if m.group(1) == "IMAD" and re.search(r"\bUR\d", m.group(2)):
+                ops["imad_uniform"] += 1
+    usage = _build.ptxas_usage(built.log)
+    return {fn: {**usage.get(fn, {}),
+                 "instructions": sum(c["ops"].values()),
+                 "global_loads": sum(n for op, n in c["ops"].items()
+                                     if op.startswith("LDG")),
+                 "uniform_moves": c["ops"]["R2UR"],
+                 "imad": c["ops"]["IMAD"],
+                 "imad_uniform": c["imad_uniform"]}
+            for fn, c in out.items()}
+
+
 def app_batch(app: str, rng) -> dict:
     x = rng.randint(0, 256, (1, 1080, 1920)).astype(np.int64)
     if app == "flow":
@@ -87,7 +128,8 @@ def main(argv=None) -> int:
     k = torch.from_numpy(default_kernel().astype(np.int32)).to(dev)
     assert torch.equal(conv2d_stencil(p, k, SHIFT), conv2d_ref(p, k, SHIFT))
     emit({"kernel": "conv2d",
-          "ms": device_ms(lambda: conv2d_stencil(p, k, SHIFT), args.iters)})
+          "ms": device_ms(lambda: conv2d_stencil(p, k, SHIFT), args.iters),
+          "functions": sass_profile("conv2d")})
     nd, bh, bw = 64, 8, 8
     lp = torch.from_numpy(rng.randint(0, 256, (1, 407, 790)).astype(
         np.int32)).to(dev)

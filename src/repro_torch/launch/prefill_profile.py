@@ -3,10 +3,12 @@ call, where one call's device time goes, and K4's prefill alone at the
 model's local and global layer shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.prefill_profile \\
-        [--arch gemma3-1b] [--batch 4] [--prompt-len 1024] [--calls 5]
+        [--arch gemma3-1b] [--batch 4] [--prompt-len 1024] [--calls 5] \\
+        [--dtype bfloat16|float32]
 
-The model runs in its config's type (bf16 for gemma3-1b) with the random
-weights of ``init_params`` (seed 0).  The script uses only the package's
+The model runs in ``--dtype`` (bfloat16 by default: K4's tensor-core form;
+float32 takes its SIMT form) with the random weights of ``init_params``
+(seed 0).  The script uses only the package's
 public model API (``init_params``, ``build_forward``,
 ``kernels.flash.flash_attention``) and the profiler, so the same file can
 time an earlier revision of the package put first on ``PYTHONPATH``: two
@@ -38,10 +40,12 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("prefill_profile: needs a CUDA card")
-    cfg = ARCHS[args.arch]
+    cfg = ARCHS[args.arch].replace(dtype=args.dtype)
     B, S = args.batch, args.prompt_len
     out = {"arch": cfg.name, "dtype": cfg.dtype, "batch": B, "prompt": S}
 

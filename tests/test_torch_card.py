@@ -33,6 +33,7 @@ from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E40
 from repro_torch.kernels.flash.ops import (  # noqa: E402
     form_launches, mma_scores, prefill_form)
 from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
+from _torch_cases import conv_case  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -50,13 +51,20 @@ def _u8(rng, shape, dev):
         np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("h,w,kh,kw,shift", [
-    (13, 37, 3, 5, 0), (13, 37, 3, 5, 11), (40, 96, 8, 8, 11),
-    (9, 33, 8, 8, 40)])
-def test_conv2d_kernel_matches_plain(card, h, w, kh, kw, shift):
+# the 8x8 form (CONVOLUTION's taps) and the general form (any other)
+CONV_CASES = [
+    conv_case(13, 37, 3, 5, 0), conv_case(13, 37, 3, 5, 11),
+    conv_case(40, 96, 8, 8, 11), conv_case(9, 33, 8, 8, 40),
+    conv_case(13, 37, 1, 1, 11), conv_case(13, 37, 11, 2, 11),
+    conv_case(13, 37, 2, 16, 11), conv_case(40, 96, 8, 8, 11, 2 ** 23 - 64),
+    conv_case(13, 37, 3, 5, 11, 2 ** 23 - 64)]
+
+
+@pytest.mark.parametrize("h,w,kh,kw,shift,tap_lo", CONV_CASES)
+def test_conv2d_kernel_matches_plain(card, h, w, kh, kw, shift, tap_lo):
     rng = np.random.RandomState(h + w + shift)
     p = _u8(rng, (3, h + kh - 1, w + kw - 1), card)
-    k = torch.from_numpy(rng.randint(0, 64, (kh, kw)).astype(
+    k = torch.from_numpy(rng.randint(tap_lo, tap_lo + 64, (kh, kw)).astype(
         np.int32)).to(card)
     out = conv2d_stencil(p, k, shift=shift)
     assert torch.equal(out, conv2d_ref(p, k, shift))
@@ -191,6 +199,9 @@ FLASH_CASES = [
     (2, 40, 20, 4, 2, 64, True, 6, torch.bfloat16, 3e-2),
     (2, 40, 20, 4, 2, 256, True, 6, torch.bfloat16, 3e-2),
     (2, 130, 130, 8, 2, 256, True, None, torch.bfloat16, 3e-2),
+    # the SIMT form at D 256: a ragged Sq and window, GQA with g 4
+    (1, 200, 200, 4, 1, 256, True, 70, torch.float32, 2e-5),
+    (2, 130, 130, 8, 2, 256, True, None, torch.float32, 2e-5),
 ]
 
 
@@ -255,6 +266,30 @@ def test_flash_bf16_strided_head_views(card):
                                             v.contiguous(), causal=True,
                                             window=40))
     assert form_launches()["prefill_mma"] == 2
+
+
+def test_flash_f32_strided_head_views(card):
+    """The SIMT form on head views of one wider f32 projection (16-byte
+    rows: 16-byte copies) and on views whose rows start 4 bytes off
+    (4-byte copies): each as its contiguous copy, within 2e-5 of the
+    plain version."""
+    rng = np.random.RandomState(13)
+    H, Hkv, D = 8, 2, 128
+    qkv = _randn(rng, (2, 150, H + 2 * Hkv, D), torch.float32, card)
+    flat = _randn(rng, (2, 150, (H + 2 * Hkv) * D + 1), torch.float32, card)
+    off = flat[:, :, 1:].unflatten(2, (H + 2 * Hkv, D))
+    for t in (qkv, off):
+        q, k, v = t[:, :, :H], t[:, :, H:H + Hkv], t[:, :, H + Hkv:]
+        assert not q.is_contiguous()
+        out = flash_attention(q, k, v, causal=True, window=40)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, causal=True, window=40)
+        assert (out - want).abs().max().item() <= 2e-5
+        assert torch.equal(out, flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            window=40))
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 4,
+                               "decode": 0}
 
 
 def test_flash_bf16_misaligned_raises(card):

@@ -25,12 +25,16 @@ _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 # tests/test_kernels.py's four coverage classes: GQA f32, windowed bf16,
-# MHA D=256 f32, ragged bf16 (40 rows, no multiple of its 16-row tiles)
+# MHA D=256 f32, ragged bf16 (40 rows, no multiple of its 16-row tiles);
+# then f32 at D 256 with a window at a ragged Sq, and GQA with g 4 at a
+# ragged Sq (the card's SIMT form takes 64-row q and 32-key tiles)
 CLASSES = [
     (2, 48, 4, 2, 128, None, "float32"),
     (2, 48, 4, 4, 128, 13, "bfloat16"),
     (1, 64, 8, 2, 256, None, "float32"),
     (1, 40, 4, 1, 128, None, "bfloat16"),
+    (1, 200, 4, 1, 256, 70, "float32"),
+    (2, 130, 8, 2, 256, None, "float32"),
 ]
 
 
@@ -105,6 +109,28 @@ def test_strided_views_give_the_same_result():
     assert not k.is_contiguous()
     want = flash_decode(q, k.contiguous(), v.contiguous())
     assert torch.equal(flash_decode(q, k, v), want)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_f32_head_views_match_reference(offset):
+    """f32 prefill on head views of one wider (B, S, H + 2 Hkv, D)
+    projection, as a fused QKV product hands them over, its rows starting
+    ``offset`` floats into a buffer (1: rows not 16-byte aligned), against
+    the reference's Pallas kernel and oracle on the same values."""
+    B, S, H, Hkv, D = 2, 40, 4, 2, 64
+    rng = np.random.RandomState(17 + offset)
+    flat = rng.randn(B, S, (H + 2 * Hkv) * D + offset).astype(np.float32)
+    qkv = torch.from_numpy(flat)[:, :, offset:].unflatten(2, (H + 2 * Hkv,
+                                                              D))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    assert not q.is_contiguous()
+    out = flash_attention(q, k, v, causal=True, window=9)
+    jq, jk, jv = (jnp.asarray(t.contiguous().numpy()) for t in (q, k, v))
+    pallas = flash_attention_tpu(jq, jk, jv, causal=True, window=9, bq=16,
+                                 bk=16)
+    oracle = jax_attention_ref(jq, jk, jv, causal=True, window=9)
+    assert np.allclose(_f32(out), _f32(pallas), atol=2e-5)
+    assert np.allclose(_f32(out), _f32(oracle), atol=2e-5)
 
 
 def test_operands_are_checked():

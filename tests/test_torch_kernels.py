@@ -27,6 +27,7 @@ from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.sad.ops import sad_disparity, sad_hwimg_site  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
 from repro_torch.kernels.util import shift2d  # noqa: E402
+from _torch_cases import conv_case  # noqa: E402
 
 FRAMES = 3
 
@@ -35,10 +36,10 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _conv_inputs(seed, h, w, kh, kw):
+def _conv_inputs(seed, h, w, kh, kw, tap_lo=0):
     rng = np.random.RandomState(seed)
     p = rng.randint(0, 256, (FRAMES, h + kh - 1, w + kw - 1)).astype(np.int32)
-    k = rng.randint(0, 64, (kh, kw)).astype(np.int32)
+    k = rng.randint(tap_lo, tap_lo + 64, (kh, kw)).astype(np.int32)
     return p, k
 
 
@@ -49,17 +50,32 @@ def _sad_inputs(seed, h, w, nd, bh, bw):
             rng.randint(0, 256, shape).astype(np.int32))
 
 
-@pytest.mark.parametrize("h,w,kh,kw,shift", [
-    (13, 37, 3, 5, 0), (13, 37, 3, 5, 11), (16, 40, 8, 8, 11)])
-def test_conv2d_matches_reference(h, w, kh, kw, shift):
-    p, k = _conv_inputs(h * w + shift, h, w, kh, kw)
+@pytest.mark.parametrize("h,w,kh,kw,shift,tap_lo", [
+    conv_case(13, 37, 3, 5, 0), conv_case(13, 37, 3, 5, 11),
+    conv_case(16, 40, 8, 8, 11), conv_case(13, 37, 1, 1, 11),
+    conv_case(13, 37, 11, 2, 11), conv_case(13, 37, 2, 16, 11),
+    conv_case(16, 40, 8, 8, 11, 2 ** 23 - 64),
+    conv_case(13, 37, 3, 5, 11, 2 ** 23 - 64)])
+def test_conv2d_matches_reference(h, w, kh, kw, shift, tap_lo):
+    p, k = _conv_inputs(h * w + shift, h, w, kh, kw, tap_lo)
     out = conv2d_stencil(_t(p), _t(k), shift=shift).numpy()
     assert out.shape == (FRAMES, h, w) and out.dtype == np.int32
     assert np.array_equal(out, conv2d_ref(_t(p), _t(k), shift).numpy())
-    # the jnp oracle on one frame, the Pallas kernel (interpret) on another
+    # the jnp oracle on one frame, the Pallas kernel (interpret) on another;
+    # the Pallas kernel reads one 8-row halo strip below its 8 output rows,
+    # so it takes at most 9 tap rows
     ref = jax_conv_ref(jnp.asarray(p[0]), jnp.asarray(k), shift=shift)
     assert np.array_equal(out[0], np.asarray(ref))
-    assert np.array_equal(out[1], np.asarray(jax_conv(p[1], k, shift=shift)))
+    if kh <= 9:
+        assert np.array_equal(out[1],
+                              np.asarray(jax_conv(p[1], k, shift=shift)))
+    else:
+        ref1 = jax_conv_ref(jnp.asarray(p[1]), jnp.asarray(k), shift=shift)
+        assert np.array_equal(out[1], np.asarray(ref1))
+    if tap_lo:   # the case wraps: its exact sums leave int32's range
+        exact = sum(int(k[dy, dx]) * p[:, dy:dy + h, dx:dx + w].astype(
+            np.int64) for dy in range(kh) for dx in range(kw))
+        assert exact.max() >= 2 ** 31
 
 
 @pytest.mark.parametrize("h,w,kh,kw,l,b,shift", [
