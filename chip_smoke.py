@@ -62,6 +62,17 @@ phase prints one JSON line:
            k, v and o once over 3.35 TB/s and 4 D flops per unmasked
            (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
            67 TFLOP/s f32)
+  hw       the hardware half, on the host: each app at the paper's size
+           (compiled once, the hardware flow included, and reused by the
+           phases below): compile_pipeline seconds, interface kind,
+           effective T, modules, edges, cycles per frame, FIFO bits and
+           solver, CLBs, DSPs and BRAMs, and check_schedule(), which must
+           be True; CONVOLUTION at each fig. 9 throughput, whose effective
+           T must be the paper's within 0.01 and its cycles within 1.1 %;
+           each app's sim_case through the scalar cycle simulator (no
+           deadlock) and optimize_fifos over 2 frames (proven), with the
+           analytic and simulated FIFO bits and the seconds each took (the
+           fig. 9 compiles and the sim cases in 6 worker processes)
   path     CONVOLUTION 1920x1080, STEREO 720x400 nd=64, and FLOW,
            DESCRIPTOR and PYRAMID 1920x1080 through
            compile_pipeline(...).run and run_batch (4 frames) on the
@@ -69,7 +80,19 @@ phase prints one JSON line:
            launch counters must rise by one per run and one per run_batch;
            run ms per frame (host clock, median of warm calls) and
            run_batch frames/s; and run_batch_device on inputs already on
-           the card (4 frames and 1 frame), the device-side share of a call
+           the card (4 frames and 1 frame), the device-side share of a
+           call; then each app at its bench_case size, run and run_batch
+           against the port's executor (backend="numpy"; integers exact,
+           f32 within FLOAT_ULP_BOUND ULPs); then the External pipelines
+           (kernels/megakernel/check.py ``external_pipelines``): ``clip``
+           (a 3x3 box sum, the External's numpy clip, a point-op chain) at
+           1920x1080, run and run_batch (4 frames) bit-exact against the
+           torch backend on the card, a generated segment on each side of
+           the External and none holding it, the model called once per
+           frame in frame order, each segment against its plain version,
+           and the External's host ms (the copies and the model) beside
+           each segment's device ms; and every External case at 37x13
+           against the executor
   profile  per app, the host-side operators of one warm run and one warm
            run_batch call (torch.profiler, CPU activity), by self time
   llm      gemma3-1b at full width and depth (26 layers, random weights
@@ -349,7 +372,23 @@ def kernel_phase(torch, np, peak_int_ops):
     return results
 
 
-def mk_designs():
+def paper_designs():
+    """Every app at the paper's size, compiled once (the hardware flow
+    included) on the kernels backend: label -> (UserFunction, design,
+    compile_pipeline seconds)."""
+    from repro_torch import CompileOptions, compile_pipeline
+    from repro_torch.apps import PIPELINES
+    out = {}
+    for app, cls in PIPELINES.items():
+        uf = cls()
+        t0 = time.perf_counter()
+        design = compile_pipeline(uf, options=CompileOptions(
+            backend="kernels"))
+        out[app] = (uf, design, time.perf_counter() - t0)
+    return out
+
+
+def mk_designs(paper):
     """Every design whose fused segment K3 runs here: each app at
     1920x1080 (the main path) and at its odd size, and the all-ops
     pipeline, on the kernels backend."""
@@ -360,15 +399,48 @@ def mk_designs():
     ufs = {}
     for app in MK_APPS:
         w, h = MK_ODD[app]
-        ufs[app] = PIPELINES[app]()
         ufs[f"{app}_{w}x{h}"] = PIPELINES[app](w=w, h=h)
     ufs["allops_37x13"] = all_ops_pipeline(core)
-    return {label: (uf, compile_pipeline(uf, options=opts))
-            for label, uf in ufs.items()}
+    out = {app: paper[app][:2] for app in MK_APPS}
+    out.update({label: (uf, compile_pipeline(uf, options=opts))
+                for label, uf in ufs.items()})
+    return out
 
 
-def build_phase(designs):
-    """csrc/*.cu and every design's generated segments, one nvcc each,
+def bench_designs():
+    """Every app at its bench_case size on the kernels backend, for the
+    check against the port's executor: app -> (inputs_fn, design)."""
+    from repro_torch import CompileOptions, compile_pipeline
+    from repro_torch.apps import BENCH_CASES
+    out = {}
+    for app, case in BENCH_CASES.items():
+        uf, inputs_fn = case()
+        out[app] = (inputs_fn, compile_pipeline(
+            uf, options=CompileOptions(backend="kernels")))
+    return out
+
+
+def external_designs():
+    """The External pipelines (``external_pipelines``): ``clip`` at
+    1920x1080 and every case at 37x13, on the kernels backend, each with
+    the list its numpy model appends to once per call: label ->
+    (UserFunction, design, log)."""
+    from repro_torch import CompileOptions, compile_pipeline, core
+    from repro_torch.kernels.megakernel.check import external_pipelines
+    out = {}
+    for w, h, names in ((1920, 1080, ("clip",)),
+                        (37, 13, ("clip", "tuple", "wide"))):
+        log = []
+        ufs = external_pipelines(core, w, h, log)
+        for name in names:
+            out[f"{name}_{w}x{h}"] = (ufs[name], compile_pipeline(
+                ufs[name], options=CompileOptions(backend="kernels")), log)
+    return out
+
+
+def build_phase(designs, extra):
+    """csrc/*.cu and every design's generated segments (``designs``: one
+    each; ``extra``: label -> design, as many as it has), one nvcc each,
     all in one parallel batch.  The segments come from the CPU lowering,
     whose emitted text is the card's; the card's lowering then loads the
     cached builds."""
@@ -381,11 +453,14 @@ def build_phase(designs):
             raise AssertionError(f"{label}: {len(lp.megakernels)} "
                                  f"megakernels, want 1: {lp.notes}")
         segments[label] = lp.megakernels[0]
+    extra_src = {f"{label}:{mk.name}": mk.source
+                 for label, design in extra.items()
+                 for mk in design.lower("kernels", device="cpu").megakernels}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:     # each waits on its nvcc runs
         csrc = pool.submit(_build.build_all)
-        gen = pool.submit(_build.build_generated,
-                          {k: mk.source for k, mk in segments.items()})
+        gen = pool.submit(_build.build_generated, {
+            **{k: mk.source for k, mk in segments.items()}, **extra_src})
         built, gen = csrc.result(), gen.result()
     k4 = flash_ops.resources(built["flash_attn"])
     if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
@@ -423,7 +498,10 @@ def build_phase(designs):
                             "stored_windows": len(mk.stored),
                             "fused_nodes": mk.n_nodes,
                             "lines": mk.source.count("\n")}
-                        for k, mk in segments.items()}})
+                        for k, mk in segments.items()},
+          "generated_extra": {k: {"nvcc_s": gen[k].seconds,
+                                  "ptxas": ptxas_summary(gen[k].log)}
+                              for k in extra_src}})
 
 
 def megakernel_phase(torch, np, designs, peak_int_ops):
@@ -487,6 +565,104 @@ def megakernel_phase(torch, np, designs, peak_int_ops):
     return results
 
 
+def _hw_fig9(t) -> dict:
+    """CONVOLUTION at 1920x1080 compiled at throughput ``t`` (a Fraction;
+    a worker process of the hw phase)."""
+    from repro_torch import compile_pipeline
+    from repro_torch.apps import Convolution
+    t0 = time.perf_counter()
+    d = compile_pipeline(Convolution(), T=t)
+    sec = time.perf_counter() - t0
+    return {"T": str(t), "T_eff": str(d.T), "cycles": d.cycles_per_frame(),
+            "compile_s": sec, "check_schedule": d.check_schedule(),
+            "clbs": d.resources.clbs, "brams": d.resources.brams}
+
+
+def _hw_sim(app: str) -> dict:
+    """One app's sim_case: compile, ``simulate()`` and
+    ``optimize_fifos(SimOptions(frames=2))`` on the scalar engine (a
+    worker process of the hw phase)."""
+    from repro_torch import SimOptions, compile_pipeline
+    from repro_torch.apps import SIM_CASES
+    uf, T, _hand = SIM_CASES[app]()
+    d = compile_pipeline(uf, T=T)
+    t0 = time.perf_counter()
+    res = d.simulate()
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alloc = d.optimize_fifos(options=SimOptions(frames=2))
+    alloc_s = time.perf_counter() - t0
+    bits = {(e.src, e.dst): e.token_bits for e in d.edges}
+    return {"app": app, "shape": [uf.h, uf.w], "T": str(T),
+            "sim_cycles": res.cycles, "sink_tokens": res.sink_tokens,
+            "deadlock": res.deadlock, "engine": res.engine, "sim_s": sim_s,
+            "alloc_frames": 2, "proven": alloc.proven,
+            "analytic_fifo_bits": sum(n * bits[k]
+                                      for k, n in alloc.analytic.items()),
+            "sim_fifo_bits": alloc.total_bits(bits), "alloc_s": alloc_s}
+
+
+def hw_phase(paper):
+    """The hardware half on the host: each app at the paper's size (its
+    compile seconds, interface kind, effective T, netlist, cycles per
+    frame, FIFO bits and solver, resources, and ``check_schedule``, which
+    must hold); CONVOLUTION at each fig. 9 throughput, against the paper's
+    T (within 0.01) and cycles (within 1.1 %); and each app's sim_case
+    through the scalar cycle simulator and the FIFO allocator (no
+    deadlock, proven).  The fig. 9 compiles and the sim cases run in
+    worker processes, several at once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from fractions import Fraction
+    from repro_torch.apps import SIM_CASES
+    from repro_torch.apps.convolution import PAPER_CONV
+    apps = {}
+    for app, (uf, d, sec) in paper.items():
+        t0 = time.perf_counter()
+        ok = d.check_schedule()
+        r = d.resources
+        apps[app] = {"compile_s": sec, "check_schedule_s":
+                     time.perf_counter() - t0, "kind": d.kind,
+                     "T_eff": str(d.T), "T_eff_float": float(d.T),
+                     "modules": len(d.modules), "edges": len(d.edges),
+                     "cycles_per_frame": d.cycles_per_frame(),
+                     "fifo_bits": d.fifo.total_bits,
+                     "fifo_solver": d.fifo.solver, "clbs": r.clbs,
+                     "dsps": r.dsps, "brams": r.brams,
+                     "check_schedule": ok}
+        if not ok:
+            raise AssertionError(f"{app}: check_schedule() is False")
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(6, mp_context=ctx) as pool:
+        fig9 = pool.map(_hw_fig9, [t for t in PAPER_CONV if t != 1])
+        sims = pool.map(_hw_sim, list(SIM_CASES))
+        fig9, sims = list(fig9), list(sims)
+    pool_s = time.perf_counter() - t0
+    conv = paper["convolution"][1]
+    fig9.append({"T": "1", "T_eff": str(conv.T),
+                 "cycles": conv.cycles_per_frame(),
+                 "compile_s": paper["convolution"][2],
+                 "check_schedule": apps["convolution"]["check_schedule"],
+                 "clbs": apps["convolution"]["clbs"],
+                 "brams": apps["convolution"]["brams"]})
+    for row in fig9:
+        t_paper, cyc_paper = PAPER_CONV[Fraction(row["T"])]
+        row["paper_T"], row["paper_cycles"] = t_paper, cyc_paper
+        row["cycles_off"] = abs(row["cycles"] - cyc_paper) / cyc_paper
+        if abs(float(Fraction(row["T_eff"])) - t_paper) >= 0.01 \
+                or row["cycles_off"] >= 0.011 or not row["check_schedule"]:
+            raise AssertionError(f"fig. 9 at T={row['T']}: {row}")
+    for row in sims:
+        if row["deadlock"] is not None or not row["proven"]:
+            raise AssertionError(f"sim_case {row['app']}: {row}")
+    line = {"phase": "hw", "apps": apps,
+            "fig9": sorted(fig9, key=lambda r: Fraction(r["T"])),
+            "sim_cases": sims, "workers": 6, "pool_wall_s": pool_s}
+    emit(line)
+    return line
+
+
 def _host_ms(fn, calls: int, warm: int = 2):
     import torch
     for _ in range(warm):
@@ -518,20 +694,17 @@ def _host_ops(torch, fn, top: int = 8):
          "total_ms": e.cpu_time_total / 1e3} for e in ops[:top]]}
 
 
-def path_phase(torch, np, designs):
+def path_phase(torch, np, paper):
     """Every app at the paper's sizes through the entry points a user
     calls, on the kernels backend: the launches of each app's kernel are
     read just before and just after its own calls."""
-    from repro_torch import CompileOptions, compile_pipeline
-    from repro_torch.apps import KERNEL_OF, Convolution, Stereo
+    from repro_torch.apps import KERNEL_OF
     from repro_torch.kernels import registry
     from repro_torch.kernels.megakernel.check import leaves
 
     rng = np.random.RandomState(1)
-    opts = CompileOptions(backend="kernels")
-    runs = [("convolution", Convolution()), ("stereo", Stereo())]
-    runs = [(app, uf, compile_pipeline(uf, options=opts)) for app, uf in runs]
-    runs += [(app,) + designs[app] for app in MK_APPS]
+    runs = [(app,) + paper[app][:2] for app in ("convolution", "stereo")
+            + MK_APPS]
     results = {}
     for app, uf, design in runs:
         entry = registry.get_kernel(KERNEL_OF[app])
@@ -598,6 +771,146 @@ def path_phase(torch, np, designs):
                   batch, backend="kernels"))})
         results[app]["launches"] = entry.launches() - start
     return results
+
+
+def _check_against(what: str, got, want) -> dict:
+    """Leaves of a card run against numpy leaves: as many, integers and
+    booleans exact, float32 within FLOAT_ULP_BOUND ULPs; raises on a
+    difference."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.megakernel.check import check_leaves, leaves
+    got = [torch.from_numpy(np.ascontiguousarray(g)) for g in leaves(got)]
+    want = [torch.from_numpy(np.ascontiguousarray(w)) for w in leaves(want)]
+    return check_leaves(what, got, want, exact=False)
+
+
+def executor_case(torch, np, bench):
+    """Each app at its bench_case size: run and run_batch (3 frames) on
+    the card against the port's own executor (``backend="numpy"``)."""
+    rng = np.random.RandomState(5)
+    for app, (inputs_fn, design) in bench.items():
+        one, many = inputs_fn(rng), inputs_fn(rng, frames=3)
+        checks = [_check_against(f"{app} run", design.run(one),
+                                 design.run(one, backend="numpy"))]
+        checks.append(_check_against(
+            f"{app} run_batch", design.run_batch(many),
+            design.run_batch(many, backend="numpy")))
+        first = one[next(iter(one))]
+        first = first[0] if isinstance(first, tuple) else first
+        emit({"phase": "path", "app": app, "case": "bench_vs_executor",
+              "shape": list(first.shape),
+              "max_abs_err": max(c["max_abs_err"] for c in checks),
+              "max_ulp": max(c["max_ulp"] for c in checks)})
+
+
+def external_case(torch, np, ext):
+    """The External pipelines on the card.  ``clip`` at 1920x1080: run and
+    run_batch (4 frames) on the kernels backend against the torch backend
+    on the card, a megakernel on each side of the External and none
+    holding it, the numpy model called once per frame in frame order,
+    each segment against its plain version, its launches of the
+    generated segments read just before and just after those two calls,
+    the External's host ms beside each segment's device ms, and a
+    profile of one run.  Every case at 37x13: run and run_batch (3
+    frames) against the port's executor."""
+    from repro_torch.core.lowering import lowerers
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.megakernel.check import check_leaves, leaves
+    from repro_torch.kernels.megakernel.ops import megakernel_segment
+    from repro_torch.kernels.megakernel.ref import megakernel_ref
+    from repro_torch.kernels.timing import device_ms
+
+    k3 = registry.get_kernel("megakernel")
+    rng = np.random.RandomState(6)
+    line = {"phase": "path", "app": "external"}
+    for label, (uf, design, log) in ext.items():
+        key = f"{uf.name}.in"
+        big = label.endswith("1920x1080")
+        n = 4 if big else 3
+        x = rng.randint(0, 256, (n + 1, uf.in_type.h, uf.in_type.w)
+                        ).astype(np.int64)
+        lp = design.lower("kernels")
+        held = [m.name for m in lp.megakernels
+                if any(nd.op == "External" for nd in m.nodes)]
+        if held:
+            raise AssertionError(f"{label}: External inside {held}")
+        log.clear()
+        start = k3.launches()
+        one = design.run({key: x[0]})
+        many = design.run_batch({key: x[1:]})
+        k3_launches = k3.launches() - start
+        calls = list(log)
+        if len(calls) != 1 + n:
+            raise AssertionError(f"{label}: the model ran {len(calls)} "
+                                 f"times for {1 + n} frames")
+        if big:
+            if len(lp.megakernels) != 2:
+                raise AssertionError(f"{label}: {len(lp.megakernels)} "
+                                     f"megakernels, want 2: {lp.notes}")
+            if k3_launches != 2 * 2:
+                raise AssertionError(f"{label}: run and run_batch launched "
+                                     f"{k3.name} {k3_launches} times, "
+                                     f"want 4")
+            log.clear()
+            ref_one = design.run({key: x[0]}, backend="torch")
+            ref_many = design.run_batch({key: x[1:]}, backend="torch")
+            if log != calls:
+                raise AssertionError(f"{label}: the model's calls differ "
+                                     f"from the torch backend's")
+            for what, a, b in (("run", one, ref_one),
+                               ("run_batch", many, ref_many)):
+                for i, (g, w) in enumerate(zip(leaves(a), leaves(b))):
+                    if g.dtype != w.dtype or not np.array_equal(g, w):
+                        raise AssertionError(f"{label} {what} leaf {i} "
+                                             f"differs from torch")
+            segs = {}
+            for mk in lp.megakernels:
+                seg_in = lp.segment_inputs(mk, {key: x[1:]})
+                got = megakernel_segment(mk, *seg_in)
+                torch.cuda.synchronize()
+                chk = check_leaves(f"{label} {mk.name}", got,
+                                   megakernel_ref(mk, *seg_in), exact=True)
+                seg1 = lp.segment_inputs(mk, {key: x[:1]})
+                segs[mk.name] = {"nodes": mk.n_nodes,
+                                 "max_abs_err": chk["max_abs_err"],
+                                 "ms": device_ms(lambda: megakernel_segment(
+                                     mk, *seg1), 20)}
+            host = []
+            inner = lowerers.LOWERERS["External"]
+
+            def timed(v, p, ins):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = inner(v, p, ins)
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+                return r
+
+            lowerers.LOWERERS["External"] = timed
+            try:
+                for _ in range(7):
+                    design.run({key: x[0]})
+            finally:
+                lowerers.LOWERERS["External"] = inner
+            run_ms, _ = _host_ms(lambda: design.run({key: x[0]}), 5)
+            line[label] = {"bit_exact_vs_torch": True, "model_calls": calls,
+                           "k3_launches": k3_launches, "segments": segs,
+                           "external_host_ms": statistics.median(host[2:]),
+                           "external_host_ms_all": host, "run_ms": run_ms,
+                           "run_profile": _host_ops(torch, lambda: design.run(
+                               {key: x[0]}))}
+        else:
+            checks = [_check_against(f"{label} run", one,
+                                     design.run({key: x[0]}, backend="numpy")),
+                      _check_against(f"{label} run_batch", many,
+                                     design.run_batch({key: x[1:]},
+                                                      backend="numpy"))]
+            line[label] = {"vs_executor_max_abs_err": max(
+                c["max_abs_err"] for c in checks),
+                "megakernels": len(lp.megakernels)}
+    emit(line)
+    return line
 
 
 def attention_pairs(np, sq: int, skv: int, causal: bool, window) -> int:
@@ -1041,15 +1354,25 @@ def main() -> int:
           "peak_int32_ops_per_s": peak_int_ops, "nvidia_smi": name_power})
     print(name_power, flush=True)
 
-    designs = mk_designs()
-    build_phase(designs)
+    paper = paper_designs()
+    designs = mk_designs(paper)
+    bench = bench_designs()
+    ext = external_designs()
+    build_phase(designs, {**{f"bench_{a}": d for a, (_f, d) in bench.items()},
+                          **{f"ext_{k}": d for k, (_u, d, _l) in ext.items()}})
+    hw_phase(paper)
 
     kern = kernel_phase(torch, np, peak_int_ops)
     kern_mk = megakernel_phase(torch, np, designs, peak_int_ops)
     kern_k4 = flash_phase(torch, np)
     registry.reset_launch_counts()          # the main path's launches only
-    path = path_phase(torch, np, designs)
+    path = path_phase(torch, np, paper)
     launches = {n: e.launches() for n, e in registry.KERNELS.items()}
+    # each app's bench_case against the executor, then the External
+    # pipelines (their own path: counters set to 0 just before it)
+    executor_case(torch, np, bench)
+    registry.reset_launch_counts()
+    external_case(torch, np, ext)
     # the model's paths: llm_phase resets the counters just before the f32
     # prefill_fn call (the SIMT form's path) and just before the bf16
     # prefill_fn call and serving (the tensor-core and decode forms')

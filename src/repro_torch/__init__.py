@@ -5,19 +5,29 @@ runs on an NVIDIA Hopper card by default, and imports neither ``jax`` nor
 anything of ``repro`` (it keeps its own copy of what it needs):
 
   core/dtypes, core/hwimg   the HWImg type system and language (copies)
+  core/executor             the bit-accurate numpy executor (a copy)
+  core/{mapper,rigel,schedule,buffers}
+                            the hardware half: interface and rate solve,
+                            local mapping, FIFO allocation (copies)
+  hwsim/, analysis/traces   the scalar cycle simulator, the allocator, the
+                            area model and the trace algebra (copies)
   core/lowering/            IR -> rewrite rules -> segments: generated
                             megakernels (CUDA C++ per fused segment) and
                             eager torch segments
-  core/compile              ``compile_pipeline`` -> design with run/run_batch
+  core/compile              ``compile_pipeline`` -> design with the module
+                            netlist, FIFOs, ``report``, ``simulate``,
+                            ``optimize_fifos`` and run/run_batch
   kernels/                  hand-written CUDA kernels (csrc/*.cu) and the
                             megakernels' build and launch, behind wrappers
                             that count their launches
   apps/                     CONVOLUTION, STEREO, FLOW, DESCRIPTOR, PYRAMID
 
-Backends: ``"torch"`` (the generic plain lowering) and ``"kernels"`` (the
-same plus dispatch of matched subgraphs to the CUDA kernels, and one
-generated CUDA kernel per fused segment).  Entry points
-run on ``device="cuda"`` unless the caller passes ``device="cpu"``; with no
-card and no explicit CPU device they raise.
+Backends: ``"numpy"`` (the executor, on the host), ``"torch"`` (the
+generic plain lowering) and ``"kernels"`` (the same plus dispatch of
+matched subgraphs to the CUDA kernels, and one generated CUDA kernel per
+fused segment).  The lowering backends run on ``device="cuda"`` unless the
+caller passes ``device="cpu"``; with no card and no explicit CPU device
+they raise.
 """
-from .core import CompileOptions, HWDesign, compile_pipeline  # noqa: F401
+from .core import (CompileOptions, HWDesign, SimOptions,  # noqa: F401
+                   compile_pipeline)

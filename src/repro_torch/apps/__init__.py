@@ -32,6 +32,17 @@ BENCH_CASES = {
     "pyramid": _pyr.bench_case,
 }
 
+# uniform (UserFunction, target T, hand FIFO annotations) small cases for
+# the cycle simulator and FIFO allocator (hwsim/); the first four are the
+# paper's evaluation apps (§7)
+SIM_CASES = {
+    "convolution": _conv.sim_case,
+    "stereo": _stereo.sim_case,
+    "flow": _flow.sim_case,
+    "descriptor": _desc.sim_case,
+    "pyramid": _pyr.sim_case,
+}
+
 # the registry kernel each app's main path launches on the kernels backend
 KERNEL_OF = {
     "convolution": "conv2d",

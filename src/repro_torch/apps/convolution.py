@@ -6,6 +6,8 @@ hardware overhead produced by the compiler will be apparent."
 """
 from __future__ import annotations
 
+from fractions import Fraction
+
 import numpy as np
 
 from ..core import (AddAsync, AddMSBs, Array2d, Const, Crop, Map, Mul, Pad,
@@ -75,3 +77,28 @@ def golden_convolution(img: np.ndarray, kernel: np.ndarray = None
     out8 = shifted & 0xFF
     # Crop(12,4,8,0): rows t..ph-b = 0..ph-8, cols l..pw-r = 12..pw-4
     return out8[0:ph - 8, 12:pw - 4]
+
+
+# paper §7.2: the hand annotation zeroes the burst slack of the DMA-backed
+# border modules (the AXI memory system absorbs their bursts)
+HAND_FIFO = {"pad": 0, "crop": 0}
+
+# paper fig. 9: CONVOLUTION at 1920x1080 at each requested throughput ->
+# (the paper's T, its cycles per frame); the T column is rounded to 2-3
+# digits
+PAPER_CONV = {
+    Fraction(1, 8): (0.12, 16_851_000),
+    Fraction(1, 4): (0.25, 8_425_000),
+    Fraction(1, 2): (0.49, 4_213_000),
+    Fraction(1): (0.98, 2_106_000),
+    Fraction(2): (1.97, 1_053_000),
+    Fraction(4): (3.94, 527_000),
+    Fraction(8): (7.87, 263_000),
+}
+
+
+def sim_case(w: int = 96, h: int = 40):
+    """Small instance + target throughput + hand FIFO annotations: the
+    uniform surface for the cycle simulator (hwsim/ and
+    tests/test_torch_hw.py)."""
+    return Convolution(w=w, h=h), Fraction(1), HAND_FIFO

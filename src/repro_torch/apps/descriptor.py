@@ -119,3 +119,19 @@ def golden_descriptor(img: np.ndarray, n_features: int = N_FEATURES):
     out_v[: len(idx)] = flat_d[idx]
     out_i[: len(idx)] = idx
     return out_v, out_i
+
+
+# the hand annotation keeps the user-sized Filter FIFO (paper §7.3) but
+# zeroes SparseTake's output burst slack — the AXI DMA sink absorbs it
+HAND_FIFO = {"sparse_take": 0}
+
+
+def sim_case(w: int = 64, h: int = 48, n_features: int = 32,
+             filter_burst: int = 256):
+    """Small instance + target throughput + hand FIFO annotations for the
+    cycle simulator (see convolution.sim_case). ``filter_burst`` scales the
+    user's worst-case corner-burst bound down with the frame."""
+    from fractions import Fraction
+    return (Descriptor(w=w, h=h, n_features=n_features,
+                       filter_burst=filter_burst),
+            Fraction(1, 4), HAND_FIFO)

@@ -103,3 +103,15 @@ def golden_flow(i1: np.ndarray, i2: np.ndarray):
     u = np.where(det != 0, nu / np.where(det == 0, 1, det), 0).astype(f32)
     v = np.where(det != 0, nv / np.where(det == 0, 1, det), 0).astype(f32)
     return u, v
+
+
+# FLOW's modules are all smooth-rate (stencils + float maps): nothing for
+# the hand annotation to zero — the solver's slack is the whole story
+HAND_FIFO = {}
+
+
+def sim_case(w: int = 48, h: int = 24):
+    """Small instance + target throughput + hand FIFO annotations for the
+    cycle simulator (see convolution.sim_case)."""
+    from fractions import Fraction
+    return Flow(w=w, h=h), Fraction(1), HAND_FIFO

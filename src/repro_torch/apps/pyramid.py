@@ -46,3 +46,15 @@ def golden_pyramid(img: np.ndarray, levels: int = 2) -> np.ndarray:
     coarse = img[::s, ::s]
     recon = np.repeat(np.repeat(coarse, s, axis=0), s, axis=1)
     return np.abs(img.astype(np.int64) - recon.astype(np.int64))
+
+
+# the hand annotation zeroes the DMA-absorbed Downsample bursts (the same
+# reasoning as convolution's pad/crop)
+HAND_FIFO = {"downsample": 0}
+
+
+def sim_case(w: int = 64, h: int = 32, levels: int = 2):
+    """Small instance + target throughput + hand FIFO annotations for the
+    cycle simulator (see convolution.sim_case)."""
+    from fractions import Fraction
+    return Pyramid(w=w, h=h, levels=levels), Fraction(1), HAND_FIFO

@@ -60,3 +60,15 @@ def golden_stereo(left: np.ndarray, right: np.ndarray, nd: int = ND
     win = np.lib.stride_tricks.sliding_window_view(ext2, (BH, BW), axis=(0, 1))
     sad = win.sum(axis=(-2, -1)) & 0xFFFF                 # u16 wrap
     return np.argmin(sad, axis=-1)
+
+
+# STEREO has no bursty border/sparse modules: the hand-tuned allocation
+# annotates nothing, so auto-vs-hand differs only by what the solver adds
+HAND_FIFO = {}
+
+
+def sim_case(w: int = 64, h: int = 24, nd: int = 8):
+    """Small instance + target throughput + hand FIFO annotations for the
+    cycle simulator (see convolution.sim_case)."""
+    from fractions import Fraction
+    return Stereo(w=w, h=h, nd=nd), Fraction(1, 2), HAND_FIFO

@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..compile import LOWERING_BACKENDS as BACKENDS
 from ..hwimg import Val
 from .ir import IRNode, LoweringIR
 from .lowerers import LOWERERS, torch_mask
@@ -51,9 +52,6 @@ from .megakernel import (Megakernel, MKUnsupported, emit_megakernel,
                          streamable, worth_emitting)
 from .patterns import MK_SUBSUMED_RULES, RULES
 from .rewrite import apply_rules
-
-BACKENDS = ("torch", "kernels")
-
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` unless the caller

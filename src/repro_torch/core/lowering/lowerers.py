@@ -11,17 +11,19 @@ values derived only from ``Const`` carry a size-1 frame axis that
 broadcasts.  So every lowering below indexes the spatial axes as 1 and 2.
 
 ``Const`` has no entry: the engine moves each Const to the device once per
-compiled pipeline.  ``External`` (the host-callback import of a foreign
-module) is not lowered yet; a pipeline that contains one raises when it is
-lowered.
+compiled pipeline.  ``External`` (the import of a foreign module that
+carries a numpy model) is a host call: its operands are copied to the host,
+``np_fn`` runs once per frame, and the results are copied back.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List
 
+import numpy as np
 import torch
 
-from ..dtypes import ArrayT, Bits, Int, TupleT, UInt
+from ..dtypes import ArrayT, Bits, Int, SparseT, TupleT, UInt
+from ..executor import _mask_result
 from ..hwimg import PointFn, map_reshape_plans, scalar_of, type_shape
 from .ir import IRNode
 
@@ -247,6 +249,62 @@ def _lower_sparse_take(v, p, ins):
     return (out_v, out_i)
 
 
+# --------------------------------------------------------------------------
+# External: a synchronous host call of the module's numpy model
+#
+# The operands cross to the host in the executor's value layout (one numpy
+# array per leaf, ints on the int64 carrier), ``np_fn`` runs once per frame
+# in frame order, its result is wrapped to the declared widths by the
+# executor's own ``_mask_result``, and the frames go back to the device as
+# one tensor per leaf (the engine then applies ``torch_mask``).  An operand
+# derived only from Consts has a size-1 frame axis and is passed to every
+# frame.
+
+def _flat_values(ty, val) -> List[Any]:
+    """The leaves of a value of type ``ty``, in the executor's layout
+    order."""
+    if isinstance(ty, TupleT):
+        return [x for t, v_ in zip(ty.elems, val) for x in _flat_values(t, v_)]
+    if isinstance(ty, (SparseT, ArrayT)) and isinstance(val, tuple):
+        return list(val)
+    return [val]
+
+
+def _unflat_values(ty, it):
+    if isinstance(ty, TupleT):
+        return tuple(_unflat_values(t, it) for t in ty.elems)
+    if isinstance(ty, ArrayT) and isinstance(ty.elem, TupleT):
+        return tuple(next(it) for _ in ty.elem.elems)
+    if isinstance(ty, SparseT):
+        return (next(it), next(it))
+    return next(it)
+
+
+def _lower_external(v: IRNode, p, ins):
+    np_fn = p["np_fn"]
+    leaves_in = [_flat_values(ty, val) for ty, val in zip(v.input_tys, ins)]
+    if not any(leaves_in):
+        raise ValueError(f"External {p['ext_name']!r} has no operand to "
+                         "take its device and frames from")
+    device = next(x.device for leaves in leaves_in for x in leaves)
+    flat_in = [[x.cpu().numpy() for x in leaves] for leaves in leaves_in]
+    frames = max(x.shape[0] for leaves in flat_in for x in leaves)
+    per_frame = []
+    for f in range(frames):
+        args = [_unflat_values(ty, iter([x[f if x.shape[0] > 1 else 0]
+                                         for x in leaves]))
+                for ty, leaves in zip(v.input_tys, flat_in)]
+        r = _mask_result(np_fn(*args), v.ty)
+        per_frame.append([np.asarray(x) for x in _flat_values(v.ty, r)])
+    out = []
+    for leaf in zip(*per_frame):
+        a = np.stack(leaf)
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int64, copy=False)      # the integer carrier
+        out.append(torch.from_numpy(a).to(device))
+    return _unflat_values(v.ty, iter(out))
+
+
 LOWERERS: Dict[str, Callable[[IRNode, Dict[str, Any], List[Any]], Any]] = {
     "TupleIndex": lambda v, p, ins: ins[0][p["i"]],
     "Concat": lambda v, p, ins: tuple(ins),
@@ -267,4 +325,5 @@ LOWERERS: Dict[str, Callable[[IRNode, Dict[str, Any], List[Any]], Any]] = {
         p["sy"], dim=1).repeat_interleave(p["sx"], dim=2),
     "Filter": lambda v, p, ins: (ins[0], ins[1].to(torch.bool)),
     "SparseTake": _lower_sparse_take,
+    "External": _lower_external,
 }

@@ -1092,10 +1092,11 @@ class _CudaWriter:
 
     def _read_whole(self, u: int, idx) -> str:
         """Element ``idx`` (flat, over the type's whole shape) of a value
-        that does not ride the tile: a baked Const or a segment input."""
+        that does not ride the tile: a baked Const of this segment, or a
+        segment input (a Const that another segment holds is one)."""
         n = self.node(u)
         ct = self.ctype_of(u)
-        if n.op == "Const":
+        if u in self.mk.consts:
             return self.let(ct, self.const_at(u, idx))
         if (u, 0) in self.in_index and not isinstance(n.ty, TupleT):
             j = self.in_index[(u, 0)]

@@ -136,3 +136,73 @@ def point_fn_probes(c):
                          small),
         "abs_bool": (probe("absb", u8, lambda a: c.Map(c.Abs)(gt(a))), small),
     }
+
+
+def external_pipelines(c, w: int = 12, h: int = 8, log=None):
+    """Pipelines with an ``External`` (a numpy model) between streamed
+    segments, built from either package's core ``c``; each model appends
+    the sum of its first operand to ``log`` (a list) when one is given, so
+    a caller sees one call per frame and their order.
+
+    - ``clip``: a 3x3 box sum, the External (a clip), then a chain of point
+      ops: on the kernels backend a megakernel on each side of it;
+    - ``tuple``: the External takes a tuple (the frame and its box sum) and
+      a Const, and returns a tuple of a UInt(8) and an Int(12) image, both
+      wrapped to their widths; a scalar Const scheduled before the External
+      feeds the segment after it;
+    - ``wide``: the External returns a UInt(48) image, wrapped to 48 bits.
+    Returns name -> UserFunction."""
+
+    def record(a):
+        if log is not None:
+            log.append(int(np.asarray(a).sum()))
+
+    def box(x):
+        return c.Reduce(c.Add)(c.Map(c.AddMSBs(4))(c.Stencil(-1, 1, -1, 1)(x)))
+
+    def clip(a):
+        record(a)
+        return np.clip(a, 100, 1500)
+
+    def split(t, k):
+        a, b = t
+        record(a)
+        return (a * k + 7, b - 3 * a)
+
+    def wide(a):
+        record(a)
+        return (a << 40) + (a << 20) + a
+
+    def pipeline(name, body):
+        class Ext(c.UserFunction):
+            def __init__(self):
+                super().__init__(f"ext_{name}", c.Array2d(c.UInt(8), w, h))
+
+            def define(self, x):
+                return body(x)
+
+        return Ext()
+
+    def clip_body(x):
+        fan = c.FanOut(2)(x)
+        b = box(fan[0])
+        e = c.External("clip", b.ty, clip, b)
+        s = c.Map(c.Add)(e, c.Map(c.AddMSBs(4))(c.FanIn(fan[1])))
+        return c.Map(c.AbsDiff)(c.Map(c.Rshift(2))(s), c.Map(c.Rshift(3))(e))
+
+    def tuple_body(x):
+        fan = c.FanOut(2)(x)
+        b = box(fan[0])
+        ty = c.TupleT((c.Array2d(c.UInt(8), w, h), c.Array2d(c.Int(12), w, h)))
+        e = c.External("split", ty, split, c.Concat(fan[1], b),
+                       c.Const(c.UInt(8), 3))
+        lo = c.Map(c.Max)(c.Map(c.Rshift(1))(e[0]), c.Const(c.UInt(8), 9))
+        return c.Concat(lo, c.Map(c.Abs)(e[1]))
+
+    def wide_body(x):
+        e = c.External("wide", c.Array2d(c.UInt(48), w, h), wide, x)
+        return c.Map(c.Rshift(8))(e)
+
+    return {"clip": pipeline("clip", clip_body),
+            "tuple": pipeline("tuple", tuple_body),
+            "wide": pipeline("wide", wide_body)}

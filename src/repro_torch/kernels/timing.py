@@ -21,19 +21,23 @@ def device_events(fn: Callable, iters: int, warmup: int = 2
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total / 1e3 / iters
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0}
-    total = sum(by_name.values())
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total, by_name
+    # a profiled window now and then comes back with no device events at
+    # all (seen once on an H100 in chip_smoke.py's External case, after a
+    # run of CPU-only profiler sessions); such a window is profiled again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key: e.self_device_time_total / 1e3 / iters
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+        total = sum(by_name.values())
+        if total > 0:
+            return total, by_name
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def device_ms(fn: Callable, iters: int, warmup: int = 2) -> float:

@@ -25,7 +25,8 @@ from repro_torch.kernels.conv2d.ops import conv2d_stencil  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.sad.ops import sad_disparity  # noqa: E402
 from repro_torch.kernels.megakernel.check import (  # noqa: E402
-    all_ops_pipeline, check_leaves, point_fn_probes)
+    all_ops_pipeline, check_leaves, external_pipelines,
+    point_fn_probes)
 from repro_torch.kernels.megakernel.ops import megakernel_segment  # noqa: E402
 from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
@@ -130,6 +131,28 @@ def test_kernels_backend_on_card_matches_cpu(card, app):
     _same(design.run_batch(batch), design.run_batch(batch, device="cpu"))
     # one launch per run and one per batch of 3 frames
     assert registry.get_kernel(KERNEL_OF[app]).launches() == 2
+
+
+@pytest.mark.parametrize("case", ["clip", "tuple", "wide"])
+def test_external_on_card_matches_cpu_and_executor(card, case):
+    """External between generated segments on the card: both backends'
+    run_batch equal the kernels backend on the CPU and the executor, and
+    the numpy model runs once per frame."""
+    log = []
+    uf = external_pipelines(port_core, 37, 13, log)[case]
+    key = f"{uf.name}.in"
+    x = np.random.RandomState(7).randint(0, 256, (3, 13, 37))
+    design = compile_pipeline(uf, options=CompileOptions(backend="kernels"))
+    want = design.run_batch({key: x}, backend="numpy")
+    _same(design.run_batch({key: x}, device="cpu"), want)
+    for backend in ("kernels", "torch"):
+        log.clear()
+        _same(design.run_batch({key: x}, backend=backend), want)
+        assert len(log) == 3
+        _same(design.run({key: x[0]}, backend=backend),
+              design.run({key: x[0]}, backend="numpy"))
+    if case == "clip":
+        assert registry.get_kernel("megakernel").launches() == 2 * 2
 
 
 @pytest.mark.parametrize("frames", [1, 3])

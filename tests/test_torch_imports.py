@@ -1,8 +1,10 @@
 """The port stands alone and runs on the card by default.
 
 - It imports neither ``jax`` nor anything of ``repro``: checked in a fresh
-  process that lowers and runs every app and serves a reduced model, and
-  by a scan of its sources.
+  process that lowers and runs every app, compiles, simulates and sizes
+  the FIFOs of one through the hardware half, and serves a reduced model,
+  and by a scan of its sources.
+- Compiling loads neither the lowering nor torch.
 - Its entry points never fall back quietly to the CPU: without a card and
   without ``device="cpu"`` they raise.
 """
@@ -40,6 +42,15 @@ def test_port_runs_without_importing_jax_or_repro():
                 d.run(inputs(rng), backend=backend, device="cpu")
                 d.run_batch(inputs(rng, frames=2), backend=backend,
                             device="cpu")
+        from repro_torch import CompileOptions, SimOptions
+        from repro_torch.apps import SIM_CASES
+        uf, T, hand = SIM_CASES["pyramid"]()
+        d = compile_pipeline(uf, T=T, options=CompileOptions(
+            fifo_solver="sim", manual_fifo_overrides=hand))
+        d.simulate(options=SimOptions(frames=2))
+        assert d.check_schedule() and d.fifo_sim_proven
+        d.run_batch(inputs(rng, frames=2), backend="numpy")
+        d.report()
         from repro_torch.launch.serve import main
         main(["--arch", "gemma3-1b", "--smoke", "--batch", "2",
               "--prompt-len", "3", "--gen", "2", "--device", "cpu"])
@@ -68,6 +79,30 @@ def test_port_sources_import_nothing_of_jax_or_repro():
     assert len(files) > 20
     bad = [f for f in files if _FORBIDDEN.search(Path(f).read_text())]
     assert not bad
+
+
+def test_compiling_loads_no_lowering_torch_jax_or_repro():
+    """The hardware half alone (compile, simulate, size the FIFOs, report)
+    in a fresh process loads neither ``repro_torch.core.lowering`` nor the
+    kernels nor torch, and nothing of jax or ``repro``."""
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch import compile_pipeline
+        from repro_torch.apps import SIM_CASES
+        uf, T, _ = SIM_CASES["pyramid"]()
+        d = compile_pipeline(uf, T=T)
+        d.simulate(); d.optimize_fifos(); d.report()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro", "torch")
+                     or m.startswith(("repro_torch.core.lowering",
+                                      "repro_torch.kernels")))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
 
 
 def test_source_scan_catches_a_reference_import():

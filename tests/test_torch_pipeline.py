@@ -4,7 +4,8 @@ STEREO, FLOW, DESCRIPTOR, PYRAMID) at bench and odd sizes, for both port
 backends on the CPU, bit-exact: against the numpy executor
 (``repro.core.executor.evaluate``), the golden models, and the JAX
 ``pallas`` backend; and the plans (segments, nodes, megakernels, box-sum
-chains) against the pallas backend's.
+chains) against the pallas backend's.  ``External`` runs as a host call
+on both backends, against both executors, once per frame.
 
 The JAX lowering engine needs ``jax.experimental.enable_x64``, which this
 jax no longer has.  The pallas plan and its outputs therefore come from one
@@ -33,7 +34,9 @@ from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
 from repro_torch.apps import (from_reference, golden_convolution,  # noqa: E402
                               golden_descriptor, golden_flow, golden_pyramid,
                               golden_stereo)
-from repro_torch.kernels.megakernel.check import point_fn_probes  # noqa: E402
+from repro_torch.core.lowering.engine import CompiledPipeline  # noqa: E402
+from repro_torch.kernels.megakernel.check import (  # noqa: E402
+    external_pipelines, point_fn_probes)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 3
@@ -319,13 +322,14 @@ def test_generic_lowerers_match_executor():
     x = rng.randint(0, 256, (FRAMES, 8, 12)).astype(np.int64)
     x[0, :2] = 0                                  # exercise FloatDiv by 0
     ref_out = _sink(jax_core).build()[1]
-    design = compile_pipeline(_sink(port_core),
-                              options=CompileOptions(backend="torch",
-                                                     device="cpu"))
-    batch = _flat(design.run_batch({"sink.in": x}))
+    # lowered directly: compile_pipeline's rate solve refuses this
+    # pipeline's Concat of unequal rates, as the reference's does
+    lp = CompiledPipeline(_sink(port_core).build()[1], backend="torch",
+                          device="cpu")
+    batch = _flat(lp.run_batch({"sink.in": x}))
     for f in range(FRAMES):
         want = _flat(evaluate(ref_out, {"sink.in": x[f]}))
-        one = _flat(design.run({"sink.in": x[f]}))
+        one = _flat(lp({"sink.in": x[f]}))
         assert len(want) == len(one) == len(batch)
         for w_, o, bt in zip(want, one, batch):
             assert np.array_equal(w_, o) and np.array_equal(w_, bt[f])
@@ -386,17 +390,55 @@ def test_run_batch_device_keeps_tensors_and_takes_tensors():
     assert np.array_equal(out.numpy(), design.run_batch(inputs))
 
 
-def test_unported_external_raises_when_lowered():
-    c = port_core
+def _ext_frames(case):
+    rng = np.random.RandomState(sum(map(ord, case)))
+    return rng.randint(0, 256, (FRAMES, 8, 12)).astype(np.int64)
 
-    class WithExternal(c.UserFunction):
-        def __init__(self):
-            super().__init__("ext", c.Array2d(c.UInt(8), 6, 4))
 
-        def define(self, x):
-            return c.External("twice", x.ty, lambda a: 2 * a, x)
+@pytest.mark.parametrize("backend", ["torch", "kernels"])
+@pytest.mark.parametrize("case", ["clip", "tuple", "wide"])
+def test_external_runs_bit_exact_against_both_executors(case, backend):
+    """External lowers as a host call: run and run_batch give the port's
+    executor's values and types and the reference's executor's, a tuple
+    output and a 48-bit output included, and the numpy model runs once per
+    frame, in frame order."""
+    log = []
+    uf = external_pipelines(port_core, log=log)[case]
+    ref_out = external_pipelines(jax_core)[case].build()[1]
+    key, x = f"{uf.name}.in", _ext_frames(case)
+    design = compile_pipeline(uf, options=CompileOptions(backend=backend,
+                                                         device="cpu"))
+    want = []
+    for f in range(FRAMES):
+        got_ref = _flat(evaluate(ref_out, {key: x[f]}))
+        log.clear()
+        got = _flat(design.run({key: x[f]}, backend="numpy"))
+        assert len(log) == 1
+        assert len(got) == len(got_ref) and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(got, got_ref))
+        want.append((got, log[0]))
+    log.clear()
+    batch = _flat(design.run_batch({key: x}))
+    assert log == [calls for _, calls in want]
+    for f, (w_, _) in enumerate(want):
+        log.clear()
+        one = _flat(design.run({key: x[f]}))
+        assert len(log) == 1
+        for a, b, bt in zip(w_, one, batch):
+            assert a.dtype == b.dtype == bt.dtype
+            assert np.array_equal(a, b) and np.array_equal(a, bt[f])
 
-    design = compile_pipeline(WithExternal(),
-                              options=CompileOptions(device="cpu"))
-    with pytest.raises(NotImplementedError, match="External"):
-        design.lower()
+
+def test_external_ends_a_segment_between_two_megakernels():
+    """A box sum, the External, then a point-op chain: on the kernels
+    backend each side is one generated segment and the External runs
+    alone in a generic segment between them."""
+    uf = external_pipelines(port_core)["clip"]
+    design = compile_pipeline(uf, options=CompileOptions(device="cpu"))
+    lp = design.lower("kernels")
+    assert len(lp.megakernels) == 2
+    assert not any(n.op == "External" for mk in lp.megakernels
+                   for n in mk.nodes)
+    ops = [[n.op for n in t.nodes] for t in lp._plan]
+    assert ops[1] == ["External"] and len(ops) == 3
