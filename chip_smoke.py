@@ -62,17 +62,39 @@ phase prints one JSON line:
            k, v and o once over 3.35 TB/s and 4 D flops per unmasked
            (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
            67 TFLOP/s f32)
-  hw       the hardware half, on the host: each app at the paper's size
-           (compiled once, the hardware flow included, and reused by the
-           phases below): compile_pipeline seconds, interface kind,
-           effective T, modules, edges, cycles per frame, FIFO bits and
-           solver, CLBs, DSPs and BRAMs, and check_schedule(), which must
+  hw       the hardware half, on the host (the scalar engine): each app
+           at the paper's size (compiled once, the hardware flow
+           included, and reused by the phases below): compile_pipeline
+           seconds, interface kind, effective T, modules, edges, cycles
+           per frame, FIFO bits and solver, CLBs, DSPs and BRAMs, and check_schedule(), which must
            be True; CONVOLUTION at each fig. 9 throughput, whose effective
            T must be the paper's within 0.01 and its cycles within 1.1 %;
            each app's sim_case through the scalar cycle simulator (no
            deadlock) and optimize_fifos over 2 frames (proven), with the
            analytic and simulated FIFO bits and the seconds each took (the
            fig. 9 compiles and the sim cases in 6 worker processes)
+  cycle    the cycle kernel (csrc/cyclesim.cu, one thread block per
+           design): against its plain version (hwsim/vector.py on the CPU,
+           6 worker processes) at FLOW's, PYRAMID's and CONVOLUTION's
+           sim_case, 1 and 2 frames, bounded and unbounded, event jump on
+           and off, a zero-depth PYRAMID residue edge (a deadlock) and a
+           horizon on CONVOLUTION's first frame boundary; against the
+           scalar engine at all five sim_cases (2 frames); a population
+           of 16 FLOW depth sets in one launch against 16 single runs;
+           the kernel's device time on FLOW's sim_case (2 frames); the
+           kernel against the plain version and the scalar engine on
+           1920x1080 FLOW's first 40,000 cycles (its kernels line: device
+           time, the plain version's host time); then its own path,
+           counters set to 0 just before and read just after:
+           simulate() on the card at the paper's size, one frame, for
+           CONVOLUTION, FLOW and PYRAMID (cycles beside
+           cycles_per_frame(), seconds, ns a cycle), and
+           explore_app("flow") with 16 points on the population engine;
+           after the read, the whole CONVOLUTION and PYRAMID frames held
+           against the scalar engine (every shared SimResult field; run in
+           the worker pool since the phase began), and the same sweep on
+           the scalar engine on the host (the same points,
+           cycles_skipped aside; points/s each); one simulate_ingest run
   path     CONVOLUTION 1920x1080, STEREO 720x400 nd=64, and FLOW,
            DESCRIPTOR and PYRAMID 1920x1080 through
            compile_pipeline(...).run and run_batch (4 frames) on the
@@ -110,10 +132,11 @@ phase prints one JSON line:
            card's top kernels over a profiled decode step, with K4's share
            of its device time (split and merge kernels)
   kernels  one line: every kernel (K3 once per app segment, K4 once per
-           form) with its launches on its main path (the counters are
-           reset just before the image path phase, just before the f32
-           prefill_fn call and just before the bf16 prefill_fn call), its
-           error against the plain version, and its times and bound
+           form, the cycle kernel) with its launches on its main path (the
+           counters are reset just before the cycle phase's path, the
+           image path phase, the f32 prefill_fn call and the bf16
+           prefill_fn call), its error against the plain version, and its
+           times and bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Any mismatch, build
 failure or launch error ends the script with a nonzero exit before it.
@@ -139,7 +162,10 @@ F32_FLOPS = 67e12                  # f32 outside the tensor cores
 TPU_KERNELS = {"conv2d": "kernels/conv2d/kernel.py::_conv_kernel",
                "sad": "kernels/sad/kernel.py::_sad_kernel",
                "megakernel": "core/lowering/megakernel.py::emit_megakernel",
-               "flash_attention": "kernels/flash/kernel.py::_flash_kernel"}
+               "flash_attention": "kernels/flash/kernel.py::_flash_kernel",
+               # no pallas_call: the reference's two XLA while_loops
+               "cyclesim": "hwsim/vector.py::_segment_impl, "
+                           "hwsim/population.py::_pop_impl"}
 LLM_ARCH = "gemma3-1b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 1024, 32
 MK_APPS = ("flow", "descriptor", "pyramid")
@@ -587,10 +613,10 @@ def _hw_sim(app: str) -> dict:
     uf, T, _hand = SIM_CASES[app]()
     d = compile_pipeline(uf, T=T)
     t0 = time.perf_counter()
-    res = d.simulate()
+    res = d.simulate(options=SimOptions(engine="scalar"))
     sim_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    alloc = d.optimize_fifos(options=SimOptions(frames=2))
+    alloc = d.optimize_fifos(options=SimOptions(engine="scalar", frames=2))
     alloc_s = time.perf_counter() - t0
     bits = {(e.src, e.dst): e.token_bits for e in d.edges}
     return {"app": app, "shape": [uf.h, uf.w], "T": str(T),
@@ -661,6 +687,277 @@ def hw_phase(paper):
             "sim_cases": sims, "workers": 6, "pool_wall_s": pool_s}
     emit(line)
     return line
+
+
+# ---- the cycle phase: csrc/cyclesim.cu behind hwsim's engines ----
+
+# the kernel against its plain version: per app's sim_case, (frames,
+# unbounded, event jump)
+CYCLE_APPS = ("flow", "pyramid", "convolution")
+CYCLE_RUNS = ((1, False, True), (2, False, True), (2, False, False),
+              (1, True, True))
+# PYRAMID's residue edge at depth 0 wedges its diamond (a deadlock)
+PYRAMID_RESIDUE = (6, 1)
+CYCLE_POPULATION = 16
+EXPLORE_POINTS = 16
+# simulate() at the paper's size, one frame: STEREO and DESCRIPTOR are cut
+# (at T = 1 their netlists' Serialize and Filter emit 64 and 4 tokens an
+# input pixel, so a frame runs 63x and 4x the analytic cycles, tens of
+# seconds of kernel time; repro_torch.launch.cycle_check holds them
+# against the scalar engine)
+PAPER_SIM_APPS = ("convolution", "flow", "pyramid")
+# the path's witnesses: the scalar engine over a whole 1080p frame of
+# these (about 35 s each on the host, in the worker pool) ...
+PAPER_SCALAR_APPS = ("convolution", "pyramid")
+# ... and the plain version and the scalar engine over 1080p FLOW's first
+# cycles (its ring has ~15 k rows: this wraps it several times)
+PAPER_FLOW_HORIZON = 40_000
+
+
+def cycle_phase(torch, np, paper, peak_int_ops):
+    """The cycle kernel (csrc/cyclesim.cu): against its plain version and
+    the scalar engine at the sim_cases, a population of 16 designs in one
+    launch against 16 single runs, the kernel against both on 1080p FLOW's
+    first 40 k cycles (its kernels line), then its own path (counters set
+    to 0 just before, read just after): ``simulate()`` on the card for
+    each app at the paper's size (one frame), the whole CONVOLUTION and
+    PYRAMID frames held against the scalar engine, and the explorer's
+    population engine; the explorer on the host beside it, and one ingest
+    model run.  The host engines run in 6 worker processes meanwhile."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from fractions import Fraction
+    from repro_torch import ExploreOptions, SimOptions
+    from repro_torch.apps import SIM_CASES
+    from repro_torch.explore import explore_app
+    from repro_torch.hwsim import PopulationSim, VectorSim, simulate_ingest
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.cyclesim import ops as cyc
+    from repro_torch.kernels.timing import device_events
+    from repro_torch.launch import cycle_check as cc
+
+    kernel = registry.get_kernel("cyclesim")
+    t_phase = time.perf_counter()
+    cases = [dict(app=app, frames=f, unbounded=u, jump=j)
+             for app in CYCLE_APPS for f, u, j in CYCLE_RUNS]
+    cases += [dict(app="pyramid", frames=1, unbounded=False, jump=j,
+                   zero=[PYRAMID_RESIDUE]) for j in (True, False)]
+    scalar_cases = [dict(app=app, frames=2, unbounded=False, jump=True)
+                    for app in SIM_CASES]
+    flow_cut = dict(app="flow", size="paper", frames=1, unbounded=False,
+                    jump=True, max_cycles=PAPER_FLOW_HORIZON)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(6, mp_context=ctx,
+                             initializer=cc.worker_init) as pool:
+        # the longest host runs first
+        w_paper = {app: pool.submit(cc.run_case, dict(
+            app=app, size="paper", frames=1, unbounded=False, jump=True),
+            "scalar") for app in PAPER_SCALAR_APPS}
+        w_cut = {e: pool.submit(cc.run_case, flow_cut, e, "cpu")
+                 for e in ("vector", "scalar")}
+        plain = [pool.submit(cc.run_case, c, "vector", "cpu")
+                 for c in cases]
+        scalar = [pool.submit(cc.run_case, c, "scalar") for c in scalar_cases]
+        # the kernel in this process meanwhile
+        got = [cc.run_case(c, "vector", "cuda") for c in cases]
+        got_sc = [cc.run_case(c, "vector", "cuda") for c in scalar_cases]
+        # the horizon on CONVOLUTION's first frame boundary
+        conv2 = next(g for c, (g, _s) in zip(cases, got)
+                     if c["app"] == "convolution" and c["frames"] == 2)
+        hcase = dict(app="convolution", frames=2, unbounded=False, jump=True,
+                     max_cycles=conv2["frame_ends"][0] + 1)
+        h_plain = pool.submit(cc.run_case, hcase, "vector", "cpu")
+        h_scalar = pool.submit(cc.run_case, hcase, "scalar")
+        h_got = cc.run_case(hcase, "vector", "cuda")
+        rows = []
+        for c, (g, g_s), fut in zip(cases + [hcase], got + [h_got],
+                                    plain + [h_plain]):
+            want, p_s = fut.result()
+            err = cc.summary_err(g, want)
+            if g != want:
+                raise AssertionError(f"cycle kernel != plain on {c}: "
+                                     f"{g['cycles']} vs {want['cycles']}, "
+                                     f"{g['deadlock']!r} vs "
+                                     f"{want['deadlock']!r}, err {err}")
+            rows.append({**{k: v for k, v in c.items() if k != "zero"},
+                         "zero": [list(k) for k in c.get("zero", ())],
+                         "cycles": g["cycles"], "deadlock": g["deadlock"],
+                         "skipped": g["cycles_skipped"],
+                         "saved": g["cycles_saved"], "max_abs_err": err,
+                         "kernel_s": g_s, "plain_s": p_s})
+        if not any(r["deadlock"] and r["saved"] for r in rows):
+            raise AssertionError("the zero-depth PYRAMID did not deadlock "
+                                 "with a jumped tail")
+        if h_got[0]["cycles"] != hcase["max_cycles"] or \
+                h_got[0]["frame_ends"] != conv2["frame_ends"][:1]:
+            raise AssertionError(f"horizon case: {rows[-1]}")
+        h_sc, _ = h_scalar.result()
+        for label, (g, g_s), (want, w_s) in (
+                [(c["app"], k, f.result()) for c, k, f in
+                 zip(scalar_cases, got_sc, scalar)]
+                + [("convolution-horizon", h_got, (h_sc, 0.0))]):
+            if cc.scalar_view(g) != cc.scalar_view(want):
+                raise AssertionError(f"cycle kernel != scalar on {label}")
+            rows.append({"app": label, "against": "scalar", "frames": 2,
+                         "cycles": g["cycles"], "kernel_s": g_s,
+                         "scalar_s": w_s, "equal": True})
+        emit({"phase": "cycle", "check": "kernel_vs_plain_and_scalar",
+              "cases": rows, "s": time.perf_counter() - t_phase})
+
+        # a population of 16 FLOW depth sets in one launch against 16
+        # singles
+        d = cc.design("flow")
+        ana = dict(d.fifo.depth)
+        keys = sorted(ana)
+        rng = np.random.RandomState(0)
+        sets = [ana] + [{k: int(round(v * f)) for k, v in ana.items()}
+                        for f in (0, 0.25, 0.5, 0.75, 1.25, 1.5, 2)]
+        while len(sets) < CYCLE_POPULATION:
+            fac = rng.uniform(0.0, 1.6, size=len(keys))
+            sets.append({k: int(round(ana[k] * fac[j]))
+                         for j, k in enumerate(keys)})
+        before = kernel.launches()
+        t0 = time.perf_counter()
+        pop = PopulationSim(d.modules, d.edges, sets, frames=2).run()
+        pop_s = time.perf_counter() - t0
+        if kernel.launches() != before + 1:
+            raise AssertionError("the population took more than one launch")
+        t0 = time.perf_counter()
+        singles = [VectorSim(d.modules, d.edges, ds, frames=2).run()
+                   for ds in sets]
+        singles_s = time.perf_counter() - t0
+        for k, (p, s1) in enumerate(zip(pop, singles)):
+            if cc.summary(p) != cc.summary(s1):
+                raise AssertionError(f"population design {k} != its single "
+                                     "run")
+        emit({"phase": "cycle", "check": "population", "app": "flow",
+              "designs": len(sets), "launches": 1,
+              "deadlocked": sum(r.deadlock is not None for r in pop),
+              "cycles": [r.cycles for r in pop], "population_s": pop_s,
+              "singles_s": singles_s})
+
+        # the kernel's time a cycle on FLOW's sim_case, 2 frames
+        vs = VectorSim(d.modules, d.edges, ana, frames=2)
+        _total, by_name = device_events(vs.run, 3)
+        k_ms = sum(v for n, v in by_name.items() if "cyclesim" in n)
+        sim2 = next(g for c, (g, _s) in zip(scalar_cases, got_sc)
+                    if c["app"] == "flow")
+        emit({"phase": "cycle", "check": "sim_case_time",
+              "case": "flow_sim_2f", "ms": k_ms, "cycles": sim2["cycles"],
+              "ns_per_cycle": k_ms * 1e6 / sim2["cycles"],
+              "threads": cyc.threads_for(vs.M, vs.E),
+              "smem_bytes": cyc.smem_bytes(vs.M, vs.E), "H": vs.H})
+
+        # the kernels line, at the path's shape: 1080p FLOW's first
+        # PAPER_FLOW_HORIZON cycles against the plain version and the
+        # scalar engine (run in the pool meanwhile)
+        fd = paper["flow"][1]
+        vs = VectorSim(fd.modules, fd.edges, dict(fd.fifo.depth), frames=1)
+        res_box = []
+        _total, by_name = device_events(
+            lambda: res_box.append(vs.run(max_cycles=PAPER_FLOW_HORIZON)), 3)
+        k_ms = sum(v for n, v in by_name.items() if "cyclesim" in n)
+        call_ms = cuda_ms(lambda: vs.run(max_cycles=PAPER_FLOW_HORIZON), 3,
+                          warmup=1)
+        got_cut = cc.summary(res_box[-1])
+        (want_cut, plain_s), (sc_cut, sc_s) = (w_cut[e].result()
+                                               for e in ("vector", "scalar"))
+        line_err = cc.summary_err(got_cut, want_cut)
+        if got_cut != want_cut or \
+                cc.scalar_view(got_cut) != cc.scalar_view(sc_cut):
+            raise AssertionError("cycle kernel != plain or scalar on 1080p "
+                                 f"FLOW's first {PAPER_FLOW_HORIZON} cycles")
+        # bytes: the packed netlist and the capacities read once, the final
+        # state, scalars and frame ends written once
+        net = cyc.pack(vs, torch.device("cuda"))
+        executed = got_cut["cycles"] - got_cut["cycles_skipped"]
+        nbytes = sum(t.numel() * 8 for t in net.values()) + 8 * (
+            vs.E + 6 * vs.E + 3 * vs.M + len(cyc.SCALARS) + vs.frames)
+        # least work: per executed cycle about ten int64 compares and adds
+        # an edge and twelve a module, two int32 ops each
+        ops = executed * (10 * vs.E + 12 * vs.M) * 2
+        b_ms, b_by, _tb, _to = bound(nbytes, ops, peak_int_ops)
+        line = {"max_abs_err": line_err, "ms": k_ms, "call_ms": call_ms,
+                "plain_ms": plain_s * 1e3, "scalar_ms": sc_s * 1e3,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "cycles": got_cut["cycles"],
+                "deadlock": got_cut["deadlock"],
+                "ns_per_cycle": k_ms * 1e6 / got_cut["cycles"],
+                "threads": cyc.threads_for(vs.M, vs.E),
+                "smem_bytes": cyc.smem_bytes(vs.M, vs.E), "H": vs.H,
+                "modules": vs.M, "edges": vs.E}
+        emit({"phase": "kernel", "name": "cyclesim",
+              "case": f"flow_1080p_{PAPER_FLOW_HORIZON}", **line})
+
+        # the cycle kernel's own path: simulate() at the paper's size, one
+        # frame, and the explorer's population engine, through the entry
+        # points a user calls
+        registry.reset_launch_counts()
+        apps, results = {}, {}
+        for app in PAPER_SIM_APPS:
+            uf, design, _sec = paper[app]
+            box = []
+            t0 = time.perf_counter()
+            _tot, names = device_events(
+                lambda: box.append(design.simulate(options=SimOptions())), 1,
+                warmup=0)
+            wall = time.perf_counter() - t0
+            res = results[app] = box[0]
+            dev_ms = sum(v for n, v in names.items() if "cyclesim" in n)
+            cpf = design.cycles_per_frame()
+            if res.deadlock is not None or res.engine != "vector":
+                raise AssertionError(f"{app} at paper size: {res.deadlock}, "
+                                     f"{res.engine}")
+            apps[app] = {"shape": [uf.h, uf.w], "cycles": res.cycles,
+                         "cycles_per_frame": cpf,
+                         "cycles_over_analytic": res.cycles / cpf,
+                         "skipped": res.cycles_skipped, "wall_s": wall,
+                         "kernel_ms": dev_ms,
+                         "ns_per_cycle": dev_ms * 1e6 / res.cycles,
+                         "modules": len(design.modules),
+                         "edges": len(design.edges)}
+        opts = dict(max_points=EXPLORE_POINTS, seed=0)
+        card = explore_app("flow", ExploreOptions(**opts))
+        launches = kernel.launches()
+        if launches == 0:
+            raise AssertionError("the cycle kernel was not launched on its "
+                                 "path")
+        host = explore_app("flow", ExploreOptions(**opts, engine="scalar",
+                                                  device="cpu"))
+        # the path's whole frames against the scalar engine's
+        for app, fut in w_paper.items():
+            want, sc_s = fut.result()
+            got_p = cc.summary(results[app])
+            if cc.scalar_view(got_p) != cc.scalar_view(want):
+                raise AssertionError(f"cycle kernel != scalar on {app} at "
+                                     "the paper's size: "
+                                     f"{cc.summary_err(got_p, want)}")
+            apps[app].update(scalar_equal=True, scalar_s=sc_s,
+                             scalar_us_per_cycle=sc_s * 1e6 / want["cycles"])
+
+    def points(r):
+        return [{k: v for k, v in p.as_dict().items()
+                 if k != "cycles_skipped"} for p in r.points]
+
+    if points(card) != points(host) or \
+            card.hand.as_dict() != host.hand.as_dict():
+        raise AssertionError("the explorer's points differ across engines")
+    ing = simulate_ingest(512, 40.0, Fraction(1, 32), 16, seed=0)
+    emit({"phase": "cycle", "check": "path", "simulate_paper": apps,
+          "explore": {e: {"points": r.n_evaluated,
+                          "eval_s": r.eval_seconds,
+                          "wall_s": r.wall_seconds,
+                          "points_per_s": r.points_per_sec,
+                          "front": len(r.front.points),
+                          "notes": r.notes}
+                      for e, r in (("population_cuda", card),
+                                   ("scalar_cpu", host))},
+          "launches": launches,
+          "ingest": {"hwm": ing.hwm, "capacity": ing.capacity,
+                     "frames": ing.frames, "cycles": ing.cycles,
+                     "rho": ing.utilization, "deadlock": ing.deadlock},
+          "phase_s": time.perf_counter() - t_phase})
+    return dict(line, launches=launches)
 
 
 def _host_ms(fn, calls: int, warm: int = 2):
@@ -1361,6 +1658,9 @@ def main() -> int:
     build_phase(designs, {**{f"bench_{a}": d for a, (_f, d) in bench.items()},
                           **{f"ext_{k}": d for k, (_u, d, _l) in ext.items()}})
     hw_phase(paper)
+    # the cycle kernel's checks and its own path (counters set to 0 just
+    # before the path, read just after)
+    kern_cycle = cycle_phase(torch, np, paper, peak_int_ops)
 
     kern = kernel_phase(torch, np, peak_int_ops)
     kern_mk = megakernel_phase(torch, np, designs, peak_int_ops)
@@ -1378,6 +1678,7 @@ def main() -> int:
     # prefill_fn call and serving (the tensor-core and decode forms')
     _, k4_launches = llm_phase(torch, np)
     launches["flash_attention"] = sum(k4_launches.values())
+    launches["cyclesim"] = kern_cycle["launches"]
     for n, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {n} was not launched on the path")
@@ -1409,7 +1710,12 @@ def main() -> int:
                   equal=False, tolerance=kern_k4[form]["tolerance"],
                   case=kern_k4[form]["case"],
                   share_of_bound=kern_k4[form]["share_of_bound"])
-             for form in ("prefill_mma", "prefill_simt", "decode")]})
+             for form in ("prefill_mma", "prefill_simt", "decode")]
+          + [dict(line("cyclesim", registry.get_kernel("cyclesim"),
+                       kern_cycle, kern_cycle["launches"]),
+                  case=f"flow 1920x1080, 1 frame, first "
+                       f"{PAPER_FLOW_HORIZON} cycles",
+                  ns_per_cycle=kern_cycle["ns_per_cycle"])]})
     emit({"ok": True, "device": device})
     return 0
 

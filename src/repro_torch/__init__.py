@@ -9,14 +9,18 @@ anything of ``repro`` (it keeps its own copy of what it needs):
   core/{mapper,rigel,schedule,buffers}
                             the hardware half: interface and rate solve,
                             local mapping, FIFO allocation (copies)
-  hwsim/, analysis/traces   the scalar cycle simulator, the allocator, the
-                            area model and the trace algebra (copies)
+  hwsim/, analysis/traces   the cycle simulator (the scalar engine, the
+                            packed-state engine on the cycle kernel,
+                            design populations), the allocator, the area
+                            model, the ingest model and the trace algebra
+  explore/                  the design-space explorer (Pareto sweeps)
   core/lowering/            IR -> rewrite rules -> segments: generated
                             megakernels (CUDA C++ per fused segment) and
                             eager torch segments
   core/compile              ``compile_pipeline`` -> design with the module
                             netlist, FIFOs, ``report``, ``simulate``,
-                            ``optimize_fifos`` and run/run_batch
+                            ``optimize_fifos``, ``explore`` and
+                            run/run_batch
   kernels/                  hand-written CUDA kernels (csrc/*.cu) and the
                             megakernels' build and launch, behind wrappers
                             that count their launches
@@ -29,5 +33,5 @@ fused segment).  The lowering backends run on ``device="cuda"`` unless the
 caller passes ``device="cpu"``; with no card and no explicit CPU device
 they raise.
 """
-from .core import (CompileOptions, HWDesign, SimOptions,  # noqa: F401
-                   compile_pipeline)
+from .core import (CompileOptions, ExploreOptions, HWDesign,  # noqa: F401
+                   SimOptions, compile_pipeline)

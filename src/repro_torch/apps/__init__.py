@@ -43,6 +43,16 @@ SIM_CASES = {
     "pyramid": _pyr.sim_case,
 }
 
+# per-app design-space axes for the Pareto explorer (repro_torch.explore):
+# throughput-target ladder, schedule solvers, and FIFO-depth variant knobs
+EXPLORE_SPACES = {
+    "convolution": _conv.EXPLORE,
+    "stereo": _stereo.EXPLORE,
+    "flow": _flow.EXPLORE,
+    "descriptor": _desc.EXPLORE,
+    "pyramid": _pyr.EXPLORE,
+}
+
 # the registry kernel each app's main path launches on the kernels backend
 KERNEL_OF = {
     "convolution": "conv2d",

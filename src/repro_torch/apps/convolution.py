@@ -83,6 +83,14 @@ def golden_convolution(img: np.ndarray, kernel: np.ndarray = None
 # border modules (the AXI memory system absorbs their bursts)
 HAND_FIFO = {"pad": 0, "crop": 0}
 
+# design-space axes for the explorer
+EXPLORE = {
+    "t_ladder": ("1", "1/2", "1/4"),
+    "solvers": ("lp", "asap"),
+    "scales": (0.5, 0.75, 1.25),
+    "jitter": 4,
+}
+
 # paper fig. 9: CONVOLUTION at 1920x1080 at each requested throughput ->
 # (the paper's T, its cycles per frame); the T column is rounded to 2-3
 # digits

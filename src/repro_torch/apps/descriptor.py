@@ -125,6 +125,15 @@ def golden_descriptor(img: np.ndarray, n_features: int = N_FEATURES):
 # zeroes SparseTake's output burst slack — the AXI DMA sink absorbs it
 HAND_FIFO = {"sparse_take": 0}
 
+# design-space axes for the explorer: DESCRIPTOR's sparse back half only
+# rate-matches at low T, so the ladder stays below the sim_case's T=1/4
+EXPLORE = {
+    "t_ladder": ("1/4", "1/8"),
+    "solvers": ("lp", "asap"),
+    "scales": (0.5, 0.75, 1.25),
+    "jitter": 4,
+}
+
 
 def sim_case(w: int = 64, h: int = 48, n_features: int = 32,
              filter_burst: int = 256):

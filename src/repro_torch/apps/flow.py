@@ -109,6 +109,16 @@ def golden_flow(i1: np.ndarray, i2: np.ndarray):
 # the hand annotation to zero — the solver's slack is the whole story
 HAND_FIFO = {}
 
+# design-space axes for the explorer: FLOW compiles cleanly down the lane
+# ladder (the float datapath duplicates per lane, so T=1 vs 1/4 is a real
+# area/throughput trade)
+EXPLORE = {
+    "t_ladder": ("1", "1/2", "1/4"),
+    "solvers": ("lp", "asap"),
+    "scales": (0.5, 0.75, 1.25),
+    "jitter": 4,
+}
+
 
 def sim_case(w: int = 48, h: int = 24):
     """Small instance + target throughput + hand FIFO annotations for the

@@ -52,6 +52,16 @@ def golden_pyramid(img: np.ndarray, levels: int = 2) -> np.ndarray:
 # reasoning as convolution's pad/crop)
 HAND_FIFO = {"downsample": 0}
 
+# design-space axes for the explorer: PYRAMID's analytic depths already
+# under-provision the reconvergent diamond (scaled-down variants deadlock,
+# which the sweep should see), so the scale axis leans upward
+EXPLORE = {
+    "t_ladder": ("1", "1/2"),
+    "solvers": ("lp", "asap"),
+    "scales": (0.75, 1.25, 1.5),
+    "jitter": 4,
+}
+
 
 def sim_case(w: int = 64, h: int = 32, levels: int = 2):
     """Small instance + target throughput + hand FIFO annotations for the

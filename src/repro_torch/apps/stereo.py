@@ -66,6 +66,15 @@ def golden_stereo(left: np.ndarray, right: np.ndarray, nd: int = ND
 # annotates nothing, so auto-vs-hand differs only by what the solver adds
 HAND_FIFO = {}
 
+# design-space axes for the explorer: the ladder starts at the sim_case
+# target T=1/2 (the ArgMin reduction tree can't sustain T=1 at these sizes)
+EXPLORE = {
+    "t_ladder": ("1/2", "1/4", "1/8"),
+    "solvers": ("lp", "asap"),
+    "scales": (0.5, 0.75, 1.25),
+    "jitter": 4,
+}
+
 
 def sim_case(w: int = 64, h: int = 24, nd: int = 8):
     """Small instance + target throughput + hand FIFO annotations for the

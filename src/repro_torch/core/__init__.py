@@ -11,12 +11,13 @@ Public surface:
              a copy
   mapper   — local meets-or-exceeds mapping + conversions (§5), a copy
   lowering — automatic HWImg -> torch/CUDA lowering (software §5.2 analog)
-  compile  — ``compile_pipeline``, ``CompileOptions`` and ``SimOptions``
+  compile  — ``compile_pipeline``, ``CompileOptions``, ``SimOptions`` and
+             ``ExploreOptions``
 
 Importing this package loads neither the lowering nor torch.
 """
-from .compile import (CompileOptions, HWDesign, SimOptions,  # noqa: F401
-                      compile_pipeline)
+from .compile import (CompileOptions, ExploreOptions, HWDesign,  # noqa: F401
+                      SimOptions, compile_pipeline)
 from .dtypes import (Array2d, ArrayT, Bits, Bool, Float, Int, SparseT,  # noqa
                      TupleT, UInt)
 from .hwimg import (Abs, AbsDiff, Add, AddAsync, AddMSBs, And, ArgMin,  # noqa

@@ -13,7 +13,8 @@ hardware flow on the host (numpy, scipy, ``Fraction``):
 
 and returns an ``HWDesign`` with the module netlist, solved FIFOs, the
 resource and cycle-count report, the cycle simulator (``simulate`` /
-``optimize_fifos``), and three executables: ``backend="numpy"`` (the
+``optimize_fifos``), the design-space explorer (``explore``), and three
+executables: ``backend="numpy"`` (the
 bit-accurate executor, on the host), ``"torch"`` (the generic lowering)
 and ``"kernels"`` (the lowering with dispatch to the CUDA kernels and one
 generated CUDA kernel per fused segment).
@@ -24,6 +25,10 @@ the first ``lower`` / ``run`` on a lowering backend does.
 Device rule: every lowering entry point runs on ``device="cuda"`` unless
 the call or ``CompileOptions.device`` names another; with no card and no
 explicit ``device="cpu"`` it raises.  The numpy backend runs on the host.
+The cycle simulator follows the same rule through ``SimOptions.device``
+(``CompileOptions.device`` for ``fifo_solver="sim"``, and
+``ExploreOptions.device`` for ``explore``): its default engine is the
+cycle kernel on the card, and the scalar engine on ``device="cpu"``.
 
 The reference's deprecated loose keyword arguments (aliases of the
 ``CompileOptions`` / ``SimOptions`` fields) are not carried over.
@@ -50,7 +55,8 @@ from .rigel import (Resources, RModule, STATIC, STREAM,
 LOWERING_BACKENDS = ("torch", "kernels")
 BACKENDS = ("numpy",) + LOWERING_BACKENDS
 FIFO_SOLVERS = ("z3", "lp", "asap", "sim")
-SIM_ENGINES = ("auto", "scalar")
+SIM_ENGINES = ("auto", "scalar", "vector")
+EXPLORE_ENGINES = ("population", "vector", "scalar")
 
 
 @dataclass(frozen=True)
@@ -70,7 +76,8 @@ class CompileOptions:
     reference executor on the host), "torch" (the generic plain lowering)
     or "kernels" (the same plus dispatch of matched subgraphs to the
     hand-written CUDA kernels).  ``device`` is the lowering backends'
-    default device; None means "cuda"."""
+    default device and the device of ``fifo_solver="sim"``'s simulations;
+    None means "cuda"."""
     fifo_solver: str = "z3"
     include_burst: bool = True
     manual_fifo_overrides: Optional[Dict[str, int]] = None
@@ -95,19 +102,84 @@ class CompileOptions:
 @dataclass(frozen=True)
 class SimOptions:
     """The cycle-simulation bundle for ``HWDesign.simulate()`` and
-    ``optimize_fifos()``: which cycle engine to run ("auto" is the scalar
-    engine; the vectorized one is not ported), how many back-to-back
-    frames (steady state), and an optional cycle budget."""
+    ``optimize_fifos()``: which cycle engine to run, on which device, how
+    many back-to-back frames (steady state), and an optional cycle budget.
+    ``engine``: "vector" (the packed-state engine: the cycle kernel on the
+    card, its plain version on the CPU), "scalar" (the Python loop, on the
+    host) or "auto", the fastest exact engine of ``device``: "vector" on
+    "cuda", "scalar" on "cpu".  ``device`` None means "cuda", which raises
+    without a card."""
     engine: str = "auto"
     frames: int = 1
     max_cycles: Optional[int] = None
+    device: Optional[str] = None
 
     def __post_init__(self):
         if self.engine not in SIM_ENGINES:
-            raise ValueError(f"unknown engine {self.engine!r} (want auto or "
-                             "scalar; the vector engine is not ported)")
+            raise ValueError(f"unknown engine {self.engine!r} "
+                             "(want auto, scalar, or vector)")
         if self.frames < 1:
             raise ValueError("frames must be >= 1")
+
+
+@dataclass(frozen=True)
+class ExploreOptions:
+    """Typed option bundle for ``HWDesign.explore()`` /
+    ``repro_torch.explore.explore_design``: the design-space exploration
+    engine (area-vs-throughput Pareto sweep over the cycle simulator).
+
+    Budgets: ``budget_s`` stops the sweep on wall-clock (the first
+    evaluation batch always runs); ``max_points`` caps the candidate list
+    deterministically (use it, not ``budget_s``, when reproducible fronts
+    matter). ``seed`` drives the randomized FIFO-depth variants. Sweep axes
+    default to the app's registered ``EXPLORE_SPACE``
+    (``repro_torch.apps.EXPLORE_SPACES``) and can be overridden here:
+    ``t_ladder`` (throughput targets, each recompiled through
+    ``rigel.optimize_lanes``; strings like "1/2" or Fractions),
+    ``solvers`` (schedule variants: "z3"/"lp" optimal vs "asap"
+    earliest-start), ``scales`` (analytic-depth scale factors), ``jitter``
+    (count of seeded per-edge random depth variants per netlist).
+    ``engine`` selects the evaluation path: "population" (every depth
+    variant of a netlist in one launch of the cycle kernel, the fast
+    path), "vector" (serial runs of the packed-state engine), or "scalar"
+    (the Python loop on the host, the baseline the points/s are compared
+    with).  ``device`` is the cycle engines' device ("cuda" for None, or
+    "cpu", where they run their plain version); it also runs the
+    sim-proven allocation of each netlist."""
+    budget_s: Optional[float] = None
+    max_points: Optional[int] = None
+    seed: int = 0
+    frames: int = 2
+    max_cycles: Optional[int] = None
+    population: int = 16
+    t_ladder: Optional[Tuple[Any, ...]] = None
+    solvers: Optional[Tuple[str, ...]] = None
+    scales: Optional[Tuple[float, ...]] = None
+    jitter: Optional[int] = None
+    throughput_tol: float = 0.02
+    engine: str = "population"
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        if self.engine not in EXPLORE_ENGINES:
+            raise ValueError(f"unknown explore engine {self.engine!r} "
+                             "(want population, vector, or scalar)")
+        if self.frames < 1:
+            raise ValueError("frames must be >= 1")
+        if self.population < 1:
+            raise ValueError("population must be >= 1")
+        if self.budget_s is not None and self.budget_s <= 0:
+            raise ValueError("budget_s must be positive")
+        if self.max_points is not None and self.max_points < 1:
+            raise ValueError("max_points must be >= 1")
+        if self.jitter is not None and self.jitter < 0:
+            raise ValueError("jitter must be >= 0")
+        if self.throughput_tol < 0:
+            raise ValueError("throughput_tol must be >= 0")
+        for s in self.solvers or ():
+            if s not in ("z3", "lp", "asap"):
+                raise ValueError(f"unknown explore solver {s!r} "
+                                 "(want z3, lp, or asap)")
 
 
 @dataclass
@@ -129,6 +201,11 @@ class HWDesign:
     # whether the shrink re-verified (False = reverted to analytic depths)
     fifo_analytic: Optional[Dict[Tuple[int, int], int]] = None
     fifo_sim_proven: Optional[bool] = None
+    # the UserFunction this design was compiled from and the T the caller
+    # requested (before SDF normalization): explore() recompiles the same
+    # pipeline at other throughput targets
+    _uf: Optional[UserFunction] = field(default=None, repr=False)
+    _t_request: Optional[Fraction] = field(default=None, repr=False)
     _lowered: Dict[Tuple[str, str, str], Any] = field(
         default_factory=dict, repr=False)
     _hwsim: List[Any] = field(default_factory=list, repr=False)
@@ -194,15 +271,17 @@ class HWDesign:
         (hwsim/): valid/ready token handshakes over the solved FIFO depths
         (or ``fifo_depths`` overrides; ``unbounded=True`` removes all
         capacity limits).  ``options`` (a :class:`SimOptions`) selects the
-        engine, the back-to-back frame count (steady state) and a cycle
-        budget.  Returns a SimResult with the run's cycle count, sink
+        engine and its device, the back-to-back frame count (steady state)
+        and a cycle budget.  Returns a SimResult with the run's cycle
+        count, sink
         throughput, per-FIFO high-water marks and a deadlock diagnosis.
         The latest result feeds ``report()``."""
         opt = options or SimOptions()
         from ..hwsim import simulate as _simulate
         res = _simulate(self, fifo_depths=fifo_depths, unbounded=unbounded,
                         max_cycles=opt.max_cycles, sample_every=sample_every,
-                        frames=opt.frames, engine=opt.engine)
+                        frames=opt.frames, engine=opt.engine,
+                        device=opt.device)
         self._hwsim[:] = [res]
         return res
 
@@ -216,9 +295,24 @@ class HWDesign:
         opt = options or SimOptions()
         from ..hwsim import allocate_fifos
         alloc = allocate_fifos(self, guard=guard, max_cycles=opt.max_cycles,
-                               frames=opt.frames, engine=opt.engine)
+                               frames=opt.frames, engine=opt.engine,
+                               device=opt.device)
         self._hwsim[:] = [alloc]
         return alloc
+
+    def explore(self, options: Optional[ExploreOptions] = None):
+        """Design-space exploration (explore/): sweep throughput targets
+        (lane counts via ``rigel.optimize_lanes``), FIFO depth policies
+        (analytic / sim-proven / scaled / seeded-random) and schedule
+        solver variants; evaluate every candidate with the cycle engines
+        (by default every depth variant of a netlist in one launch of the
+        cycle kernel) plus the hwsim area model; return an
+        ``ExploreResult`` whose ``front`` is the area-vs-throughput Pareto
+        front with the app's hand-annotated design overlaid.  Requires a
+        design produced by :func:`compile_pipeline` (the pipeline is
+        recompiled per throughput target)."""
+        from ..explore import explore_design
+        return explore_design(self, options or ExploreOptions())
 
     # ---- execution ----
     def lower(self, backend: Optional[str] = None, device=None,
@@ -500,11 +594,14 @@ def compile_pipeline(uf: UserFunction, T: Fraction = Fraction(1),
     design = HWDesign(uf.name, T_eff, kind, modules, edges, fifo, out_mod,
                       out_sched.tokens_per_frame, inp, out, notes,
                       options=opt)
+    design._uf = uf
+    design._t_request = T
     if sim_solver:
         # measured-not-bounded FIFO sizing (§7.3): simulate, shrink to the
         # steady-state high-water marks, prove, install
         alloc = design.optimize_fifos(guard=sim_guard,
-                                      options=SimOptions(frames=sim_frames))
+                                      options=SimOptions(frames=sim_frames,
+                                                         device=opt.device))
         design.fifo_analytic = dict(alloc.analytic)
         design.fifo_sim_proven = alloc.proven
         design.fifo = fifo.with_depths(alloc.depths, edges, solver="sim")

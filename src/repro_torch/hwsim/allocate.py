@@ -78,9 +78,14 @@ class AllocationResult:
         return lines
 
 
+class AllocationError(RuntimeError):
+    """The allocator has nothing to size: the design has no FIFO solution,
+    or its simulation deadlocks even without capacity limits."""
+
+
 def allocate_fifos(design, guard: int = 0,
                    max_cycles: Optional[int] = None, frames: int = 1,
-                   engine: str = "auto") -> AllocationResult:
+                   engine: str = "auto", device=None) -> AllocationResult:
     """Shrink ``design``'s FIFO allocation to simulated high-water marks.
 
     Starts from the analytic (solver) depths, simulates ``frames``
@@ -102,10 +107,14 @@ def allocate_fifos(design, guard: int = 0,
     at the unbounded frame time.  The grown allocation is the baseline
     the shrink pass then tightens; ``grown_edges`` counts the repairs.
 
-    Raises RuntimeError only if even the unbounded simulation fails
-    (the netlist itself is broken — nothing to size)."""
+    Every simulation runs on ``engine`` and ``device`` (see
+    ``sim.simulate``).  Raises RuntimeError only if even the unbounded
+    simulation fails (the netlist itself is broken — nothing to size):
+    an ``AllocationError``, which the explorer records and passes over.
+    A failure of the engine itself (the cycle kernel's build or launch)
+    is not one and propagates."""
     if design.fifo is None:
-        raise RuntimeError("design has no FIFO solution to tighten")
+        raise AllocationError("design has no FIFO solution to tighten")
     bits = {(e.src, e.dst): e.token_bits for e in design.edges}
     analytic = dict(design.fifo.depth)
     floors: Dict[EdgeKey, int] = {}
@@ -117,13 +126,13 @@ def allocate_fifos(design, guard: int = 0,
     grown = 0
     cap = analytic
     baseline = simulate(design, max_cycles=max_cycles, frames=frames,
-                        engine=engine)
+                        engine=engine, device=device)
     if not baseline.completed:
         first_deadlock = baseline.deadlock
         unbounded = simulate(design, unbounded=True, max_cycles=max_cycles,
-                             frames=frames, engine=engine)
+                             frames=frames, engine=engine, device=device)
         if not unbounded.completed:
-            raise RuntimeError(
+            raise AllocationError(
                 f"baseline simulation deadlocked: {baseline.deadlock}; "
                 f"unbounded run too: {unbounded.deadlock}")
         hwm_u = unbounded.hwm_by_key()
@@ -132,7 +141,7 @@ def allocate_fifos(design, guard: int = 0,
         while True:
             baseline = simulate(design, fifo_depths=trial,
                                 max_cycles=max_cycles, frames=frames,
-                                engine=engine)
+                                engine=engine, device=device)
             if baseline.completed and baseline.cycles <= unbounded.cycles:
                 break
             bumped = False
@@ -163,7 +172,7 @@ def allocate_fifos(design, guard: int = 0,
             want = d_cap
         depths[key] = want
     verified = simulate(design, fifo_depths=depths, max_cycles=max_cycles,
-                        frames=frames, engine=engine)
+                        frames=frames, engine=engine, device=device)
     alloc = AllocationResult(depths, analytic, baseline, verified, guard,
                              notes, frames=frames, grown_edges=grown)
     if not alloc.proven:

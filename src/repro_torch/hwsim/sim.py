@@ -24,10 +24,13 @@ Token payloads are not modeled — only counts move, which is all FIFO sizing
 needs. Deadlock/starvation is detected as a sustained absence of token
 movement and reported with a per-module blocked/starved diagnosis.
 
-The reference package has two engines with identical cycle semantics: a
-scalar Python loop and a vectorized numpy/XLA engine that it keeps
-bit-identical to it.  This port has the scalar loop (``engine="scalar"``;
-``"auto"`` resolves to it); the vectorized engine is not ported yet.
+Two engines implement the identical cycle semantics: this module's scalar
+Python loop (``engine="scalar"``, on the host) and the packed-state engine
+in ``hwsim.vector`` (``engine="vector"``): the cycle kernel on the card,
+or its plain version on the CPU.  Both consume the same per-edge
+``NeedSpec``s, so their high-water marks and cycle counts are
+bit-identical.  ``"auto"`` takes the fastest exact engine of the device:
+the kernel on the card, the scalar loop on the CPU.
 
 Multi-frame runs (``frames=N``) launch N back-to-back frames through the
 same netlist: every need function repeats per frame with a cumulative
@@ -516,7 +519,7 @@ class CycleSim:
 def simulate(design, fifo_depths: Optional[Mapping[EdgeKey, int]] = None,
              unbounded: bool = False, max_cycles: Optional[int] = None,
              sample_every: int = 0, frames: int = 1,
-             engine: str = "auto") -> SimResult:
+             engine: str = "auto", device=None) -> SimResult:
     """Simulate ``frames`` back-to-back frames through ``design``
     (an HWDesign).
 
@@ -524,17 +527,24 @@ def simulate(design, fifo_depths: Optional[Mapping[EdgeKey, int]] = None,
     keys fall back to the analytic solution); ``unbounded=True`` removes all
     capacity limits, so the recorded high-water marks are the pipeline's
     true dynamic buffering requirement. ``engine`` selects the cycle engine:
-    "scalar" (the Python loop) or "auto" (which is "scalar" here). The
-    vectorized engine ("vector") is not ported and raises."""
+    "vector" (the packed-state engine: the cycle kernel on ``device``
+    "cuda", its plain version on "cpu"), "scalar" (the Python loop, on the
+    host), or "auto": "scalar" when an occupancy time series is requested
+    (sampling is scalar-only) or ``device`` is "cpu", else "vector".
+    ``device`` None means "cuda", which raises without a card."""
+    from .vector import is_cpu
     depths: Dict[EdgeKey, int] = dict(design.fifo.depth) if design.fifo else {}
     if fifo_depths:
         depths.update(fifo_depths)
     if engine == "auto":
-        engine = "scalar"
+        engine = "scalar" if sample_every or is_cpu(device) else "vector"
     if engine == "vector":
-        raise NotImplementedError(
-            "the vectorized cycle engine (hwsim/vector.py) is not ported "
-            "yet (ROADMAP Queue 1, the cycle domain); use engine='scalar'")
+        if sample_every:
+            raise ValueError("occupancy sampling requires engine='scalar'")
+        from .vector import VectorSim
+        return VectorSim(design.modules, design.edges, depths,
+                         unbounded=unbounded, frames=frames,
+                         device=device).run(max_cycles=max_cycles)
     if engine != "scalar":
         raise ValueError(f"unknown engine {engine!r}")
     sim = build_sim(design.modules, design.edges, depths,

@@ -1,7 +1,8 @@
 """CUDA kernels for the compute hot-spots.
 
-K1, K2 and K4 (flash attention, for the model substrate) are CUDA C++
-sources in ``csrc/``; K3 is CUDA C++ that the
+K1, K2, K4 (flash attention, for the model substrate) and the cycle
+kernel (whole cycle-level simulations, for hwsim) are CUDA C++ sources in
+``csrc/``; K3 is CUDA C++ that the
 megakernel emitter (core/lowering/megakernel.py) writes per fused segment,
 with ``csrc/mk_common.cuh``.  ``_build`` builds them on first use and loads
 them with ctypes.  Each has a subpackage here: ops.py (the wrapper that

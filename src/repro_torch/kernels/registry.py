@@ -8,8 +8,9 @@ the registered kernel through ``site_fn``; the engine launches each fused
 segment through the ``megakernel`` entry.  Every entry carries its plain
 PyTorch version (``ref_fn``), the source it is built from, the TPU kernel
 it replaces, and a launch counter.  ``flash_attention`` (K4) is called by
-the model substrate (models/layers.py), not by the lowering, so it has no
-HWImg site.
+the model substrate (models/layers.py) and ``cyclesim`` by the cycle
+engines (hwsim/vector.py, hwsim/population.py), not by the lowering, so
+they have no HWImg site.
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ def reset_launch_counts() -> None:
 
 def _register_resident() -> None:
     from .conv2d.ops import conv2d_hwimg_site, conv2d_stencil
+    from .cyclesim import cycle_sim, cycle_sim_ref
     from .conv2d.ref import conv2d_ref
     from .flash.ops import flash_attention
     from .flash.ref import attention_ref
@@ -80,6 +82,12 @@ def _register_resident() -> None:
         "flash_attention", flash_attention, attention_ref, None,
         source="src/repro_torch/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash/kernel.py:26"))
+    # the cycle kernel ports the reference's two XLA loops (no pallas_call):
+    # vector.py::_segment_impl and population.py:180 _pop_impl
+    register_kernel(KernelEntry(
+        "cyclesim", cycle_sim, cycle_sim_ref, None,
+        source="src/repro_torch/csrc/cyclesim.cu",
+        replaces="src/repro/hwsim/vector.py:458"))
 
 
 _register_resident()

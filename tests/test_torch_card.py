@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels (conv2d, sad,
-the generated megakernels and flash attention) against their plain
-PyTorch versions, the kernels backend on the card against the same
+the generated megakernels, flash attention and the cycle kernel) against
+their plain PyTorch versions, the kernels backend on the card against the same
 pipeline on the CPU, and the model substrate's forwards on the card
 against the CPU.  Each is
 marked ``card`` and skips where there is no CUDA device; run them on the
@@ -417,3 +417,147 @@ def test_model_forwards_on_card_match_cpu(card):
         assert torch.allclose(a, b, atol=2e-4, rtol=1e-4)
     assert registry.get_kernel("flash_attention").launches() == \
         cfg.n_layers * (1 + S)
+
+
+# ---- the cycle kernel (csrc/cyclesim.cu) against its plain version ----
+
+
+def _sim_fields(res):
+    """Every SimResult field but the engine's name."""
+    import dataclasses
+    d = dataclasses.asdict(res)
+    d.pop("engine")
+    return d
+
+
+def _cycle_design(app, **kw):
+    from repro_torch.apps import SIM_CASES
+    uf, T, _ = SIM_CASES[app](**kw)
+    return compile_pipeline(uf, T=T)
+
+
+def _kernel_and_plain(d, depths=None, frames=1, unbounded=False, **run):
+    from repro_torch.hwsim import VectorSim
+    depths = dict(d.fifo.depth) if depths is None else depths
+    out = [VectorSim(d.modules, d.edges, depths, unbounded=unbounded,
+                     frames=frames, device=dev).run(**run)
+           for dev in ("cuda", "cpu")]
+    assert registry.get_kernel("cyclesim").launches() == 1
+    return out
+
+
+@pytest.mark.parametrize("max_cycles", [1, 40, 343, 345])
+def test_cycle_kernel_first_cycles_before_leff(card, max_cycles):
+    """FLOW's latencies reach 344: the horizon cuts the run while
+    (t - leff) % H is negative in C, so the ring is read through the
+    positive modulo."""
+    got, want = _kernel_and_plain(_cycle_design("flow"),
+                                  max_cycles=max_cycles)
+    assert got.deadlock == f"horizon exceeded ({max_cycles} cycles)"
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+@pytest.mark.parametrize("event_jump", [True, False])
+def test_cycle_kernel_pyramid_deadlock(card, event_jump):
+    d = _cycle_design("pyramid")
+    depths = dict(d.fifo.depth)
+    depths[(6, 1)] = 0
+    got, want = _kernel_and_plain(d, depths, event_jump=event_jump)
+    assert got.deadlock is not None and "blocked on full" in got.deadlock
+    assert _sim_fields(got) == _sim_fields(want)
+    assert (got.cycles_saved > 0) == event_jump
+
+
+def test_cycle_kernel_horizon_on_frame_boundary(card):
+    d = _cycle_design("convolution", w=48, h=20)
+    full, _ = _kernel_and_plain(d, frames=2)
+    registry.reset_launch_counts()
+    horizon = full.frame_ends[0] + 1
+    got, want = _kernel_and_plain(d, frames=2, max_cycles=horizon)
+    assert got.frame_ends == [full.frame_ends[0]]
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+@pytest.mark.parametrize("app,frames,unbounded", [
+    ("flow", 2, False), ("pyramid", 2, False), ("flow", 1, True)])
+def test_cycle_kernel_event_jump_off(card, app, frames, unbounded):
+    d = _cycle_design(app)
+    got, want = _kernel_and_plain(d, {} if unbounded else None,
+                                  frames=frames, unbounded=unbounded,
+                                  event_jump=False)
+    assert got.cycles_skipped == 0
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+def test_cycle_kernel_block_stride_chain(card):
+    """A chain of 300 Maps (E 299, M 300) exceeds the block's 256 threads,
+    so modules and edges loop with a block stride; every third module is
+    throttled to rate 1/2 or 2/3, latencies 0-6, depths 0-2."""
+    from fractions import Fraction
+    from repro_torch.core.buffers import Edge
+    from repro_torch.core.dtypes import UInt
+    from repro_torch.core.rigel import Interface, RModule, ScheduleType
+    from repro_torch.kernels.cyclesim.ops import threads_for
+    st = ScheduleType(UInt(8), 48, 1)
+    rates = (Fraction(1), Fraction(1, 2), Fraction(1), Fraction(2, 3))
+    mods = [RModule(f"m{i}", "Map", Interface("Static", st),
+                    Interface("Static", st), rates[i % 4], i % 7)
+            for i in range(300)]
+    edges = [Edge(i, i + 1, 8, i % 7, 0) for i in range(299)]
+    depths = {(i, i + 1): i % 3 for i in range(299)}
+    assert threads_for(len(mods), len(edges)) < len(edges)
+    from repro_torch.hwsim import VectorSim
+    got, want = [VectorSim(mods, edges, depths, frames=2, device=dev).run()
+                 for dev in ("cuda", "cpu")]
+    assert got.deadlock is None and got.sink_tokens == 96
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+@pytest.mark.parametrize("event_jump", [True, False])
+def test_cycle_kernel_hand_set_need_table_stalls(card, event_jump):
+    """A need table set by hand (need(k) = k, more than the producer ever
+    makes) ships whole to the kernel: the same stall, diagnosis and
+    counts as the plain version."""
+    from fractions import Fraction
+    from repro_torch.core.buffers import Edge
+    from repro_torch.core.dtypes import UInt
+    from repro_torch.core.rigel import Interface, RModule, ScheduleType
+    from repro_torch.hwsim import VectorSim
+
+    def mod(name, total):
+        st = ScheduleType(UInt(8), total, 1)
+        return RModule(name, "Map", Interface("Static", st),
+                       Interface("Static", st), Fraction(1), 0)
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        vs = VectorSim([mod("src", 5), mod("snk", 10)],
+                       [Edge(0, 1, 8, 0, 0)], {(0, 1): 3}, device=dev)
+        vs.need_buf = np.arange(1, 11, dtype=np.int64)
+        runs.append(vs.run(event_jump=event_jump))
+    got, want = runs
+    assert "starved" in got.deadlock and got.sink_tokens == 5
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+def test_cycle_kernel_population_equals_single_runs(card):
+    """K = 16 designs in one launch against 16 launches of K = 1, and the
+    first few against the plain version."""
+    from repro_torch.hwsim import PopulationSim, VectorSim
+    d = _cycle_design("pyramid")
+    ana = dict(d.fifo.depth)
+    sets = [{k: int(round(v * f)) for k, v in ana.items()}
+            for f in np.linspace(0.0, 2.0, 16)]
+    pop = PopulationSim(d.modules, d.edges, sets, frames=2).run()
+    assert registry.get_kernel("cyclesim").launches() == 1
+    singles = [VectorSim(d.modules, d.edges, ds, frames=2).run()
+               for ds in sets]
+    assert registry.get_kernel("cyclesim").launches() == 17
+    assert any(r.deadlock for r in pop) and any(not r.deadlock for r in pop)
+    for p, s in zip(pop, singles):
+        assert p.engine == "population" and s.engine == "vector"
+        assert _sim_fields(p) == _sim_fields(s)
+    plain = PopulationSim(d.modules, d.edges, sets[:4], frames=2,
+                          device="cpu").run()
+    for p, s in zip(pop, plain):
+        assert _sim_fields(p) == _sim_fields(s)

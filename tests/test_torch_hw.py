@@ -51,7 +51,8 @@ from repro_torch.core.executor import evaluate  # noqa: E402
 from repro_torch.core.rigel import (ScheduleType, fifo_resources,  # noqa
                                     optimize_lanes, valid_lane_counts)
 from repro_torch.core.dtypes import UInt  # noqa: E402
-from repro_torch.hwsim import allocate_fifos, area_units, compare, fifo_area
+from repro_torch.hwsim import (VectorSim, allocate_fifos,  # noqa: E402
+                               area_units, compare, fifo_area)
 from repro_torch.hwsim.sim import (CycleSim, _need_proportional,  # noqa
                                    _SimEdge, _SimMod, simulate)
 from repro_torch.kernels.megakernel.check import point_fn_probes  # noqa
@@ -256,7 +257,8 @@ class _PortDesigns:
         if key not in self.designs:
             uf, T, _ = SIM_CASES[app]()
             self.designs[key] = compile_pipeline(
-                uf, T=T, options=CompileOptions(fifo_solver="sim"))
+                uf, T=T, options=CompileOptions(fifo_solver="sim",
+                                                device="cpu"))
         return self.designs[key]
 
     def alloc(self, app, frames):
@@ -267,8 +269,8 @@ class _PortDesigns:
             if frames == 2:
                 (self.allocs[app, 2],) = self.sim_solver(app)._hwsim
             else:
-                self.allocs[app, frames] = allocate_fifos(self.sim(app),
-                                                          frames=frames)
+                self.allocs[app, frames] = allocate_fifos(
+                    self.sim(app), frames=frames, device="cpu")
         return self.allocs[app, frames]
 
 
@@ -352,8 +354,8 @@ def test_apps_analytic_bound_is_dynamically_sufficient(name):
     simulated high-water mark exceeds its analytic capacity."""
     uf, T, _ = SIM_CASES[name](**SIZES[name])
     design = compile_pipeline(uf, T=T)
-    bounded = simulate(design)
-    free = simulate(design, unbounded=True)
+    bounded = simulate(design, device="cpu")
+    free = simulate(design, unbounded=True, device="cpu")
     assert bounded.engine == free.engine == "scalar"
     assert bounded.deadlock is None
     assert bounded.cycles == free.cycles
@@ -368,9 +370,9 @@ def test_pyramid_analytic_bound_covers_reconvergent_diamond():
     allocation completes one frame and three without deadlock."""
     uf, T, _ = SIM_CASES["pyramid"]()
     design = compile_pipeline(uf, T=T)
-    assert simulate(design).deadlock is None
+    assert simulate(design, device="cpu").deadlock is None
     assert any("cross-arm broadcast residue" in n for n in design.notes)
-    assert simulate(design, frames=3).deadlock is None
+    assert simulate(design, frames=3, device="cpu").deadlock is None
 
 
 def test_zero_latency_chain_needs_no_buffering_and_runs_at_full_rate():
@@ -535,20 +537,56 @@ def test_options_are_validated():
                 dict(sim_frames=0), dict(sim_guard=-1)):
         with pytest.raises(ValueError):
             CompileOptions(**bad)
-    with pytest.raises(ValueError, match="vector engine is not ported"):
-        SimOptions(engine="vector")
+    assert SimOptions(engine="vector", device="cpu").engine == "vector"
+    with pytest.raises(ValueError, match="want auto, scalar, or vector"):
+        SimOptions(engine="xla")
     with pytest.raises(ValueError):
         SimOptions(frames=0)
     with pytest.raises(TypeError):
         compile_pipeline(Stereo(w=16, h=4, nd=4), fifo_solver="lp")
 
 
-def test_vector_engine_is_not_ported_and_auto_is_scalar(port):
+def test_auto_engine_is_the_kernel_on_cuda(port, monkeypatch):
+    """With no device the default engine is the cycle kernel: "auto"
+    resolves to "vector" on "cuda" (the kernel's launch is stubbed here:
+    there is no card), and so do ``optimize_fifos`` and
+    ``fifo_solver="sim"``'s allocation."""
+    seen, run = [], VectorSim.run
+
+    def kernel_run(self, max_cycles=None, event_jump=True):
+        seen.append(self.device)
+        plain = self.with_caps(self.cap)
+        plain.device = "cpu"
+        return run(plain, max_cycles, event_jump)
+
+    d = port.design("pyramid_sim")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(VectorSim, "run", kernel_run)
+    res = d.simulate()
+    assert res.engine == "vector" and seen == ["cuda"]
+    assert res.edge_signature() == simulate(d, engine="scalar") \
+        .edge_signature()
+    assert d.optimize_fifos().proven
+    assert seen == ["cuda"] * 3
+
+
+def test_auto_engine_is_scalar_on_the_cpu(port):
     d = port.design("stereo_sim")
-    with pytest.raises(NotImplementedError, match="vector"):
-        simulate(d, engine="vector")
-    assert d.simulate().engine == "scalar"
+    assert d.simulate(options=SimOptions(device="cpu")).engine == "scalar"
+    assert simulate(d, device="cpu").engine == "scalar"
+    # sampling is scalar-only, on any device
     assert d.simulate(sample_every=64).occupancy.samples
+    alloc = d.optimize_fifos(options=SimOptions(device="cpu"))
+    assert alloc.baseline.engine == alloc.verified.engine == "scalar"
+
+
+def test_vector_engine_on_the_cpu_runs_the_plain_version(port):
+    d = port.design("pyramid_sim")
+    got = d.simulate(options=SimOptions(engine="vector", device="cpu"))
+    ref = simulate(d, engine="scalar")
+    assert got.engine == "vector" and got.deadlock is None
+    assert got.edge_signature() == ref.edge_signature()
+    assert (got.cycles, got.frame_ends) == (ref.cycles, ref.frame_ends)
 
 
 def test_numpy_backend_is_the_executor_on_the_host():
@@ -571,7 +609,7 @@ def test_numpy_backend_is_the_executor_on_the_host():
 def test_report_shows_netlist_lowering_and_hwsim():
     d = compile_pipeline(Convolution(w=48, h=20))
     d.run({"convolution.in": np.zeros((20, 48), np.int64)}, device="cpu")
-    d.optimize_fifos()
+    d.optimize_fifos(options=SimOptions(device="cpu"))
     rep = d.report()
     assert rep.startswith("== convolution  T=")
     assert "cycles/frame=" in rep and "[ 10]" in rep
@@ -656,7 +694,8 @@ def test_compile_matches_reference(label, reference, port):
 @pytest.mark.parametrize("app,frames,unbounded", SIM_RUNS)
 def test_scalar_simulator_matches_reference(app, frames, unbounded,
                                             reference, port):
-    res = simulate(port.sim(app), unbounded=unbounded, frames=frames)
+    res = simulate(port.sim(app), unbounded=unbounded, frames=frames,
+                   engine="scalar")
     got = json.loads(json.dumps(_sim_summary(res)))
     assert got == reference.get()["sim"][f"{app}-{frames}-{unbounded}"]
     assert res.deadlock is None
@@ -666,7 +705,8 @@ def test_scalar_simulator_diagnoses_the_reference_deadlock(reference, port):
     """PYRAMID's reconvergent diamond with every FIFO at depth 0 wedges:
     the same cycle, marks and diagnosis as the reference's."""
     d = port.sim("pyramid")
-    res = simulate(d, fifo_depths={k: 0 for k in d.fifo.depth})
+    res = simulate(d, fifo_depths={k: 0 for k in d.fifo.depth},
+                   engine="scalar")
     assert "blocked on full" in res.deadlock
     got = json.loads(json.dumps(_sim_summary(res)))
     assert got == reference.get()["sim"]["pyramid-zero"]

@@ -2,8 +2,9 @@
 
 - It imports neither ``jax`` nor anything of ``repro``: checked in a fresh
   process that lowers and runs every app, compiles, simulates and sizes
-  the FIFOs of one through the hardware half, and serves a reduced model,
-  and by a scan of its sources.
+  the FIFOs of one through the hardware half (the packed-state engine, a
+  population, the explorer and the ingest model included), and serves a
+  reduced model, and by a scan of its sources.
 - Compiling loads neither the lowering nor torch.
 - Its entry points never fall back quietly to the CPU: without a card and
   without ``device="cpu"`` they raise.
@@ -46,9 +47,16 @@ def test_port_runs_without_importing_jax_or_repro():
         from repro_torch.apps import SIM_CASES
         uf, T, hand = SIM_CASES["pyramid"]()
         d = compile_pipeline(uf, T=T, options=CompileOptions(
-            fifo_solver="sim", manual_fifo_overrides=hand))
-        d.simulate(options=SimOptions(frames=2))
+            fifo_solver="sim", manual_fifo_overrides=hand, device="cpu"))
+        d.simulate(options=SimOptions(frames=2, engine="vector",
+                                      device="cpu"))
         assert d.check_schedule() and d.fifo_sim_proven
+        from repro_torch import ExploreOptions
+        from repro_torch.hwsim import PopulationSim, simulate_ingest
+        PopulationSim(d.modules, d.edges, [dict(d.fifo.depth)] * 2,
+                      device="cpu").run()
+        d.explore(ExploreOptions(max_points=2, device="cpu"))
+        simulate_ingest(32, 8.0, 1, 4)
         d.run_batch(inputs(rng, frames=2), backend="numpy")
         d.report()
         from repro_torch.launch.serve import main
@@ -87,11 +95,12 @@ def test_compiling_loads_no_lowering_torch_jax_or_repro():
     kernels nor torch, and nothing of jax or ``repro``."""
     code = textwrap.dedent("""
         import sys
-        from repro_torch import compile_pipeline
+        from repro_torch import SimOptions, compile_pipeline
         from repro_torch.apps import SIM_CASES
         uf, T, _ = SIM_CASES["pyramid"]()
         d = compile_pipeline(uf, T=T)
-        d.simulate(); d.optimize_fifos(); d.report()
+        opts = SimOptions(device="cpu")    # the scalar engine
+        d.simulate(options=opts); d.optimize_fifos(options=opts); d.report()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro", "torch")
                      or m.startswith(("repro_torch.core.lowering",

@@ -165,12 +165,15 @@ def test_wrappers_refuse_other_devices_and_types():
 
 
 def test_registry_lists_the_ported_kernels():
-    assert sorted(registry.KERNELS) == ["conv2d", "flash_attention",
-                                        "megakernel", "sad"]
+    assert sorted(registry.KERNELS) == ["conv2d", "cyclesim",
+                                        "flash_attention", "megakernel",
+                                        "sad"]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # the cycle kernel replaces an XLA loop, the others Pallas kernels
     tpu = {"conv2d": "def _conv_kernel", "sad": "def _sad_kernel",
            "megakernel": "def emit_megakernel",
-           "flash_attention": "def _flash_kernel"}
+           "flash_attention": "def _flash_kernel",
+           "cyclesim": "def _segment_impl"}
     for e in registry.KERNELS.values():
         assert e.source.startswith("src/repro_torch/")
         assert os.path.exists(os.path.join(root, e.source))
