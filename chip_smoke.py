@@ -73,8 +73,9 @@ phase prints one JSON line:
            deadlock) and optimize_fifos over 2 frames (proven), with the
            analytic and simulated FIFO bits and the seconds each took (the
            fig. 9 compiles and the sim cases in 6 worker processes)
-  cycle    the cycle kernel (csrc/cyclesim.cu, one thread block per
-           design): against its plain version (hwsim/vector.py on the CPU,
+  cycle    the cycle kernel (csrc/cyclesim.cu, a block per design: one
+           warp, or modules over a block's threads past 96 modules or
+           edges): against its plain version (hwsim/vector.py on the CPU,
            6 worker processes) at FLOW's, PYRAMID's and CONVOLUTION's
            sim_case, 1 and 2 frames, bounded and unbounded, event jump on
            and off, a zero-depth PYRAMID residue edge (a deadlock) and a
@@ -84,15 +85,22 @@ phase prints one JSON line:
            the kernel's device time on FLOW's sim_case (2 frames); the
            kernel against the plain version and the scalar engine on
            1920x1080 FLOW's first 40,000 cycles (its kernels line: device
-           time, the plain version's host time); then its own path,
-           counters set to 0 just before and read just after:
-           simulate() on the card at the paper's size, one frame, for
-           CONVOLUTION, FLOW and PYRAMID (cycles beside
+           time, the plain version's host time, the form and its shared
+           bytes, the chain bound from latencies probed on the card and
+           the profiling build's split of a cycle,
+           launch/cycle_profile.py), and the same on the paper-size
+           STEREO's and DESCRIPTOR's first 40,000 cycles; then its own
+           path, counters set to 0 just before and read just after:
+           simulate() on the card at the paper's size, one frame and one
+           launch, for all five apps (cycles beside
            cycles_per_frame(), seconds, ns a cycle), and
            explore_app("flow") with 16 points on the population engine;
-           after the read, the whole CONVOLUTION and PYRAMID frames held
-           against the scalar engine (every shared SimResult field; run in
-           the worker pool since the phase began), and the same sweep on
+           after the read, a frame whose profiled window missed the
+           kernel profiled again, the whole CONVOLUTION and PYRAMID frames
+           held against the scalar engine (every shared SimResult field;
+           run in the worker pool since the phase began), the STEREO and
+           DESCRIPTOR cuts against the plain version (every SimResult
+           field) and the scalar engine, and the same sweep on
            the scalar engine on the host (the same points,
            cycles_skipped aside; points/s each); one simulate_ingest run
   path     CONVOLUTION 1920x1080, STEREO 720x400 nd=64, and FLOW,
@@ -482,12 +490,16 @@ def build_phase(designs, extra):
     extra_src = {f"{label}:{mk.name}": mk.source
                  for label, design in extra.items()
                  for mk in design.lower("kernels", device="cpu").megakernels}
+    from repro_torch.launch import cycle_profile
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # each waits on its nvcc runs
+    with ThreadPoolExecutor(3) as pool:     # each waits on its nvcc runs
         csrc = pool.submit(_build.build_all)
         gen = pool.submit(_build.build_generated, {
             **{k: mk.source for k, mk in segments.items()}, **extra_src})
-        built, gen = csrc.result(), gen.result()
+        # the cycle kernel's profiling build (-DCYCLESIM_PROFILE), for the
+        # cycle phase's split and latency probes; never on a path
+        prof = pool.submit(cycle_profile.profile_library)
+        built, gen, prof = csrc.result(), gen.result(), prof.result()
     k4 = flash_ops.resources(built["flash_attn"])
     if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
         raise AssertionError("the SIMT prefill form has a bf16 build")
@@ -514,6 +526,8 @@ def build_phase(designs, extra):
                              f"{k4.get('decode_merge')}")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "k1": _build.ptxas_usage(built["conv2d"].log), "k4_forms": k4,
+          "cyclesim": _build.ptxas_usage(built["cyclesim"].log),
+          "cyclesim_profile_nvcc_s": prof.seconds,
           "kernels": {n: {"nvcc_s": b.seconds, "ptxas": ptxas_summary(b.log)}
                       for n, b in built.items()},
           "generated": {k: {"segment": mk.name, "nvcc_s": gen[k].seconds,
@@ -700,27 +714,30 @@ CYCLE_RUNS = ((1, False, True), (2, False, True), (2, False, False),
 PYRAMID_RESIDUE = (6, 1)
 CYCLE_POPULATION = 16
 EXPLORE_POINTS = 16
-# simulate() at the paper's size, one frame: STEREO and DESCRIPTOR are cut
-# (at T = 1 their netlists' Serialize and Filter emit 64 and 4 tokens an
-# input pixel, so a frame runs 63x and 4x the analytic cycles, tens of
-# seconds of kernel time; repro_torch.launch.cycle_check holds them
-# against the scalar engine)
-PAPER_SIM_APPS = ("convolution", "flow", "pyramid")
+# simulate() at the paper's size, one frame, for all five apps (at T = 1
+# STEREO's and DESCRIPTOR's Serialize and Filter emit 64 and 4 tokens an
+# input pixel, so their frames run 63x and 4x the analytic cycles;
+# repro_torch.launch.cycle_check holds them against the scalar engine)
+PAPER_SIM_APPS = ("convolution", "flow", "pyramid", "stereo", "descriptor")
 # the path's witnesses: the scalar engine over a whole 1080p frame of
 # these (about 35 s each on the host, in the worker pool) ...
 PAPER_SCALAR_APPS = ("convolution", "pyramid")
-# ... and the plain version and the scalar engine over 1080p FLOW's first
-# cycles (its ring has ~15 k rows: this wraps it several times)
-PAPER_FLOW_HORIZON = 40_000
+# ... and the plain version and the scalar engine over the first cycles
+# of these paper-size frames (their rings have 5-15 k rows: this wraps
+# them several times; DESCRIPTOR is the path's only netlist in the (2, 2)
+# warp instantiation; FLOW's cut is the kernels line's case)
+PAPER_CUT_APPS = ("flow", "stereo", "descriptor")
+PAPER_CUT_HORIZON = 40_000
 
 
 def cycle_phase(torch, np, paper, peak_int_ops):
     """The cycle kernel (csrc/cyclesim.cu): against its plain version and
     the scalar engine at the sim_cases, a population of 16 designs in one
     launch against 16 single runs, the kernel against both on 1080p FLOW's
-    first 40 k cycles (its kernels line), then its own path (counters set
-    to 0 just before, read just after): ``simulate()`` on the card for
-    each app at the paper's size (one frame), the whole CONVOLUTION and
+    first 40 k cycles (its kernels line) and on the paper-size STEREO's
+    and DESCRIPTOR's, then its own path (counters set to 0 just before,
+    read just after): ``simulate()`` on the card for each app at the
+    paper's size (one frame, one launch), the whole CONVOLUTION and
     PYRAMID frames held against the scalar engine, and the explorer's
     population engine; the explorer on the host beside it, and one ingest
     model run.  The host engines run in 6 worker processes meanwhile."""
@@ -735,6 +752,7 @@ def cycle_phase(torch, np, paper, peak_int_ops):
     from repro_torch.kernels.cyclesim import ops as cyc
     from repro_torch.kernels.timing import device_events
     from repro_torch.launch import cycle_check as cc
+    from repro_torch.launch import cycle_profile
 
     kernel = registry.get_kernel("cyclesim")
     t_phase = time.perf_counter()
@@ -744,8 +762,9 @@ def cycle_phase(torch, np, paper, peak_int_ops):
                    zero=[PYRAMID_RESIDUE]) for j in (True, False)]
     scalar_cases = [dict(app=app, frames=2, unbounded=False, jump=True)
                     for app in SIM_CASES]
-    flow_cut = dict(app="flow", size="paper", frames=1, unbounded=False,
-                    jump=True, max_cycles=PAPER_FLOW_HORIZON)
+    cuts = {app: dict(app=app, size="paper", frames=1, unbounded=False,
+                      jump=True, max_cycles=PAPER_CUT_HORIZON)
+            for app in PAPER_CUT_APPS}
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(6, mp_context=ctx,
                              initializer=cc.worker_init) as pool:
@@ -753,8 +772,8 @@ def cycle_phase(torch, np, paper, peak_int_ops):
         w_paper = {app: pool.submit(cc.run_case, dict(
             app=app, size="paper", frames=1, unbounded=False, jump=True),
             "scalar") for app in PAPER_SCALAR_APPS}
-        w_cut = {e: pool.submit(cc.run_case, flow_cut, e, "cpu")
-                 for e in ("vector", "scalar")}
+        w_cut = {(app, e): pool.submit(cc.run_case, c, e, "cpu")
+                 for app, c in cuts.items() for e in ("vector", "scalar")}
         plain = [pool.submit(cc.run_case, c, "vector", "cpu")
                  for c in cases]
         scalar = [pool.submit(cc.run_case, c, "scalar") for c in scalar_cases]
@@ -845,28 +864,27 @@ def cycle_phase(torch, np, paper, peak_int_ops):
         emit({"phase": "cycle", "check": "sim_case_time",
               "case": "flow_sim_2f", "ms": k_ms, "cycles": sim2["cycles"],
               "ns_per_cycle": k_ms * 1e6 / sim2["cycles"],
-              "threads": cyc.threads_for(vs.M, vs.E),
-              "smem_bytes": cyc.smem_bytes(vs.M, vs.E), "H": vs.H})
+              **cyc.layout(vs)})
 
         # the kernels line, at the path's shape: 1080p FLOW's first
-        # PAPER_FLOW_HORIZON cycles against the plain version and the
+        # PAPER_CUT_HORIZON cycles against the plain version and the
         # scalar engine (run in the pool meanwhile)
         fd = paper["flow"][1]
         vs = VectorSim(fd.modules, fd.edges, dict(fd.fifo.depth), frames=1)
         res_box = []
         _total, by_name = device_events(
-            lambda: res_box.append(vs.run(max_cycles=PAPER_FLOW_HORIZON)), 3)
+            lambda: res_box.append(vs.run(max_cycles=PAPER_CUT_HORIZON)), 3)
         k_ms = sum(v for n, v in by_name.items() if "cyclesim" in n)
-        call_ms = cuda_ms(lambda: vs.run(max_cycles=PAPER_FLOW_HORIZON), 3,
+        call_ms = cuda_ms(lambda: vs.run(max_cycles=PAPER_CUT_HORIZON), 3,
                           warmup=1)
         got_cut = cc.summary(res_box[-1])
-        (want_cut, plain_s), (sc_cut, sc_s) = (w_cut[e].result()
+        (want_cut, plain_s), (sc_cut, sc_s) = (w_cut["flow", e].result()
                                                for e in ("vector", "scalar"))
         line_err = cc.summary_err(got_cut, want_cut)
         if got_cut != want_cut or \
                 cc.scalar_view(got_cut) != cc.scalar_view(sc_cut):
             raise AssertionError("cycle kernel != plain or scalar on 1080p "
-                                 f"FLOW's first {PAPER_FLOW_HORIZON} cycles")
+                                 f"FLOW's first {PAPER_CUT_HORIZON} cycles")
         # bytes: the packed netlist and the capacities read once, the final
         # state, scalars and frame ends written once
         net = cyc.pack(vs, torch.device("cuda"))
@@ -877,33 +895,63 @@ def cycle_phase(torch, np, paper, peak_int_ops):
         # an edge and twelve a module, two int32 ops each
         ops = executed * (10 * vs.E + 12 * vs.M) * 2
         b_ms, b_by, _tb, _to = bound(nbytes, ops, peak_int_ops)
+        # the chain bound: the form's dependent steps a simulated cycle
+        # (cycle_profile.CHAIN_STEPS) at the latencies probed on this card;
+        # and the profiling build's split of this case's loop iterations
+        lay = cyc.layout(vs)
+        prof = cycle_profile.profile_library()
+        probe = cycle_profile.probes(prof)
+        chain_ms = cycle_profile.chain_bound_ms(lay["form"], executed, probe)
+        split = cycle_profile.split(vs, PAPER_CUT_HORIZON, prof)
         line = {"max_abs_err": line_err, "ms": k_ms, "call_ms": call_ms,
                 "plain_ms": plain_s * 1e3, "scalar_ms": sc_s * 1e3,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "chain_bound_ms": chain_ms,
+                "share_of_chain_bound": chain_ms / k_ms,
+                "chain_steps": cycle_profile.CHAIN_STEPS[lay["form"]],
+                "latency_ns": {k: v["ns"] for k, v in probe["probe"].items()},
+                "sm_mhz": probe["sm_mhz"], **split,
+                "parent_split": "PERF.md section 6: launch/cycle_profile.py "
+                                "on the earlier block-per-design kernel",
                 "cycles": got_cut["cycles"],
                 "deadlock": got_cut["deadlock"],
                 "ns_per_cycle": k_ms * 1e6 / got_cut["cycles"],
-                "threads": cyc.threads_for(vs.M, vs.E),
-                "smem_bytes": cyc.smem_bytes(vs.M, vs.E), "H": vs.H,
-                "modules": vs.M, "edges": vs.E}
+                **lay, "modules": vs.M, "edges": vs.E}
         emit({"phase": "kernel", "name": "cyclesim",
-              "case": f"flow_1080p_{PAPER_FLOW_HORIZON}", **line})
+              "case": f"flow_1080p_{PAPER_CUT_HORIZON}", **line})
+
+        # the kernel on the other paper-size cuts, held against the pool's
+        # plain and scalar runs after the path
+        got_cuts = {}
+        for app in PAPER_CUT_APPS[1:]:
+            pd = paper[app][1]
+            sim = VectorSim(pd.modules, pd.edges, dict(pd.fifo.depth),
+                            frames=1)
+            t0 = time.perf_counter()
+            res = sim.run(max_cycles=PAPER_CUT_HORIZON)
+            got_cuts[app] = (cc.summary(res), time.perf_counter() - t0,
+                             cyc.layout(sim))
 
         # the cycle kernel's own path: simulate() at the paper's size, one
         # frame, and the explorer's population engine, through the entry
-        # points a user calls
+        # points a user calls; one launch a frame
         registry.reset_launch_counts()
         apps, results = {}, {}
         for app in PAPER_SIM_APPS:
             uf, design, _sec = paper[app]
             box = []
+            before = kernel.launches()
             t0 = time.perf_counter()
             _tot, names = device_events(
                 lambda: box.append(design.simulate(options=SimOptions())), 1,
                 warmup=0)
             wall = time.perf_counter() - t0
-            res = results[app] = box[0]
+            if kernel.launches() != before + 1:
+                raise AssertionError(f"{app}: simulate() took "
+                                     f"{kernel.launches() - before} launches"
+                                     ", not one")
             dev_ms = sum(v for n, v in names.items() if "cyclesim" in n)
+            res = results[app] = box[0]
             cpf = design.cycles_per_frame()
             if res.deadlock is not None or res.engine != "vector":
                 raise AssertionError(f"{app} at paper size: {res.deadlock}, "
@@ -924,6 +972,22 @@ def cycle_phase(torch, np, paper, peak_int_ops):
                                  "path")
         host = explore_app("flow", ExploreOptions(**opts, engine="scalar",
                                                   device="cpu"))
+        # a profiled window now and then records the copies but not the
+        # kernel (seen once on FLOW's frame): that frame is profiled again,
+        # after the count was read
+        for app, row in apps.items():
+            design = paper[app][1]
+            while row["kernel_ms"] == 0:
+                if row.setdefault("reprofiled", 0) == 3:
+                    raise AssertionError(f"{app}: no cycle kernel in 4 "
+                                         "profiled windows")
+                _tot, names = device_events(
+                    lambda: design.simulate(options=SimOptions()), 1,
+                    warmup=0)
+                row["kernel_ms"] = sum(v for n, v in names.items()
+                                       if "cyclesim" in n)
+                row["ns_per_cycle"] = row["kernel_ms"] * 1e6 / row["cycles"]
+                row["reprofiled"] += 1
         # the path's whole frames against the scalar engine's
         for app, fut in w_paper.items():
             want, sc_s = fut.result()
@@ -934,6 +998,22 @@ def cycle_phase(torch, np, paper, peak_int_ops):
                                      f"{cc.summary_err(got_p, want)}")
             apps[app].update(scalar_equal=True, scalar_s=sc_s,
                              scalar_us_per_cycle=sc_s * 1e6 / want["cycles"])
+        # the other paper-size cuts against the plain version (every
+        # SimResult field) and the scalar engine
+        cut_rows = {}
+        for app, (g, g_s, lay_c) in got_cuts.items():
+            (want, p_s), (sc, s_s) = (w_cut[app, e].result()
+                                      for e in ("vector", "scalar"))
+            if g != want or cc.scalar_view(g) != cc.scalar_view(sc):
+                raise AssertionError(
+                    f"cycle kernel != plain or scalar on {app}'s first "
+                    f"{PAPER_CUT_HORIZON} cycles at the paper's size: "
+                    f"{cc.summary_err(g, want)}, {cc.summary_err(g, sc)}")
+            cut_rows[app] = {"cycles": g["cycles"], "deadlock": g["deadlock"],
+                             "skipped": g["cycles_skipped"],
+                             "max_abs_err": cc.summary_err(g, want),
+                             "kernel_s": g_s, "plain_s": p_s,
+                             "scalar_s": s_s, **lay_c}
 
     def points(r):
         return [{k: v for k, v in p.as_dict().items()
@@ -944,6 +1024,7 @@ def cycle_phase(torch, np, paper, peak_int_ops):
         raise AssertionError("the explorer's points differ across engines")
     ing = simulate_ingest(512, 40.0, Fraction(1, 32), 16, seed=0)
     emit({"phase": "cycle", "check": "path", "simulate_paper": apps,
+          f"paper_first_{PAPER_CUT_HORIZON}_cycles": cut_rows,
           "explore": {e: {"points": r.n_evaluated,
                           "eval_s": r.eval_seconds,
                           "wall_s": r.wall_seconds,
@@ -1714,8 +1795,12 @@ def main() -> int:
           + [dict(line("cyclesim", registry.get_kernel("cyclesim"),
                        kern_cycle, kern_cycle["launches"]),
                   case=f"flow 1920x1080, 1 frame, first "
-                       f"{PAPER_FLOW_HORIZON} cycles",
-                  ns_per_cycle=kern_cycle["ns_per_cycle"])]})
+                       f"{PAPER_CUT_HORIZON} cycles",
+                  **{k: kern_cycle[k] for k in (
+                      "ns_per_cycle", "chain_bound_ms",
+                      "share_of_chain_bound", "form", "slots", "threads",
+                      "ring", "smem_bytes", "split_clocks_per_loop",
+                      "parent_split")})]})
     emit({"ok": True, "device": device})
     return 0
 

@@ -34,7 +34,7 @@ from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E40
 from repro_torch.kernels.flash.ops import (  # noqa: E402
     form_launches, mma_scores, prefill_form)
 from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
-from _torch_cases import conv_case  # noqa: E402
+from _torch_cases import conv_case, map_chain  # noqa: E402
 
 pytestmark = pytest.mark.card
 
@@ -538,6 +538,116 @@ def test_cycle_kernel_hand_set_need_table_stalls(card, event_jump):
     got, want = runs
     assert "starved" in got.deadlock and got.sink_tokens == 5
     assert _sim_fields(got) == _sim_fields(want)
+
+
+def _chain_kernel_and_plain(mods, edges, depths, frames=1, **run):
+    from repro_torch.hwsim import VectorSim
+    out = [VectorSim(mods, edges, depths, frames=frames, device=dev).run(
+        **run) for dev in ("cuda", "cpu")]
+    assert registry.get_kernel("cyclesim").launches() == 1
+    return out
+
+
+@pytest.mark.parametrize("event_jump", [True, False])
+def test_cycle_kernel_ring_word_edges(card, event_jump):
+    """Latencies 63, 64 and 65: rings of 64, 65 and 66 bits, a whole
+    64-bit word and one or two bits past it, with plateaus the event jump
+    leaps (throttled modules, 4 tokens a frame, 2 frames)."""
+    from fractions import Fraction
+    mods, edges, depths = map_chain((63, 64, 65, 0, 63, 64, 65, 1), total=4,
+                                    rates=(Fraction(1), Fraction(1, 2)))
+    got, want = _chain_kernel_and_plain(mods, edges, depths, frames=2,
+                                        event_jump=event_jump)
+    assert got.deadlock is None and got.sink_tokens == 8
+    assert (got.cycles_skipped > 0) == event_jump
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+@pytest.mark.parametrize("latency", [63, 64, 65, 100])
+def test_cycle_kernel_jump_across_ring_wrap(card, latency):
+    """One token, launched at cycle 1 by a module of the given latency: the
+    jump from cycle 3 finds its maturation past the ring's end (its bit at
+    position 1, the search starting at 4) and lands on it."""
+    mods, edges, depths = map_chain((0, latency, 0), total=1)
+    got, want = _chain_kernel_and_plain(mods, edges, depths)
+    assert got.cycles_skipped == latency - 2 and got.deadlock is None
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+@pytest.mark.parametrize("latency", [1, 3, 64])
+def test_cycle_kernel_blocked_producer_long_jumps(card, latency):
+    """A consumer throttled to rate 1/50 behind a depth-0 FIFO keeps its
+    producer blocked with matured launches while the event jump leaps
+    ~50 cycles at a time, longer than the producer's latency: each
+    matured launch is counted once (8 tokens pushed, not 9)."""
+    from fractions import Fraction
+    mods, edges, depths = map_chain(
+        (0, latency, 0), total=8, depth=1,
+        rates=(Fraction(1), Fraction(1), Fraction(1, 50)))
+    got, want = _chain_kernel_and_plain(mods, edges, depths)
+    assert got.cycles_skipped > 300 and got.sink_tokens == 8
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+def test_cycle_kernel_wide_counters(card):
+    """2**16 tokens a frame over 2**15 + 1 frames: a module's count
+    passes int32, so the warp form takes its 64-bit counters (every other
+    card case counts in 32 bits); the horizon cuts the run."""
+    from fractions import Fraction
+    from repro_torch.hwsim import VectorSim
+    from repro_torch.kernels.cyclesim import ops
+    mods, edges, depths = map_chain((0, 2, 0, 1), total=2 ** 16,
+                                    rates=(Fraction(1), Fraction(1, 2)))
+    frames = 2 ** 15 + 1
+    lay = ops.layout(VectorSim(mods, edges, depths, frames=frames,
+                               device="cpu"))
+    assert (lay["form"], lay["counters"]) == ("warp", 64)
+    got, want = _chain_kernel_and_plain(mods, edges, depths, frames=frames,
+                                        max_cycles=300)
+    assert got.deadlock == "horizon exceeded (300 cycles)"
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+def test_cycle_kernel_global_ring(card):
+    """A latency of 1.9 M cycles needs a 1.9 M-bit ring, past the block's
+    shared memory: the wrapper puts the rings in global memory.  The
+    horizon cuts the run while the tokens drain."""
+    from repro_torch.hwsim import VectorSim
+    from repro_torch.kernels.cyclesim import ops
+    latency = 1_900_000
+    mods, edges, depths = map_chain((0, latency, 0), total=8)
+    assert ops.layout(VectorSim(mods, edges, depths, device="cpu"))[
+        "ring"] == "global"
+    got, want = _chain_kernel_and_plain(mods, edges, depths,
+                                        max_cycles=latency + 6)
+    assert got.deadlock == f"horizon exceeded ({latency + 6} cycles)"
+    assert 0 < got.sink_tokens < 8
+    assert _sim_fields(got) == _sim_fields(want)
+
+
+def test_cycle_kernel_warp_form_equals_block_form_on_flow(card):
+    """FLOW's sim_case (58 modules, 73 edges), 2 frames, in both forms of
+    the kernel: the same state, frame ends and stop code, and the plain
+    version's."""
+    import torch
+    from repro_torch.hwsim import VectorSim
+    from repro_torch.kernels.cyclesim import ops
+    d = _cycle_design("flow")
+    vs = VectorSim(d.modules, d.edges, dict(d.fifo.depth), frames=2)
+    assert ops.layout(vs)["form"] == "warp"
+    caps = torch.from_numpy(vs.cap[None].copy()).cuda()
+    horizon, stall = vs._default_horizon(), vs._stall_limit()
+    runs = {form: ops.run_kernel(vs, caps, horizon, stall, form=form)[0]
+            for form in ("warp", "block")}
+    from repro_torch.kernels import _build
+    assert _build.launch_count("cyclesim:warp") == 1
+    assert _build.launch_count("cyclesim:block") == 1
+    want = vs.with_caps(vs.cap)._run_plain(horizon, stall)
+    for form, (s, fe, code) in runs.items():
+        assert (fe, code) == (want[1], want[2]), form
+        assert s.keys() == want[0].keys()
+        for key, v in want[0].items():
+            assert np.array_equal(s[key], v), (form, key)
 
 
 def test_cycle_kernel_population_equals_single_runs(card):

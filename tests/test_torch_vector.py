@@ -42,6 +42,8 @@ from repro_torch.hwsim import (PopulationSim, VectorSim,  # noqa: E402
                                simulate_ingest)
 from repro_torch.hwsim.sim import build_sim, simulate  # noqa: E402
 from repro_torch.kernels.cyclesim import ops as cyc  # noqa: E402
+import _cyclesim_host as cyc_host  # noqa: E402
+from _torch_cases import map_chain  # noqa: E402
 
 # the reference tests' own sizes (tests/test_hwsim.py), and the sim_cases
 SIZES = {
@@ -51,6 +53,8 @@ SIZES = {
     "flow_sim": {},
     "pyramid_sim": {},
     "convolution_sim": {},
+    "stereo_sim": {},
+    "descriptor_sim": {},
 }
 
 
@@ -92,7 +96,7 @@ def _same_as_scalar(got, design, depths=None, frames=1, **kw):
 @pytest.mark.parametrize("label,frames", [
     ("flow", 1), ("flow", 2), ("flow", 3), ("convolution", 1),
     ("flow_sim", 2), ("pyramid_sim", 1), ("pyramid_sim", 2),
-    ("convolution_sim", 1)])
+    ("convolution_sim", 1), ("stereo_sim", 1), ("descriptor_sim", 1)])
 def test_plain_vector_equals_reference_and_scalar(designs, label, frames):
     d = designs[label]
     got, ref = _pair(d, frames=frames)
@@ -278,23 +282,30 @@ def test_ingest_matches_reference():
 
 
 def test_kernel_packing_describes_the_netlist(designs):
-    """The kernel's int64 packing (kernels/cyclesim/ops.py), built on the
-    CPU: each module's CSR out- and in-edges are its edges, and every
-    edge's need, computed or tabulated, is the plain version's table."""
-    for label in ("convolution", "flow", "pyramid_sim"):
+    """The kernel's packing (kernels/cyclesim/ops.py), built on the CPU:
+    each module's int32 CSR out- and in-edges are its edges, each module's
+    ring starts at the word-aligned prefix sum of ``leff + 1`` bits, and
+    every edge's need, tabulated or stepped by its packed quotient and
+    remainder, is the plain version's table for every k, on every app."""
+    for label in SIZES:
         d = designs[label]
         vs = VectorSim(d.modules, d.edges, dict(d.fifo.depth), frames=2,
                        device="cpu")
         net = {k: v.numpy() for k, v in
                cyc.pack(vs, torch.device("cpu")).items()}
+        for key in ("out_ptr", "out_idx", "in_ptr", "in_idx"):
+            assert net[key].dtype == np.int32
         for m in range(vs.M):
             outs = net["out_idx"][net["out_ptr"][m]:net["out_ptr"][m + 1]]
             ins = net["in_idx"][net["in_ptr"][m]:net["in_ptr"][m + 1]]
             assert list(outs) == list(np.flatnonzero(vs.src == m))
             assert list(ins) == list(np.flatnonzero(vs.dst == m))
+        mod = dict(zip(cyc.MOD_FIELDS, net["mod"].T))
+        assert np.array_equal(mod["leff"], vs.leff)
+        bits = np.concatenate([[0], np.cumsum(-(-(vs.leff + 1) // 64) * 64)])
+        assert np.array_equal(mod["ring"] * 64, bits[:-1]), label
+        assert cyc.ring_offsets(vs.leff)[1] * 64 == bits[-1]
         edge = dict(zip(cyc.EDGE_FIELDS, net["edge"].T))
-        assert np.array_equal(net["mod"][:, cyc.MOD_FIELDS.index("leff")],
-                              vs.leff)
         profiled = 0
         for e in range(vs.E):
             k = np.arange(1, vs.ot[e] + 1)
@@ -302,15 +313,32 @@ def test_kernel_packing_describes_the_netlist(designs):
                 profiled += 1
                 got = net["need_buf"][edge["need_off"][e] + k - 1]
             else:
-                tpf = edge["tpf"][e]
-                got = np.minimum(tpf, -((-k * tpf) // edge["ot"][e]))
+                tpf, ot = edge["tpf"][e], edge["ot"][e]
+                qs, rs = edge["qstep"][e], edge["rstep"][e]
+                assert qs * ot + rs == tpf and 0 <= rs < ot
+                # the kernel's step: q, r += qs, rs; r wraps past ot
+                q, r = np.empty(len(k), np.int64), np.empty(len(k), np.int64)
+                q[0], r[0] = qs, rs
+                for i in range(1, len(k)):
+                    q[i], r[i] = q[i - 1] + qs, r[i - 1] + rs
+                    if r[i] >= ot:
+                        q[i], r[i] = q[i] + 1, r[i] - ot
+                got = np.minimum(tpf, q + (r > 0))
             want = vs.need_buf[vs.need_off[e] + k - 1]
             assert np.array_equal(got, want), (label, e)
         assert profiled == sum(s.profile is not None for s in vs.specs)
         if label == "convolution":
             assert profiled > 0              # Pad and Crop are tabulated
-    assert cyc.threads_for(58, 73) == 96 and cyc.threads_for(1, 700) == 256
-    assert cyc.smem_bytes(58, 73) == 8 * (6 * 73 + 3 * 58 + 1) + 4 * 131
+    # the warp form where a lane holds at most 3 modules and 3 edges, the
+    # block form past that (modules over the block's threads)
+    assert cyc.threads_for(58, 73) == 32 and cyc.warp_slots(58, 73) == (2, 3)
+    assert cyc.warp_slots(96, 96) == (3, 3) and cyc.warp_slots(97, 8) is None
+    assert cyc.threads_for(300, 299) == 256 and cyc.warp_slots(1, 700) is None
+    assert cyc.threads_for(1, 700) == 32 and cyc.form_for(1, 700) == "block"
+    assert cyc.smem_bytes(58, 73, 100, "warp", True) == 800
+    assert cyc.smem_bytes(58, 73, 100, "warp", False) == 0
+    assert cyc.smem_bytes(58, 73, 100, "block", True) == \
+        8 * (12 * 73 + 4 * 58 + 1 + 31) + 800
 
 
 def test_engine_resolution_by_device(designs, monkeypatch):
@@ -357,3 +385,157 @@ def test_cycle_kernel_wrapper_routes_by_device(designs):
         cyc.cycle_sim(vs, caps.int(), 100, 10)
     with pytest.raises(ValueError, match="device"):
         cyc.cycle_sim(vs, caps.to("meta"), 100, 10)
+
+
+# ---- the kernel's source built on the host (tests/_cyclesim_host.py) ----
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    if not cyc_host.available():
+        pytest.skip("needs g++ to build the kernel's source on the host")
+    return cyc_host.build(tmp_path_factory.mktemp("cyclesim_host"))
+
+
+def _host_case(designs, case):
+    """(VectorSim on the CPU, capacity rows, run keywords) of a case."""
+    kw = dict(event_jump=True, max_cycles=None)
+    if case.startswith("flow_sim"):
+        d = designs["flow_sim"]
+        vs = VectorSim(d.modules, d.edges, dict(d.fifo.depth), frames=2,
+                       device="cpu")
+        kw["event_jump"] = not case.endswith("nojump")
+    elif case.startswith("pyramid_deadlock"):
+        d = designs["pyramid_sim"]
+        depths = dict(d.fifo.depth)
+        depths[(6, 1)] = 0
+        vs = VectorSim(d.modules, d.edges, depths, device="cpu")
+        kw["event_jump"] = not case.endswith("nojump")
+    elif case == "convolution_frame_boundary":
+        d = designs["convolution"]
+        vs = VectorSim(d.modules, d.edges, dict(d.fifo.depth), frames=2,
+                       device="cpu")
+        kw["max_cycles"] = vs.run().frame_ends[0] + 1
+    elif case == "flow_first_cycles":
+        d = designs["flow_sim"]
+        vs = VectorSim(d.modules, d.edges, dict(d.fifo.depth), device="cpu")
+        kw["max_cycles"] = 343
+    elif case == "stereo_unbounded":
+        d = designs["stereo"]
+        vs = VectorSim(d.modules, d.edges, {}, unbounded=True, device="cpu")
+    elif case == "hand_table":
+        mods, edges = _starved_pair()
+        vs = VectorSim(mods, edges, {(0, 1): 3}, device="cpu")
+        vs.need_buf = np.arange(1, 11, dtype=np.int64)
+    elif case.startswith("ring_word_edges"):
+        mods, edges, depths = map_chain((63, 64, 65, 0, 63, 64, 65, 1),
+                                        total=4,
+                                        rates=(Fraction(1), Fraction(1, 2)))
+        vs = VectorSim(mods, edges, depths, frames=2, device="cpu")
+        kw["event_jump"] = not case.endswith("nojump")
+    elif case == "wrap_jump":
+        mods, edges, depths = map_chain((0, 100, 0), total=1)
+        vs = VectorSim(mods, edges, depths, device="cpu")
+    elif case == "slow_consumer":
+        mods, edges, depths = map_chain(
+            (0, 3, 0), total=8, depth=1,
+            rates=(Fraction(1), Fraction(1), Fraction(1, 50)))
+        vs = VectorSim(mods, edges, depths, device="cpu")
+    elif case == "wide_counters":
+        # 2**16 tokens a frame over 2**15 + 1 frames: a module's count
+        # passes int32, so the warp form counts in 64 bits; the horizon
+        # cuts the run
+        mods, edges, depths = map_chain((0, 2, 0, 1), total=2 ** 16,
+                                        rates=(Fraction(1), Fraction(1, 2)))
+        vs = VectorSim(mods, edges, depths, frames=2 ** 15 + 1,
+                       device="cpu")
+        kw["max_cycles"] = 300
+    elif case == "population":
+        d = designs["flow_sim"]
+        ana = dict(d.fifo.depth)
+        vs = VectorSim(d.modules, d.edges, ana, frames=2, device="cpu")
+        rows = [vs.cap] + [np.maximum(1, (vs.cap - 1) * f // 4 + 1)
+                           for f in (0, 2, 7)]
+        return vs, np.stack(rows), kw
+    else:
+        raise KeyError(case)
+    return vs, vs.cap[None], kw
+
+
+HOST_CASES = ["flow_sim_2f", "flow_sim_2f_nojump", "pyramid_deadlock",
+              "pyramid_deadlock_nojump", "convolution_frame_boundary",
+              "flow_first_cycles", "stereo_unbounded", "hand_table",
+              "ring_word_edges", "ring_word_edges_nojump", "wrap_jump",
+              "slow_consumer", "wide_counters", "population"]
+
+
+def _kernel_vs_plain(fn, vs, caps, form, event_jump, max_cycles):
+    """Every SimResult field of the host-built kernel's runs against the
+    plain version's, row by row."""
+    horizon = max_cycles or vs._default_horizon()
+    stall = vs._stall_limit()
+    caps = torch.from_numpy(np.ascontiguousarray(caps, np.int64))
+    got = cyc_host.host_cycle_sim(fn, vs, caps, horizon, stall, event_jump,
+                                  form=form)
+    want = cyc.cycle_sim_ref(vs, caps, horizon, stall, event_jump)
+    assert len(got) == len(want) == len(caps)
+    results = []
+    for row, g, w in zip(caps.numpy(), got, want):
+        rg, rw = (vs._result(*x, horizon, cap=row) for x in (g, w))
+        assert _all(rg) == _all(rw)
+        results.append(rg)
+    return results
+
+
+@pytest.mark.parametrize("form", ["warp", "block"])
+@pytest.mark.parametrize("case", HOST_CASES)
+def test_kernel_source_on_the_host_matches_plain(designs, host_kernel,
+                                                 case, form):
+    """The CUDA source's warp and block forms, built as host C++ with a
+    host thread per CUDA thread, against the plain version: frames,
+    jumps on and off, a deadlock, a horizon on a frame boundary and in the
+    first cycles (t < leff), no capacity bound, a hand-set need table,
+    latencies at the ring words' edges (63, 64, 65), a maturation found
+    across the ring's wrap, a producer blocked by a slow consumer while
+    jumps longer than its latency pass (its matured launches counted
+    once), counts past int32 (the warp form's 64-bit counters), and four
+    designs in one launch."""
+    vs, caps, kw = _host_case(designs, case)
+    res = _kernel_vs_plain(host_kernel, vs, caps, form, **kw)
+    if case == "wrap_jump":
+        # one token launched at cycle 1 matures at 101: the jump from
+        # cycle 3 finds its bit past the ring's end (position 1 < p = 3)
+        assert res[0].cycles_skipped == 98 and res[0].deadlock is None
+    if case.startswith("ring_word_edges"):
+        assert (res[0].cycles_skipped > 0) == kw["event_jump"]
+    if case == "slow_consumer":
+        assert res[0].cycles_skipped > 300 and res[0].sink_tokens == 8
+    assert cyc.counter_bits(vs) == (64 if case == "wide_counters" else 32)
+
+
+@pytest.mark.parametrize("form", ["warp", "block"])
+def test_kernel_source_global_ring_on_the_host(designs, host_kernel,
+                                               monkeypatch, form):
+    """With no shared memory to spare the rings go to global memory (the
+    kernel's other template form), with the same results."""
+    monkeypatch.setattr(cyc, "SMEM_LIMIT", 0)
+    vs, caps, kw = _host_case(designs, "ring_word_edges")
+    assert cyc.layout(vs, form)["ring"] == "global"
+    _kernel_vs_plain(host_kernel, vs, caps, form, **kw)
+    vs, caps, kw = _host_case(designs, "flow_sim_2f")
+    _kernel_vs_plain(host_kernel, vs, caps, form, **kw)
+
+
+def test_kernel_source_block_form_on_a_long_chain(host_kernel):
+    """300 modules are past the warp form: the block form, modules over
+    256 threads with a block stride, throttled and latent."""
+    rates = (Fraction(1), Fraction(1, 2), Fraction(1), Fraction(2, 3))
+    mods, edges, depths = map_chain([i % 7 for i in range(300)],
+                                    rates=rates)
+    vs = VectorSim(mods, edges, depths, frames=2, device="cpu")
+    assert cyc.layout(vs) == dict(cyc.layout(vs, "block"), threads=256)
+    with pytest.raises(ValueError, match="warp form"):
+        cyc.layout(vs, "warp")
+    (res,) = _kernel_vs_plain(host_kernel, vs, vs.cap[None], None, True,
+                              None)
+    assert res.deadlock is None and res.sink_tokens == 96
