@@ -125,6 +125,27 @@ phase prints one JSON line:
            against the executor
   profile  per app, the host-side operators of one warm run and one warm
            run_batch call (torch.profiler, CPU activity), by self time
+  verify   the static verifier (``HWDesign.verify``, ``backend="kernels"``)
+           on the card: each sim_case under fifo_solver "z3" and "sim",
+           its oracle's cross-check on the cycle kernel (one launch each)
+           held against the same check on the scalar engine (marks,
+           bounds, violations), then FLOW and CONVOLUTION at the paper's
+           size; every case must be ok; per case the verdict, modeled and
+           total edges, declared and narrowed FIFO bits, host seconds and
+           the cycle kernel's launches
+  serve    the five paper-size designs behind one FrameServer on the card
+           (``backend="kernels"``, ``ServeConfig(max_batch=8)``, a warm
+           frame each): 32 seeded frames an app submitted interleaved
+           across the three priorities, every future bounded; the launch
+           counters set to 0 just before the traffic and read just after
+           (K1, K2 and K3 must each launch), the window profiled (K1-K3's
+           kernel events, the card's busy share); every served frame equal
+           to run_batch of the same frames on the same design, two an app
+           to the golden model; per app frames/s, p50 and p99 latency,
+           batches, mean occupancy, shed and padded frames, and
+           replay_trace_ingest's predicted queue mark; register and
+           warmup seconds (the kernels' nvcc builds ran in the build
+           phase; their cache is the one the server loads)
   llm      gemma3-1b at full width and depth (26 layers, random weights
            from seed 0): f32 decode_fn over a 1024-token prompt against
            prefill_fn (atol 2e-3, rtol 1e-3), the f32 prefill_fn launching
@@ -152,6 +173,7 @@ failure or launch error ends the script with a nonzero exit before it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -854,6 +876,7 @@ def cycle_phase(torch, np, paper, peak_int_ops):
               "deadlocked": sum(r.deadlock is not None for r in pop),
               "cycles": [r.cycles for r in pop], "population_s": pop_s,
               "singles_s": singles_s})
+        pop_case = (d, sets, pop)
 
         # the kernel's time a cycle on FLOW's sim_case, 2 frames
         vs = VectorSim(d.modules, d.edges, ana, frames=2)
@@ -902,6 +925,26 @@ def cycle_phase(torch, np, paper, peak_int_ops):
         prof = cycle_profile.profile_library()
         probe = cycle_profile.probes(prof)
         chain_ms = cycle_profile.chain_bound_ms(lay["form"], executed, probe)
+        # the population's row (PERF.md section 6): its device time, the
+        # operations bound over all its designs (counted as the line below
+        # counts one) and the chain bound of its longest design
+        pd_, psets, pres = pop_case
+        one = VectorSim(pd_.modules, pd_.edges, psets[0], frames=2)
+        _total, names = device_events(lambda: PopulationSim(
+            pd_.modules, pd_.edges, psets, frames=2).run(), 1, warmup=0)
+        execd = [r.cycles - r.cycles_skipped for r in pres]
+        p_bytes = len(psets) * (sum(
+            t.numel() * 8 for t in cyc.pack(one, torch.device("cuda")).values())
+            + 8 * (7 * one.E + 3 * one.M + len(cyc.SCALARS) + one.frames))
+        pb_ms, pb_by, _tb, _to = bound(
+            p_bytes, sum(execd) * (10 * one.E + 12 * one.M) * 2, peak_int_ops)
+        emit({"phase": "cycle", "check": "population_bound", "app": "flow",
+              "designs": len(psets),
+              "ms": sum(v for n, v in names.items() if "cyclesim" in n),
+              "bound_ms": pb_ms, "bound_by": pb_by,
+              "executed_cycles": sum(execd), "longest": max(execd),
+              "chain_bound_ms": cycle_profile.chain_bound_ms(
+                  cyc.layout(one)["form"], max(execd), probe)})
         split = cycle_profile.split(vs, PAPER_CUT_HORIZON, prof)
         line = {"max_abs_err": line_err, "ms": k_ms, "call_ms": call_ms,
                 "plain_ms": plain_s * 1e3, "scalar_ms": sc_s * 1e3,
@@ -1287,6 +1330,266 @@ def external_case(torch, np, ext):
             line[label] = {"vs_executor_max_abs_err": max(
                 c["max_abs_err"] for c in checks),
                 "megakernels": len(lp.megakernels)}
+    emit(line)
+    return line
+
+
+# ---- the verify phase: the static verifier, its oracle on the cycle kernel
+
+
+VERIFY_PAPER_APPS = ("flow", "convolution")
+
+
+def _verify_row(res, host_s: float, launches: int) -> dict:
+    h = res.handshake
+    return {"ok": res.ok, "verdict": h.verdict,
+            "modeled_edges": sum(1 for e in h.edges if e.modeled),
+            "edges": len(h.edges),
+            "certified_edge_fraction": h.certified_edge_fraction,
+            "wrap_free": res.ranges.wrap_free,
+            "declared_fifo_bits": res.declared_fifo_bits,
+            "narrowed_fifo_bits": res.narrowed_fifo_bits,
+            "host_s": host_s, "cyclesim_launches": launches,
+            "engine": res.cross.engine}
+
+
+def verify_phase(torch, np, paper):
+    """The static verifier (``HWDesign.verify``) on the card: each
+    sim_case under fifo_solver "z3" and "sim", its oracle's cross-check on
+    the cycle kernel held against the same check on the scalar engine
+    (marks, bounds, violations), then FLOW and CONVOLUTION at the paper's
+    size; every case must be ``ok`` and launch the kernel once."""
+    from repro_torch import CompileOptions, compile_pipeline
+    from repro_torch.analysis import cross_check
+    from repro_torch.apps import SIM_CASES
+    from repro_torch.kernels import registry
+
+    kernel = registry.get_kernel("cyclesim")
+    t_phase = time.perf_counter()
+    rows = {}
+
+    def run(label, design):
+        n0 = kernel.launches()
+        t0 = time.perf_counter()
+        res = design.verify(backend="kernels")
+        host_s = time.perf_counter() - t0
+        n = kernel.launches() - n0
+        if not res.ok or n != 1 or res.cross.engine != "vector":
+            raise AssertionError(f"verify {label}: ok={res.ok}, {n} cycle "
+                                 f"kernel launches, engine "
+                                 f"{res.cross.engine}: "
+                                 + "; ".join(res.report_lines()))
+        rows[label] = _verify_row(res, host_s, n)
+        return res
+
+    for app in sorted(SIM_CASES):
+        for solver in ("z3", "sim"):
+            uf, T, _ = SIM_CASES[app]()
+            design = compile_pipeline(uf, T=T, options=CompileOptions(
+                fifo_solver=solver))
+            res = run(f"{app}[{solver}]", design)
+            host = cross_check(design, device="cpu")
+            for key in ("hwm", "lower", "upper", "violations", "completed"):
+                if getattr(res.cross, key) != getattr(host, key):
+                    raise AssertionError(f"verify {app}[{solver}]: the "
+                                         f"cross-check's {key} differs "
+                                         "from the scalar engine's")
+            rows[f"{app}[{solver}]"]["scalar_equal"] = True
+    for app in VERIFY_PAPER_APPS:
+        run(f"{app}[paper]", paper[app][1])
+    line = {"phase": "verify", "cases": rows,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    return line
+
+
+# ---- the serve phase: the apps' frame server on the card
+
+
+SERVE_FRAMES = 32                  # frames an app
+SERVE_TIMEOUT_S = 300              # the longest any served frame may take
+SERVE_PLAIN_FRAMES = 2             # frames a call of the plain lowering
+
+
+def _rows(batch, rows):
+    """The rows ``rows`` of a stacked batch's frame axis."""
+    return {k: tuple(e[rows] for e in v) if isinstance(v, tuple) else v[rows]
+            for k, v in batch.items()}
+
+
+def _busy_ms(events) -> float:
+    """The union of the device events' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for s, t in spans:
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    return busy / 1e3
+
+
+def serve_phase(torch, np, paper):
+    """The five paper-size designs behind one ``FrameServer`` on the card
+    (``backend="kernels"``, ``ServeConfig(max_batch=8)``, one warm frame
+    each): 32 seeded frames an app, submitted interleaved across the three
+    priorities, every future bounded and its completion time stamped; the
+    launch counters set to 0 just before the traffic and read just after,
+    and the window profiled.  Every served frame must equal ``run_batch``
+    of the same frames on the same design, and every one must equal the
+    plain lowering's (``backend="torch"``, 2 frames a call) within the
+    kernels' tolerance (integers exact, f32 within
+    FLOAT_ULP_BOUND ULPs); two an app the golden model too; and K1, K2
+    and K3 must each launch in the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.apps import KERNEL_OF
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.megakernel.check import leaves
+    from repro_torch.serve import (FrameServer, Overloaded, ServeConfig,
+                                   ServeTrace)
+
+    apps = ("convolution", "stereo") + MK_APPS
+    rng = np.random.RandomState(7)
+    frames = {}
+    for app in apps:
+        x = app_inputs(np, app, paper[app][0], rng, SERVE_FRAMES)
+        frames[app] = [{k: tuple(e[i] for e in v) if isinstance(v, tuple)
+                        else v[i] for k, v in x.items()}
+                       for i in range(SERVE_FRAMES)]
+    cfg = ServeConfig(max_batch=8)
+    srv = FrameServer(cfg)
+    t0 = time.perf_counter()
+    for app in apps:
+        srv.register(paper[app][1], name=app, backend="kernels",
+                     warm_inputs=[frames[app][0]])
+    register_s = time.perf_counter() - t0
+    sent, shed, done_at = [], {app: 0 for app in apps}, {}
+
+    def stamp(key):
+        return lambda fut: done_at.__setitem__(key, time.perf_counter())
+    try:
+        srv.start()
+        registry.reset_launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(SERVE_FRAMES):
+                for j, app in enumerate(apps):
+                    pri = ("high", "normal", "low")[(i + j) % 3]
+                    try:
+                        fut = srv.submit(frames[app][i], app=app,
+                                         priority=pri)
+                    except Overloaded:
+                        shed[app] += 1
+                        continue
+                    fut.add_done_callback(stamp((app, i)))
+                    sent.append((app, i, fut))
+            outs = {}
+            for app, i, fut in sent:
+                outs[app, i] = fut.result(timeout=SERVE_TIMEOUT_S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {n: registry.get_kernel(n).launches()
+                    for n in ("conv2d", "sad", "megakernel")}
+        snap = srv.health.snapshot()
+    finally:
+        srv.close(timeout=SERVE_TIMEOUT_S)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"serve: {name} was not launched")
+    # the card's own events in the window; every app's segment kernel is
+    # named mk<i>_kernel, so K3 is counted over the three apps together
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = {"conv2d": re.compile(r"conv2d_\w*kernel"),
+             "sad": re.compile(r"sad_\w*kernel"),
+             "megakernel": re.compile(r"\bmk\d+_kernel")}
+    prof_launches = {k: sum(1 for e in dev_events if pat.search(e.name))
+                     for k, pat in kinds.items()}
+    busy_ms = copy_ms = None        # not read when the window is empty
+    if not dev_events:
+        prof_launches = None        # the profiler's known empty window
+    elif any(v == 0 for v in prof_launches.values()):
+        raise AssertionError(f"serve: the profiler saw {prof_launches}")
+    else:
+        busy_ms = _busy_ms(dev_events)
+        copy_ms = _busy_ms([e for e in dev_events if "Memcpy" in e.name
+                            or "Memset" in e.name])
+
+    # every served frame against run_batch of the same frames (8 a call)
+    # on the kernels and on the plain lowering, two an app against the
+    # golden model
+    per_app, plain = {}, {}
+    for app in apps:
+        uf, design, _ = paper[app]
+        ids = sorted(i for a, i in outs if a == app)
+        for k in range(0, len(ids), 8):
+            chunk = ids[k:k + 8]
+            batch = {key: tuple(np.stack([frames[app][i][key][e]
+                                          for i in chunk])
+                                for e in range(len(v)))
+                     if isinstance(v, tuple) else
+                     np.stack([frames[app][i][key] for i in chunk])
+                     for key, v in frames[app][0].items()}
+            want = leaves(design.run_batch(batch, backend="kernels"))
+            for r, i in enumerate(chunk):
+                got = leaves(outs[app, i])
+                if len(got) != len(want) or any(
+                        g.dtype != w.dtype or not np.array_equal(g, w[r])
+                        for g, w in zip(got, want)):
+                    raise AssertionError(f"serve {app}: frame {i} differs "
+                                         "from run_batch")
+            for q in range(0, len(chunk), SERVE_PLAIN_FRAMES):
+                rows = slice(q, q + SERVE_PLAIN_FRAMES)
+                sub = chunk[rows]
+                chk = _check_against(
+                    f"serve {app} frames {sub} vs torch",
+                    tuple(np.stack([leaves(outs[app, i])[e] for i in sub])
+                          for e in range(len(want))),
+                    design.run_batch(_rows(batch, rows), backend="torch"))
+                plain[app] = {k: max(plain.get(app, {}).get(k, 0), chk[k])
+                              for k in ("max_abs_err", "max_ulp")}
+        for i in ids[:2]:
+            gold = golden(np, app, uf, frames[app][i])
+            got = leaves(outs[app, i])
+            if len(got) != len(gold) or any(
+                    g.size != w.size or g.dtype != w.dtype
+                    or not np.array_equal(g.reshape(w.shape), w)
+                    for g, w in zip(got, gold)):
+                raise AssertionError(f"serve {app}: frame {i} differs from "
+                                     "the golden model")
+        a = snap["apps"][app]
+        occ = {int(k): v for k, v in a["batch_occupancy"].items()}
+        padded = sum((min(1 << (n - 1).bit_length(), cfg.max_batch) - n) * c
+                     for n, c in occ.items())
+        fps = len(ids) / (max(done_at[app, i] for i in ids) - t0)
+        trace = ServeTrace([e for e in srv.trace.events if e.app == app])
+        ing = srv.replay_trace_ingest(service_fps=fps, trace=trace)
+        per_app[app] = {
+            "kernel": KERNEL_OF[app], "served": len(ids),
+            "bit_exact_vs_run_batch": True, "vs_torch": plain[app],
+            "golden_frames": len(ids[:2]),
+            "frames_per_s": fps, "p50_ms": a["latency_p50_ms"],
+            "p99_ms": a["latency_p99_ms"], "batches": a["batches"],
+            "mean_batch": a["mean_batch"], "occupancy": occ,
+            "shed": shed[app], "padded_frames": padded,
+            "predicted_queue_hwm": ing.hwm, "predicted_rho": ing.utilization}
+    st = srv.stats
+    line = {"phase": "serve", "apps": per_app, "frames": len(outs),
+            "shed": sum(shed.values()), "wall_s": wall,
+            "frames_per_s": len(outs) / wall,
+            "register_s": register_s, "warmup_s": st.warmup_s,
+            "warmup_buckets": [st.warmup_done, st.warmup_total],
+            "launches": launches, "profiler_launches": prof_launches,
+            "device_busy_ms": busy_ms, "device_copy_ms": copy_ms,
+            "device_busy_share": (None if busy_ms is None
+                                  else busy_ms / (wall * 1e3)),
+            "queue_hw": st.queue_hw, "inflight_hw": st.inflight_hw,
+            "padded_frames": st.padded_frames,
+            "predicted_queue_hwm": srv.replay_trace_ingest().hwm}
     emit(line)
     return line
 
@@ -1754,6 +2057,10 @@ def main() -> int:
     executor_case(torch, np, bench)
     registry.reset_launch_counts()
     external_case(torch, np, ext)
+    # the static verifier on the card, then the apps' frame server (its
+    # counters set to 0 just before the served traffic, read just after)
+    verify_phase(torch, np, paper)
+    serve_phase(torch, np, paper)
     # the model's paths: llm_phase resets the counters just before the f32
     # prefill_fn call (the SIMT form's path) and just before the bf16
     # prefill_fn call and serving (the tensor-core and decode forms')

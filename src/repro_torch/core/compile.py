@@ -13,7 +13,8 @@ hardware flow on the host (numpy, scipy, ``Fraction``):
 
 and returns an ``HWDesign`` with the module netlist, solved FIFOs, the
 resource and cycle-count report, the cycle simulator (``simulate`` /
-``optimize_fifos``), the design-space explorer (``explore``), and three
+``optimize_fifos``), the design-space explorer (``explore``), the static
+verifier (``verify``), the frame server (``serve``), and three
 executables: ``backend="numpy"`` (the
 bit-accurate executor, on the host), ``"torch"`` (the generic lowering)
 and ``"kernels"`` (the lowering with dispatch to the CUDA kernels and one
@@ -27,8 +28,10 @@ the call or ``CompileOptions.device`` names another; with no card and no
 explicit ``device="cpu"`` it raises.  The numpy backend runs on the host.
 The cycle simulator follows the same rule through ``SimOptions.device``
 (``CompileOptions.device`` for ``fifo_solver="sim"``, and
-``ExploreOptions.device`` for ``explore``): its default engine is the
-cycle kernel on the card, and the scalar engine on ``device="cpu"``.
+``ExploreOptions.device`` for ``explore``, and for ``verify``'s oracle):
+its default engine is the cycle kernel on the card, and the scalar
+engine on ``device="cpu"``.  ``serve`` runs its frames on the lowering's
+device.
 
 The reference's deprecated loose keyword arguments (aliases of the
 ``CompileOptions`` / ``SimOptions`` fields) are not carried over.
@@ -209,6 +212,8 @@ class HWDesign:
     _lowered: Dict[Tuple[str, str, str], Any] = field(
         default_factory=dict, repr=False)
     _hwsim: List[Any] = field(default_factory=list, repr=False)
+    _verify: List[Any] = field(default_factory=list, repr=False)
+    _serve_stats: List[Any] = field(default_factory=list, repr=False)
 
     # ---- reports ----
     @property
@@ -300,6 +305,26 @@ class HWDesign:
         self._hwsim[:] = [alloc]
         return alloc
 
+    def verify(self, sim: bool = True, backend: str = "torch",
+               options: Optional[SimOptions] = None):
+        """Static verification (analysis/): value-range analysis with
+        wrap-freedom proofs / witnesses over the HWImg DAG, the rewrite
+        fixpoint of ``backend``'s rule set ("torch" or "kernels") re-run
+        under the IR structural-invariant checker, and the netlist
+        handshake/deadlock lint with its three-way differential oracle
+        ``static_lower <= simulated hwm <= capacity`` (``sim=False`` skips
+        the simulation the oracle needs).  ``options`` shares
+        :class:`SimOptions` with ``simulate()``: its ``engine`` and
+        ``device`` run the oracle (the cycle kernel on the card by default,
+        the scalar engine on "cpu").  Returns a VerifyResult; the latest
+        result feeds ``report()``."""
+        opt = options or SimOptions()
+        from ..analysis import verify_design
+        res = verify_design(self, sim=sim, engine=opt.engine,
+                            backend=backend, device=opt.device)
+        self._verify[:] = [res]
+        return res
+
     def explore(self, options: Optional[ExploreOptions] = None):
         """Design-space exploration (explore/): sweep throughput targets
         (lane counts via ``rigel.optimize_lanes``), FIFO depth policies
@@ -377,6 +402,47 @@ class HWDesign:
                              "backend runs on the host")
         return self.lower(b, device).run_batch_device(inputs)
 
+    def serve(self, backend: Optional[str] = None, config=None,
+              warm_inputs=None, policy=None, device=None):
+        """Boot a streaming frame server (serve/) for this design and
+        return the started server: an asyncio scheduler admits frames
+        through per-app QoS classes (load shedding with typed
+        ``Overloaded`` errors), buckets them by input signature, tops
+        batches up while the previous batch is in flight (continuous
+        batching), and dispatches each batch on a CUDA stream of its own
+        (pinned host buffers, asynchronous copies), with the frame axis
+        split over ``config.devices``.  Use as a context manager::
+
+            with design.serve(config=ServeConfig(max_batch=8)) as srv:
+                fut = srv.submit({"convolution.in": frame})
+                out = fut.result(timeout=60)
+
+        ``backend`` defaults to the design's backend, or "kernels" when
+        that is "numpy" (the executor has no batched device path; the swap
+        is recorded in ``design.notes`` and shows in ``report()`` /
+        ``ServeStats``).  ``config`` is a
+        :class:`repro_torch.serve.ServeConfig`; ``warm_inputs`` (exemplar
+        frame dicts) and ``policy`` (a QoSPolicy) forward to
+        ``FrameServer.register``; ``device`` (default: the design's
+        ``CompileOptions.device``, else "cuda", which raises without a
+        card) is where the frames run.  The most recent server's stats
+        feed back into ``report()``."""
+        from ..serve import FrameServer
+        b = backend or self.options.backend
+        if b == "numpy":
+            b = "kernels"
+            note = ("serve: backend 'numpy' swapped to 'kernels' (serving "
+                    "batches through the lowering engine; pass backend= to "
+                    "override)")
+            if note not in self.notes:
+                self.notes.append(note)
+        srv = FrameServer(config=config)
+        srv.register(self, backend=b, warm_inputs=warm_inputs,
+                     policy=policy, device=device)
+        self._serve_stats[:] = [srv.stats]
+        srv.start()
+        return srv
+
     def lowering_report(self) -> str:
         """Fused-dispatch and megakernel notes and per-signature call
         counts for every instantiated (backend, device, megakernel)
@@ -416,9 +482,15 @@ class HWDesign:
             lines.append(f"  [{i:3d}] s={s:6d} {m!r}")
         if self._lowered:
             lines.append(self.lowering_report())
+        for st in self._serve_stats:
+            lines.append(" -- serve --")
+            lines.extend(f"  {ln}" for ln in st.report_lines())
         for hs in self._hwsim:
             lines.append(" -- hwsim --")
             lines.extend(f"  {ln}" for ln in hs.report_lines())
+        for vr in self._verify:
+            lines.append(" -- verify --")
+            lines.extend(f"  {ln}" for ln in vr.report_lines())
         return "\n".join(lines)
 
 

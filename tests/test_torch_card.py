@@ -11,6 +11,8 @@ GPU machine with
 This file imports nothing of JAX, so it runs where only the port is
 installed.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -671,3 +673,128 @@ def test_cycle_kernel_population_equals_single_runs(card):
                           device="cpu").run()
     for p, s in zip(pop, plain):
         assert _sim_fields(p) == _sim_fields(s)
+
+
+# ---- the static verifier's oracle and the frame server on the card ----
+
+
+@pytest.mark.parametrize("app", ["convolution", "descriptor", "flow",
+                                 "pyramid", "stereo"])
+def test_cross_check_on_card_equals_scalar_engine(card, app):
+    """``verify``'s three-way oracle on the cycle kernel (the default on
+    the card) against the scalar engine (``device="cpu"``): the same
+    marks, bounds and verdict, in one launch."""
+    from repro_torch import SimOptions
+    from repro_torch.analysis import cross_check
+    d = _cycle_design(app)
+    res = d.verify()
+    assert registry.get_kernel("cyclesim").launches() == 1
+    assert res.ok and res.cross.engine == "vector"
+    host = cross_check(d, device="cpu")
+    assert host.engine == "scalar"
+    for key in ("hwm", "lower", "upper", "violations", "completed"):
+        assert getattr(res.cross, key) == getattr(host, key), key
+    assert d.verify(options=SimOptions(device="cpu")).report_lines()[1:] \
+        == [ln.replace("engine=vector", "engine=scalar")
+            for ln in res.report_lines()[1:]]
+
+
+def _serve_frames(inputs, n, base=0):
+    return [inputs(np.random.RandomState(base + i)) for i in range(n)]
+
+
+def _stack_frames(frames):
+    def st(vals):
+        if isinstance(vals[0], tuple):
+            return tuple(st([v[i] for v in vals])
+                         for i in range(len(vals[0])))
+        return np.stack(vals)
+    return {k: st([f[k] for f in frames]) for k in frames[0]}
+
+
+def _frame_of(out, i):
+    return tuple(_frame_of(e, i) for e in out) \
+        if isinstance(out, tuple) else out[i]
+
+
+def test_served_round_trip_on_card_bit_exact(card):
+    """Every app served on the card: each frame equal to ``run_batch`` of
+    the same frames on the card and on the CPU, with K1, K2 and K3 each
+    launched by the served traffic."""
+    from repro_torch.serve import FrameServer, ServeConfig
+    designs = {}
+    srv = FrameServer(ServeConfig(max_batch=4, max_delay_ms=5.0))
+    try:
+        for app, case in sorted(BENCH_CASES.items()):
+            uf, inputs = case()
+            designs[app] = (compile_pipeline(uf), inputs)
+            srv.register(designs[app][0], name=app,
+                         warm_inputs=_serve_frames(inputs, 1, 50))
+        srv.start()
+        registry.reset_launch_counts()
+        sent = [(app, fr, srv.submit(fr, app=app))
+                for i in range(6) for app, (_d, inputs) in designs.items()
+                for fr in _serve_frames(inputs, 1, 10 * i)]
+        outs = [(app, fr, f.result(timeout=300)) for app, fr, f in sent]
+    finally:
+        srv.close(timeout=300)
+    for name in ("conv2d", "sad", "megakernel"):
+        assert registry.get_kernel(name).launches() > 0, name
+    for app, (d, _inputs) in designs.items():
+        mine = [(fr, out) for a, fr, out in outs if a == app]
+        batch = _stack_frames([fr for fr, _ in mine])
+        on_card = d.run_batch(batch)
+        on_cpu = d.run_batch(batch, device="cpu")
+        for i, (_fr, out) in enumerate(mine):
+            _same(out, _frame_of(on_card, i))
+            _same(out, _frame_of(on_cpu, i))
+    assert srv.stats.frames_out == 6 * len(designs)
+
+
+def test_back_to_back_batches_read_back_their_own_frames(card):
+    """Three batches on one dispatcher before any readback (the third
+    reuses the first one's pinned slot), read back last first: each
+    equal to ``run_batch`` of its own frames."""
+    from repro_torch.serve import BatchDispatcher, FrameRequest
+    from repro_torch.serve import frame_signature
+    uf, inputs = BENCH_CASES["flow"]()
+    d = compile_pipeline(uf)
+    disp = BatchDispatcher([d.lower("kernels")], depth=2)
+    batches = [_serve_frames(inputs, 4, 100 * k) for k in range(3)]
+    handles = [disp.submit([FrameRequest("flow", f, frame_signature(f), 0.0)
+                            for f in frames]) for frames in batches]
+    for frames, h in reversed(list(zip(batches, handles))):
+        want = d.run_batch(_stack_frames(frames), device="cpu")
+        for i, out in enumerate(h.wait()):
+            _same(out, _frame_of(want, i))
+    assert registry.get_kernel("megakernel").launches() == 3
+
+
+def test_read_back_runs_on_its_own_streams(card):
+    """Each slot reads back on a stream of its own, not the compute
+    stream, into page-locked buffers; what a read returns is the
+    caller's: the slot's next read leaves it as it was."""
+    from repro_torch.serve import BatchDispatcher, FrameRequest
+    from repro_torch.serve import frame_signature
+    uf, inputs = BENCH_CASES["convolution"]()
+    d = compile_pipeline(uf)
+    disp = BatchDispatcher([d.lower("kernels")], depth=2)
+    (compute,), (slots,) = disp._streams, disp._readback
+    streams = [st for st, _bufs in slots] + [compute]
+    assert len({st.cuda_stream for st in streams}) == 3
+    batches = [_serve_frames(inputs, 3, 100 * k) for k in range(3)]
+    first = disp.submit([FrameRequest("conv", f, frame_signature(f), 0.0)
+                         for f in batches[0]]).wait()
+    kept = copy.deepcopy(first)
+    disp.submit([FrameRequest("conv", f, frame_signature(f), 0.0)
+                 for f in batches[1]]).wait()
+    third = disp.submit([FrameRequest("conv", f, frame_signature(f), 0.0)
+                         for f in batches[2]]).wait()
+    for _st, bufs in slots:
+        assert bufs and all(b.is_pinned() for b in bufs.values())
+    for k, outs in ((0, first), (2, third)):
+        want = d.run_batch(_stack_frames(batches[k]), device="cpu")
+        for i, out in enumerate(outs):
+            _same(out, _frame_of(want, i))
+    for a, b in zip(first, kept):
+        _same(a, b)

@@ -3,8 +3,9 @@
 - It imports neither ``jax`` nor anything of ``repro``: checked in a fresh
   process that lowers and runs every app, compiles, simulates and sizes
   the FIFOs of one through the hardware half (the packed-state engine, a
-  population, the explorer and the ingest model included), and serves a
-  reduced model, and by a scan of its sources.
+  population, the explorer and the ingest model included), verifies it
+  and serves a few of its frames, and serves a reduced model, and by a
+  scan of its sources.
 - Compiling loads neither the lowering nor torch.
 - Its entry points never fall back quietly to the CPU: without a card and
   without ``device="cpu"`` they raise.
@@ -58,7 +59,15 @@ def test_port_runs_without_importing_jax_or_repro():
         d.explore(ExploreOptions(max_points=2, device="cpu"))
         simulate_ingest(32, 8.0, 1, 4)
         d.run_batch(inputs(rng, frames=2), backend="numpy")
-        d.report()
+        assert d.verify(options=SimOptions(device="cpu")).ok
+        from repro_torch.serve import ServeConfig
+        frames = [{"pyramid.in": np.random.RandomState(i).randint(
+            0, 256, (uf.h, uf.w))} for i in range(3)]
+        with d.serve(config=ServeConfig(max_batch=2), device="cpu",
+                     warm_inputs=frames[:1]) as srv:
+            for f in srv.submit_many(frames):
+                f.result(timeout=120)
+        assert " -- verify --" in d.report() and " -- serve --" in d.report()
         from repro_torch.launch.serve import main
         main(["--arch", "gemma3-1b", "--smoke", "--batch", "2",
               "--prompt-len", "3", "--gen", "2", "--device", "cpu"])
