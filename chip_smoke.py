@@ -53,14 +53,21 @@ phase prints one JSON line:
            (the f32 check's local and global layers at B 2, D 256 at a
            ragged Sq and window 70, GQA with g 4 at Sq 130, head views of
            one wider tensor, and a view whose rows are not 16-byte
-           aligned); each case must launch its own
-           form; per case the max abs error, K4's device ms (the
-           profiler's kernel time) and call ms (CUDA events around
-           back-to-back wrapper calls, host work included), plain ms,
+           aligned), and the families' shapes (granite's GQA, D 64 and
+           g 3, bf16 at 4 x 1024 and f32 at 2 x 128; its decode over
+           serving's 4 x 160-slot cache and a 100-slot view of it in bf16
+           and over the f32 loop's 2 x 128 keys; deepseek's MLA
+           prefill with q, k at 192 and v at 128 zero-padded to 256, the
+           scale 1/sqrt(192), 128 heads, bf16 at 4 x 1024 and f32 at
+           2 x 64, bounded by the unpadded work, 2 (Dk + Dv) flops a
+           pair, and the library given the unpadded operands); each case
+           must launch its own form; per case the max abs error, K4's
+           device ms (the profiler's kernel time) and call ms (CUDA events
+           around back-to-back wrapper calls, host work included), plain ms,
            scaled_dot_product_attention's device and call ms (the library
            yardstick, never on the path) and the bound (the larger of q,
-           k, v and o once over 3.35 TB/s and 4 D flops per unmasked
-           (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
+           k, v and o once over 3.35 TB/s and 2 (Dk + Dv) flops per
+           unmasked (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
            67 TFLOP/s f32)
   hw       the hardware half, on the host (the scalar engine): each app
            at the paper's size (compiled once, the hardware flow
@@ -160,12 +167,36 @@ phase prints one JSON line:
            init seconds, prefill ms, decode ms per step, tokens/s, and the
            card's top kernels over a profiled decode step, with K4's share
            of its device time (split and merge kernels)
+  families granite-moe-3b-a800m (MoE, 32 layers, 48 padded experts
+           top-8) and mamba2-1.3b (48 Mamba2 layers) uncut, and
+           deepseek-v2-236b (MLA + MoE, 160 experts top-6 and a shared
+           one) cut to 2 layers, at full width with weights drawn on the
+           card from a seeded generator (init_params's kinds and scales):
+           f32 decode_fn over a 128-token prompt (64 for deepseek) against
+           prefill_fn at capacity factor E/K (no drop; atol 2e-3, rtol
+           1e-3), the SIMT and decode forms launched once per GQA layer
+           per call and step (MLA decodes without K4, mamba2 has no
+           attention); the model cut to 2 layers on the card against the
+           CPU at the config's capacity factor; every MoE layer's top-k
+           sets and k-th/(k+1)-th gate gaps recorded on both paths
+           (``RouteLog``): a root difference with a gap above 1e-5 fails,
+           rows with a difference are left out of the comparison; then in
+           bf16 with the counters reset, prefill_fn on 4 x 1024 tokens
+           (the tensor-core form once per attention layer, MLA's at the
+           padded head dim 256) and serve (4 x 128, 32 generated), held
+           to finiteness and shapes; per arch init seconds, peak memory,
+           launches, prefill ms and its device ms (K4's share), decode ms
+           per step, tokens/s and a profiled decode step
+  total    the script's seconds so far
   kernels  one line: every kernel (K3 once per app segment, K4 once per
-           form, the cycle kernel) with its launches on its main path (the
-           counters are reset just before the cycle phase's path, the
-           image path phase, the f32 prefill_fn call and the bf16
-           prefill_fn call), its error against the plain version, and its
-           times and bound
+           form on gemma3-1b's path and once per form on each family's
+           path that launches it, ``flash_attention:<form>:<arch>``, the
+           cycle kernel) with its launches on its main path (the counters
+           are reset just before the cycle phase's path, the image path
+           phase, each f32 prefill_fn call and each bf16 prefill_fn call;
+           each K4 entry counts one path's launches beside the case at
+           that path's shapes), its error against the plain version, and
+           its times and bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Any mismatch, build
 failure or launch error ends the script with a nonzero exit before it.
@@ -198,6 +229,18 @@ TPU_KERNELS = {"conv2d": "kernels/conv2d/kernel.py::_conv_kernel",
                            "hwsim/population.py::_pop_impl"}
 LLM_ARCH = "gemma3-1b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 1024, 32
+# the families phase: each arch at full width, cut as ``reduced`` says
+FAMILIES = (("granite-moe-3b-a800m", {}), ("mamba2-1.3b", {}),
+            ("deepseek-v2-236b", {"n_layers": 2}))
+FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 32
+FAM_F32_PROMPT, FAM_F32_PROMPT_MLA = 128, 64
+ROUTE_GAP = 1e-5        # a routing difference at or below it is a near-tie
+# each family's K4 forms on its path, with the key of flash_phase's case
+# at that path's shapes (mamba2 runs no attention, deepseek decodes MLA in
+# latent space)
+FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", ("prefill_mma",
+                                                  "prefill_simt", "decode")),
+             "deepseek-v2-236b": ("mla", ("prefill_mma", "prefill_simt"))}
 MK_APPS = ("flow", "descriptor", "pyramid")
 # odd sizes that no tile divides (PYRAMID's strides must divide its frame)
 MK_ODD = {"flow": (37, 13), "descriptor": (45, 19), "pyramid": (36, 20)}
@@ -1605,9 +1648,13 @@ def attention_pairs(np, sq: int, skv: int, causal: bool, window) -> int:
     return int(np.where(n > 0, n, skv).sum())
 
 
-def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
+def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
+               scale=None, dims=None):
     """K4 against its plain version on one case, then its time, the plain
-    version's, scaled_dot_product_attention's and the bound."""
+    version's, scaled_dot_product_attention's and the bound.  ``dims`` =
+    (Dk, Dv) are the real head dims of operands zero-padded to K4's D (MLA):
+    the bound counts the unpadded work, 2 (Dk + Dv) flops a (q, k) pair,
+    and the library call takes the unpadded operands."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
     from repro_torch.kernels.flash.ops import (decode_split, form_launches,
@@ -1621,9 +1668,9 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
         plain = lambda: attention_ref(q, k, v, causal=False)    # noqa: E731
     else:
         run = lambda: flash_attention(q, k, v, causal=causal,   # noqa: E731
-                                      window=window)
+                                      window=window, scale=scale)
         plain = lambda: attention_ref(q, k, v, causal=causal,   # noqa: E731
-                                      window=window)
+                                      window=window, scale=scale)
     before = form_launches()
     got = run()
     torch.cuda.synchronize()
@@ -1638,6 +1685,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
                              f"above {atol}")
     B, sq, H, D = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    dk, dv = dims or (D, D)
     line = {"phase": "kernel", "name": "flash_attention", "case": name,
             "form": form,
             "shape": {"B": B, "Sq": sq, "Skv": skv, "H": H, "Hkv": hkv,
@@ -1645,13 +1693,16 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
                       "window": None if decode else window},
             "dtype": str(q.dtype).split(".")[-1], "max_abs_err": err,
             "tolerance": atol}
+    if dims:
+        line["shape"].update({"Dk": dk, "Dv": dv, "scale": scale})
     if decode:
         line["split"] = dict(zip(("kc", "nsplit"),
                                  decode_split(skv, B * hkv)))
     # the library yardstick: one call of scaled_dot_product_attention on
-    # (B, H, S, D) copies made outside the timing, GQA by enable_gqa, the
-    # window as a boolean band mask
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    # (B, H, S, D) copies made outside the timing (at the real head dims),
+    # GQA by enable_gqa, the window as a boolean band mask
+    qt, kt, vt = (t[..., :d].transpose(1, 2).contiguous()
+                  for t, d in ((q, dk), (k, dk), (v, dv)))
     mask = None
     if window and not decode:
         i = torch.arange(sq, device=q.device)[:, None]
@@ -1661,16 +1712,18 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol):
 
     def library():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal, scale=scale,
+            enable_gqa=True)
 
-    lib_err = float((library().transpose(1, 2).float() - plain()).abs().max())
+    lib_err = float((library().transpose(1, 2).float()
+                     - plain()[..., :dv]).abs().max())
     one = cuda_ms(run, 1, warmup=1)
     iters = max(5, min(200, int(200 / max(one, 1e-3))))
     pairs = B * H * (skv if decode else attention_pairs(
         np, sq, skv, causal, window))
     elem = q.element_size()
-    nbytes = elem * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * D * pairs
+    nbytes = elem * (B * sq * H * (dk + dv) + B * skv * hkv * (dk + dv))
+    flops = 2 * (dk + dv) * pairs
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -1804,11 +1857,66 @@ def flash_phase(torch, np):
     lines["gqa_head_views_bf16"] = flash_case(
         torch, np, "gqa_head_views_bf16", qkv[:, :, :8], qkv[:, :, 8:10],
         qkv[:, :, 10:], causal=True, window=40, decode=False, atol=3e-2)
+    del qkv
+    # the families phase's shapes: granite's GQA (D 64, 24 query heads on
+    # 8 kv heads, g 3), in bf16 at the serving prefill's 4 x 1024 and in
+    # f32 at the f32 check's 2 x 128; deepseek's MLA prefill as
+    # models.layers.mla_block hands it over (q, k at 192 and v at 128,
+    # zero-padded to 256, the scale 1/sqrt(192), 128 heads), in bf16 at
+    # 4 x 1024 and in f32 at the f32 check's 2 x 64
+    from repro_torch.models.layers import padded_head_dim
+    g = ARCHS["granite-moe-3b-a800m"]
+    for name, (b, s, dtype, atol) in {
+            "granite_prefill_bf16": (FAM_BATCH, FAM_PREFILL, bf16, 3e-2),
+            "granite_prefill_f32": (2, FAM_F32_PROMPT, f32, 2e-5)}.items():
+        lines[name] = flash_case(
+            torch, np, name, randn((b, s, g.n_heads, g.hd), dtype),
+            randn((b, s, g.n_kv_heads, g.hd), dtype),
+            randn((b, s, g.n_kv_heads, g.hd), dtype), causal=True,
+            window=None, decode=False, atol=atol)
+    # granite's decode as models.layers.decode_attention hands it over:
+    # serving's last step over the whole 4 x 160-slot cache and a step
+    # over the first 100 slots (a strided view) in bf16, and the f32
+    # decode loop's last step over 2 x 128 keys
+    kc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, g.n_kv_heads, g.hd), bf16)
+    vc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, g.n_kv_heads, g.hd), bf16)
+    q1 = randn((FAM_BATCH, 1, g.n_heads, g.hd), bf16)
+    lines["granite_decode_bf16"] = flash_case(
+        torch, np, "granite_decode_bf16", q1, kc, vc, causal=False,
+        window=None, decode=True, atol=3e-2)
+    lines["granite_decode_span_bf16"] = flash_case(
+        torch, np, "granite_decode_span_bf16", q1, kc[:, :100], vc[:, :100],
+        causal=False, window=None, decode=True, atol=3e-2)
+    lines["granite_decode_f32"] = flash_case(
+        torch, np, "granite_decode_f32", randn((2, 1, g.n_heads, g.hd), f32),
+        randn((2, FAM_F32_PROMPT, g.n_kv_heads, g.hd), f32),
+        randn((2, FAM_F32_PROMPT, g.n_kv_heads, g.hd), f32), causal=False,
+        window=None, decode=True, atol=2e-5)
+    del kc, vc, q1
+    m = ARCHS["deepseek-v2-236b"]
+    dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    dp = padded_head_dim(dk)
+    for name, (b, s, dtype, atol) in {
+            "mla_prefill_bf16": (FAM_BATCH, FAM_PREFILL, bf16, 3e-2),
+            "mla_prefill_f32": (2, FAM_F32_PROMPT_MLA, f32, 2e-5)}.items():
+        q, k, v = (torch.nn.functional.pad(
+            randn((b, s, m.n_heads, d), dtype), (0, dp - d))
+            for d in (dk, dk, dv))
+        lines[name] = flash_case(
+            torch, np, name, q, k, v, causal=True, window=None,
+            decode=False, atol=atol, scale=dk ** -0.5, dims=(dk, dv))
+        del q, k, v
+    torch.cuda.empty_cache()
     for line in lines.values():
         emit(line)
     return {"prefill_mma": lines["main_local"],
             "prefill_simt": lines["main_local_f32"],
-            "decode": lines["decode_full"]}
+            "decode": lines["decode_full"],
+            "prefill_mma:granite": lines["granite_prefill_bf16"],
+            "prefill_simt:granite": lines["granite_prefill_f32"],
+            "decode:granite": lines["granite_decode_bf16"],
+            "prefill_mma:mla": lines["mla_prefill_bf16"],
+            "prefill_simt:mla": lines["mla_prefill_f32"]}
 
 
 def _sync_ms(torch, fn):
@@ -1819,6 +1927,63 @@ def _sync_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def prefill_device(torch, call, wall_ms: float) -> dict:
+    """Where a bf16 prefill_fn call's device time goes: one call under the
+    profiler, its device time against the unprofiled call's wall, K4's
+    tensor-core kernel's share and the top kernels."""
+    from repro_torch.kernels.timing import device_events
+    with torch.no_grad():
+        dev_ms, by_name = device_events(call, 1, warmup=1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
+            "k4_device_ms": sum(ms for name, ms in by_name.items()
+                                if "flash_mma_kernel" in name),
+            "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]}
+
+
+def decode_step_profile(torch, cfg, params, tokens, index: int) -> dict:
+    """Where a decode step's time goes: one warm step, then 3 steps at
+    ``index`` under the profiler (CPU and CUDA activity): the wall and
+    device ms a step, K4's split and merge kernels' share, the host's aten
+    operators a step and the top device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import build_forward
+    from repro_torch.models.model import zero_cache
+    _, decode_fn = build_forward(cfg)
+    B = tokens.shape[0]
+    cache = zero_cache(cfg, B, index + 8, "cuda")
+    step_in = {"tokens": tokens,
+               "positions": torch.full((B, 1), index, device="cuda")}
+    with torch.no_grad():
+        decode_fn(params, cache, step_in, index=index)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                decode_fn(params, cache, step_in, index=index)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+    # the card's own events (kernels, copies), not the host operators
+    # that launched them
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
+    k4_ms = sum(e.self_device_time_total for e in events
+                if "flash_decode" in e.key) / 1e3 / 3
+    host_ops = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.key.startswith("aten::")) / 3
+    return {"wall_ms": wall, "device_ms": device_ms, "k4_device_ms": k4_ms,
+            "device_busy_share": device_ms / wall,
+            "aten_ops_per_step": host_ops,
+            "top": [{"name": e.key[:80], "calls_per_step": e.count / 3,
+                     "ms_per_step": e.self_device_time_total / 1e3 / 3}
+                    for e in events[:8]]}
+
+
 def llm_phase(torch, np):
     """gemma3-1b at full width and depth: the f32 checks, then the bf16
     serving path with the launch counters reset just before it.  Returns
@@ -1826,7 +1991,6 @@ def llm_phase(torch, np):
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash.ops import form_launches
-    from repro_torch.kernels.timing import device_events
     from repro_torch.launch.serve import make_prompt, serve
     from repro_torch.models import build_forward, init_params
     from repro_torch.models.convert import cast_params
@@ -1960,60 +2124,306 @@ def llm_phase(torch, np):
                        "sampled_ids": res.tokens[:2, :8].tolist()},
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    # where a bf16 prefill_fn call's device time goes: one call under the
-    # profiler, its device time against the unprofiled call's wall
-    with torch.no_grad():
-        dev_ms, by_name = device_events(
-            lambda: prefill_fn(params, {"tokens": toks}), 1, warmup=1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    line["bf16_prefill"].update({
-        "device_ms": dev_ms, "device_busy_share": dev_ms / prefill_ms,
-        "k4_device_ms": sum(ms for name, ms in by_name.items()
-                            if "flash_mma_kernel" in name),
-        "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]})
+    line["bf16_prefill"].update(prefill_device(
+        torch, lambda: prefill_fn(params, {"tokens": toks}), prefill_ms))
 
     # where a decode step's device time goes: 3 steps under the profiler
-    from torch.profiler import ProfilerActivity, profile
-    _, decode_fn = build_forward(cfg)
-    cache = zero_cache(cfg, LLM_BATCH, LLM_PROMPT + 8, "cuda")
-    step_in = {"tokens": toks[:, :1],
-               "positions": torch.full((LLM_BATCH, 1), LLM_PROMPT - 1,
-                                       device="cuda")}
-    with torch.no_grad():
-        decode_fn(params, cache, step_in, index=LLM_PROMPT - 1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                decode_fn(params, cache, step_in, index=LLM_PROMPT - 1)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 3
-    # the card's own events (kernels, copies), not the host operators
-    # that launched them
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
-    k4_ms = sum(e.self_device_time_total for e in events
-                if "flash_decode" in e.key) / 1e3 / 3
-    host_ops = sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU
-                   and e.key.startswith("aten::")) / 3
-    line["decode_step_profile"] = {
-        "wall_ms": wall, "device_ms": device_ms, "k4_device_ms": k4_ms,
-        "device_busy_share": device_ms / wall,
-        "aten_ops_per_step": host_ops,
-        "top": [{"name": e.key[:80], "calls_per_step": e.count / 3,
-                 "ms_per_step": e.self_device_time_total / 1e3 / 3}
-                for e in events[:8]]}
+    line["decode_step_profile"] = decode_step_profile(
+        torch, cfg, params, toks[:, :1], LLM_PROMPT - 1)
     emit(line)
     return line, {"prefill_mma": n_prefill, "prefill_simt": n_simt,
                   "decode": n_decode}
 
 
+# ---- the families phase: MoE, Mamba2 and MLA + MoE at full width ----
+
+
+def card_params(torch, cfg, seed: int):
+    """A parameter tree of ``cfg`` drawn on the card from a seeded
+    torch.Generator, with init_params's kinds and scales (normal over the
+    fan-in, normal(0, 0.2) for the conv, log(1..8) for a_log, zeros and
+    ones); not the reference's numbers, which the CPU tests hold
+    init_params to.  numpy draws about 30 M normals a second on a host:
+    minutes for granite's 3.9 B parameters."""
+    import math
+    from repro_torch.models.model import DTYPES, param_specs, tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(p):
+        if p.init in ("zeros", "ones"):
+            t = (torch.zeros if p.init == "zeros" else torch.ones)(
+                p.shape, device="cuda")
+        elif p.init == "a_log":
+            t = torch.log(torch.linspace(
+                1.0, 8.0, math.prod(p.shape), dtype=torch.float64,
+                device="cuda")).reshape(p.shape)
+        elif p.init in ("normal", "conv"):
+            fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(
+                p.shape[:-1])
+            std = 0.2 if p.init == "conv" else 1.0 / math.sqrt(max(1, fan_in))
+            t = torch.empty(p.shape, device="cuda").normal_(
+                0.0, std, generator=gen)
+        else:
+            raise ValueError(f"card_params: no card draw for init kind "
+                             f"{p.init!r}")
+        return t.to(DTYPES[p.dtype])
+
+    return tree_map(draw, param_specs(cfg))
+
+
+class RouteLog:
+    """Wraps ``models.layers.moe_ffn`` while it is open: each call's
+    top-k expert set a token and the gap between its k-th and (k+1)-th
+    gate, recomputed from the layer's input and router as moe_ffn computes
+    them, then the call itself.  Kept on the device."""
+
+    def __init__(self, torch):
+        import repro_torch.models.layers as L
+        self.torch, self.L, self.calls = torch, L, []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.L.moe_ffn
+        self.orig = orig
+
+        def logged(x, p, cfg, *, n_experts_padded):
+            K = cfg.moe_top_k
+            gates = torch.softmax(x.float() @ p["router"], dim=-1)
+            top, idx = torch.topk(gates, K + 1, dim=-1)
+            self.calls.append((idx[..., :K].sort(dim=-1).values,
+                               top[..., K - 1] - top[..., K]))
+            return orig(x, p, cfg, n_experts_padded=n_experts_padded)
+
+        self.L.moe_ffn = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_ffn = self.orig
+
+    def stacked(self, n_moe: int):
+        """(sets (L, B, S, K), gaps (L, B, S)) on the host: prefill calls
+        (one a layer) as they are, decode steps (S x L calls of one
+        position) concatenated over positions."""
+        torch = self.torch
+        steps = len(self.calls) // max(1, n_moe)
+        out = []
+        for part in (0, 1):
+            per_layer = [torch.cat([self.calls[t * n_moe + i][part]
+                                    for t in range(steps)], dim=1)
+                         for i in range(n_moe)]
+            out.append(torch.stack(per_layer).cpu() if per_layer else None)
+        return out
+
+
+def compare_routes(torch, a: RouteLog, b: RouteLog, n_moe: int, batch: int):
+    """The batch rows whose routes agree in every MoE layer at every
+    position, and each root difference: one with no difference in its row
+    at an earlier layer and a position at or before it (later ones follow
+    from it through the residual stream).  A root whose smaller gap is
+    above ROUTE_GAP is not a near-tie and fails."""
+    if n_moe == 0:
+        return list(range(batch)), []
+    (sa, ga), (sb, gb) = a.stacked(n_moe), b.stacked(n_moe)
+    if sa.shape != sb.shape:
+        raise AssertionError(f"routes of shapes {tuple(sa.shape)} and "
+                             f"{tuple(sb.shape)}")
+    diff = (sa != sb).any(dim=-1)                     # (L, B, S)
+    roots = []
+    for layer, row, pos in diff.nonzero().tolist():
+        if not bool(diff[:layer, row, :pos + 1].any()):
+            gap = min(float(ga[layer, row, pos]), float(gb[layer, row, pos]))
+            roots.append({"layer": layer, "row": row, "pos": pos,
+                          "gap": gap})
+    far = [r for r in roots if r["gap"] > ROUTE_GAP]
+    if far:
+        raise AssertionError(f"routes differ with a gap above {ROUTE_GAP}: "
+                             f"{far[:4]}")
+    rows = [r for r in range(batch) if not bool(diff[:, r].any())]
+    if not rows:
+        raise AssertionError(f"no batch row whose routes all agree: {roots}")
+    return rows, roots
+
+
+def _held(torch, what, got, want, rows, atol, rtol) -> dict:
+    """``got`` within atol + rtol |want| of ``want`` on ``rows``."""
+    g, w = got.float()[rows], want.float()[rows]
+    err = float((g - w).abs().max())
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()) or \
+            not torch.allclose(g, w, atol=atol, rtol=rtol):
+        raise AssertionError(f"{what}: max abs diff {err} on rows {rows}")
+    return {"max_abs_diff": err, "max_abs_logit": float(w.abs().max()),
+            "rows_held": rows, "atol": atol, "rtol": rtol}
+
+
+def family(torch, np, arch: str, cut: dict):
+    """One arch at full width (``cut`` its ``reduced``): f32 checks, then
+    bf16 serving with K4's counters set to 0 just before the prefill_fn
+    call and read after ``serve``.  Returns the line and K4's launches per
+    form on the serving path (the SIMT form's from the f32 prefill_fn)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash.ops import form_launches
+    from repro_torch.launch.serve import make_prompt, serve
+    from repro_torch.models import build_forward
+    from repro_torch.models.convert import cast_params
+    from repro_torch.models.model import (moe_experts_padded, tree_leaves,
+                                          tree_map, zero_cache)
+
+    cfg = ARCHS[arch].replace(**cut)
+    if cfg.period != 1:
+        raise AssertionError(f"{arch}: the 2-layer cut takes period 1")
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_gqa = 0 if cfg.mla else n_attn          # MLA decodes without K4
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    E = moe_experts_padded(cfg) if cfg.moe_experts else 0
+    # capacity factor E / K: C = S slots an expert, no token drops
+    cfg32 = cfg.replace(dtype="float32", moe_capacity_factor=(
+        E / cfg.moe_top_k if E else cfg.moe_capacity_factor))
+
+    def forms_were(what, **want):
+        got = form_launches()
+        if got != {f: want.get(f, 0) for f in got}:
+            raise AssertionError(f"{arch} {what} launched K4's forms {got}, "
+                                 f"want {want}")
+        return got
+
+    t_arch = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = card_params(torch, cfg32, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_arch
+    line = {"phase": "families", "arch": arch, "reduced": cut,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "attn_layers": n_attn, "mla": cfg.mla, "moe_layers": n_moe,
+            "experts_padded": E, "top_k": cfg.moe_top_k,
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "init_s": init_s}
+
+    # f32: decode_fn over the prompt against prefill_fn, every MoE route
+    # recorded on both paths (the reference's tolerance,
+    # tests/test_models.py:83)
+    P = FAM_F32_PROMPT_MLA if cfg.mla else FAM_F32_PROMPT
+    toks = torch.from_numpy(make_prompt(cfg, 2, P).tokens).cuda()
+    prefill_fn, decode_fn = build_forward(cfg32)
+    with torch.no_grad():
+        registry.reset_launch_counts()
+        with RouteLog(torch) as r_pre:
+            full = prefill_fn(params, {"tokens": toks})
+            torch.cuda.synchronize()
+        n_simt = forms_were("f32 prefill_fn",
+                            prefill_simt=n_attn)["prefill_simt"]
+        cache = zero_cache(cfg32, 2, P, "cuda")
+        registry.reset_launch_counts()
+        with RouteLog(torch) as r_dec:
+            for i in range(P):
+                step, cache = decode_fn(params, cache, {
+                    "tokens": toks[:, i:i + 1],
+                    "positions": torch.full((2, 1), i, device="cuda")},
+                    index=i)
+            torch.cuda.synchronize()
+        forms_were("f32 decode loop", decode=n_gqa * P)
+    del cache
+    rows, roots = compare_routes(torch, r_pre, r_dec, n_moe, 2)
+    line["f32_decode_vs_prefill"] = dict(
+        _held(torch, "f32 decode against prefill", step, full, rows,
+              2e-3, 1e-3), batch=2, prompt=P,
+        capacity_factor=cfg32.moe_capacity_factor, route_roots=roots,
+        simt_launches=n_simt, decode_launches=n_gqa * P)
+
+    # the model cut to 2 layers, prefill_fn on the card (K4) and on the CPU
+    # (the plain version), at the config's capacity factor (drops held
+    # equal with the routes)
+    cfg2 = cfg32.replace(n_layers=2,
+                         moe_capacity_factor=cfg.moe_capacity_factor)
+    p2 = {k: v for k, v in params.items()
+          if k not in ("period_slots", "tail_slots")}
+    p2["period_slots"] = [tree_map(lambda t: t[:2],
+                                   params["period_slots"][0])]
+    p2["tail_slots"] = []
+    pf2 = build_forward(cfg2)[0]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        with RouteLog(torch) as r_card:
+            card = pf2(p2, {"tokens": toks}).float().cpu()
+        p2 = tree_map(lambda t: t.cpu(), p2)
+        with RouteLog(torch) as r_cpu:
+            cpu = pf2(p2, {"tokens": toks.cpu()}).float()
+    del p2
+    n_moe2 = sum(cfg2.layer_is_moe(i) for i in range(2))
+    rows2, roots2 = compare_routes(torch, r_card, r_cpu, n_moe2, 2)
+    line["f32_2layer_card_vs_cpu"] = dict(
+        _held(torch, "2-layer card against CPU", card, cpu, rows2, 1e-4,
+              1e-4), batch=2, prompt=P,
+        capacity_factor=cfg2.moe_capacity_factor, route_roots=roots2,
+        s=time.perf_counter() - t0)
+
+    # bf16 serving: the weights cast leaf by leaf, the counters set to 0
+    # just before the prefill_fn call and read after serve
+    params = cast_params(params, cfg)
+    torch.cuda.empty_cache()
+    prefill_fn, _ = build_forward(cfg)
+    ptoks = torch.from_numpy(make_prompt(cfg, FAM_BATCH,
+                                         FAM_PREFILL).tokens).cuda()
+    prompt = make_prompt(cfg, FAM_BATCH, FAM_PROMPT)
+    with torch.no_grad():
+        prefill_fn(params, {"tokens": ptoks})              # warm
+        registry.reset_launch_counts()
+        logits, prefill_ms = _sync_ms(
+            torch, lambda: prefill_fn(params, {"tokens": ptoks}))
+        n_mma = forms_were("bf16 prefill_fn",
+                           prefill_mma=n_attn)["prefill_mma"]
+        res = serve(cfg, params, prompt, FAM_GEN, "cuda")
+        launched = forms_were("bf16 prefill_fn and serve",
+                              prefill_mma=n_attn,
+                              decode=n_gqa * res.steps)
+    V = cfg.padded_vocab
+    if logits.shape != (FAM_BATCH, 1, V) or res.tokens.shape != (
+            FAM_BATCH, FAM_GEN + 1) or not all(bool(torch.isfinite(
+                t.float()).all()) for t in (logits, res.logits,
+                                            res.prompt_logits)):
+        raise AssertionError(f"{arch} bf16 serving: bad shapes or "
+                             f"non-finite logits")
+    line.update({
+        "bf16_prefill": dict(
+            {"batch": FAM_BATCH, "prompt": FAM_PREFILL, "ms": prefill_ms,
+             "capacity_factor": cfg.moe_capacity_factor,
+             "k4_launches": n_mma,
+             "tokens_per_s": FAM_BATCH * FAM_PREFILL / prefill_ms * 1e3},
+            **prefill_device(torch, lambda: prefill_fn(
+                params, {"tokens": ptoks}), prefill_ms)),
+        "bf16_serve": {"batch": FAM_BATCH, "prompt": FAM_PROMPT,
+                       "gen": FAM_GEN, "steps": res.steps,
+                       "prompt_ms_per_step": res.prompt_s * 1e3 / FAM_PROMPT,
+                       "decode_ms_per_step": res.decode_s * 1e3 / FAM_GEN,
+                       "tokens_per_s": res.tokens_per_s,
+                       "k4_decode_launches": launched["decode"],
+                       "sampled_ids": res.tokens[:2, :8].tolist()},
+        "decode_step_profile": decode_step_profile(
+            torch, cfg, params, ptoks[:, :1], FAM_PROMPT - 1),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "arch_s": time.perf_counter() - t_arch})
+    del params
+    torch.cuda.empty_cache()
+    emit(line)
+    return line, {"prefill_mma": n_mma, "prefill_simt": n_simt,
+                  "decode": launched["decode"]}
+
+
+def families_phase(torch, np):
+    """FAMILIES at full width, one after another; returns their lines
+    and K4's launches per form on their serving paths, summed."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    t0 = time.perf_counter()
+    lines, launches = {}, {}
+    for arch, cut in FAMILIES:
+        lines[arch], launches[arch] = family(torch, np, arch, cut)
+    emit({"phase": "families", "archs": [a for a, _ in FAMILIES],
+          "phase_s": time.perf_counter() - t0})
+    return lines, launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no card",
@@ -2061,11 +2471,22 @@ def main() -> int:
     # counters set to 0 just before the served traffic, read just after)
     verify_phase(torch, np, paper)
     serve_phase(torch, np, paper)
-    # the model's paths: llm_phase resets the counters just before the f32
-    # prefill_fn call (the SIMT form's path) and just before the bf16
-    # prefill_fn call and serving (the tensor-core and decode forms')
-    _, k4_launches = llm_phase(torch, np)
-    launches["flash_attention"] = sum(k4_launches.values())
+    # the model's paths: llm_phase and each family reset the counters just
+    # before the f32 prefill_fn call (the SIMT form's path) and just before
+    # the bf16 prefill_fn call and serving (the tensor-core and decode
+    # forms'); each K4 entry of the kernels line reports one path's
+    # launches beside the case at that path's shapes, so no launch is
+    # counted twice
+    _, llm_launches = llm_phase(torch, np)
+    _, fam_launches = families_phase(torch, np)
+    for arch, n in fam_launches.items():
+        forms = FAMILY_K4.get(arch, (None, ()))[1]
+        if any(n[f] != 0 for f in n if f not in forms) or \
+                any(n[f] == 0 for f in forms):
+            raise AssertionError(f"{arch}: K4 launched {n} on its path, "
+                                 f"want exactly the forms {forms}")
+    launches["flash_attention"] = sum(llm_launches.values()) + sum(
+        sum(n.values()) for n in fam_launches.values())
     launches["cyclesim"] = kern_cycle["launches"]
     for n, count in launches.items():
         if count == 0:
@@ -2074,6 +2495,12 @@ def main() -> int:
         if path[app]["megakernels"] != 1 or path[app]["launches"] == 0:
             raise AssertionError(f"{app}: no megakernel on the path "
                                  f"({path[app]['plan']})")
+
+    def k4_line(name, k, n_launch):
+        return dict(line(name, registry.get_kernel("flash_attention"), k,
+                         n_launch),
+                    equal=False, tolerance=k["tolerance"], case=k["case"],
+                    share_of_bound=k["share_of_bound"])
 
     def line(name, e, k, n_launch):
         return {"name": name, "route": "cuda", "source": e.source,
@@ -2085,6 +2512,7 @@ def main() -> int:
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
     mk = registry.get_kernel("megakernel")
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
     emit({"kernels": [line(n, registry.get_kernel(n), kern[n], launches[n])
                       for n in ("conv2d", "sad")]
           + [dict(line(f"megakernel:{app}", mk, kern_mk[app],
@@ -2092,13 +2520,12 @@ def main() -> int:
                   segment=kern_mk[app]["segment"],
                   max_ulp=kern_mk[app]["max_ulp"])
              for app in MK_APPS]
-          + [dict(line(f"flash_attention:{form}",
-                       registry.get_kernel("flash_attention"), kern_k4[form],
-                       k4_launches[form]),
-                  equal=False, tolerance=kern_k4[form]["tolerance"],
-                  case=kern_k4[form]["case"],
-                  share_of_bound=kern_k4[form]["share_of_bound"])
+          + [k4_line(f"flash_attention:{form}", kern_k4[form],
+                     llm_launches[form])
              for form in ("prefill_mma", "prefill_simt", "decode")]
+          + [k4_line(f"flash_attention:{form}:{arch}",
+                     kern_k4[f"{form}:{key}"], fam_launches[arch][form])
+             for arch, (key, forms) in FAMILY_K4.items() for form in forms]
           + [dict(line("cyclesim", registry.get_kernel("cyclesim"),
                        kern_cycle, kern_cycle["launches"]),
                   case=f"flow 1920x1080, 1 frame, first "

@@ -2,10 +2,12 @@
 copied from ``repro.configs`` (the port imports nothing of ``repro``).
 
 Every config is selectable via --arch <id> in the launchers; reduced smoke
-variants are derived per-family for CPU tests.  The port runs the dense
-attention families (gemma-2b, gemma3-1b, qwen2-72b, command-r-plus-104b,
-qwen2-vl-7b, musicgen-medium); the MLA, MoE and Mamba families raise
-``NotImplementedError`` in ``repro_torch.models``.
+variants are derived per-family for CPU tests.  The port runs every
+family: dense attention (gemma-2b, gemma3-1b, qwen2-72b,
+command-r-plus-104b, qwen2-vl-7b, musicgen-medium), MoE
+(granite-moe-3b-a800m), MLA with MoE (deepseek-v2-236b), Mamba2
+(mamba2-1.3b) and the Mamba2 / attention / MoE hybrid
+(jamba-1.5-large-398b).
 """
 from __future__ import annotations
 

@@ -115,15 +115,17 @@ def form_launches() -> dict:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    scale=None) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA with g = H // Hkv.
     Query i sees key j when j <= i (``causal``) and j > i - window
-    (``window``).  Returns (B, Sq, H, D) in q's dtype."""
+    (``window``); the scores are scaled by ``scale``, 1/sqrt(D) unless
+    given.  Returns (B, Sq, H, D) in q's dtype."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
     if _checks.attention(KERNEL, q, k, v) == "cpu":
-        return attention_ref(q, k, v, causal=causal,
-                             window=window).to(q.dtype)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale).to(q.dtype)
     form = prefill_form(q.dtype)
     if form == "prefill_mma":
         _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
@@ -139,7 +141,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.launch(KERNEL, fn, out.data_ptr(), q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), _dtype_code(q), B, H, Hkv,
                       D, Sq, Skv, *_strides(q), *_strides(k), *_strides(v),
-                      int(causal), window or 0, 1.0 / math.sqrt(D), stream,
+                      int(causal), window or 0,
+                      1.0 / math.sqrt(D) if scale is None else scale, stream,
                       form=form)
     return out
 

@@ -4,8 +4,9 @@ mask and sliding window, f32 math.  The counterpart of
 ``repro.kernels.flash.ref.attention_ref``.
 
 q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); q head h reads kv head h // g
-with g = H // Hkv.  Masked scores are set to -1e30, never -inf, so a row
-with no key in its band averages every key uniformly.  Returns f32.
+with g = H // Hkv.  The scores are scaled by ``scale``, 1/sqrt(D) unless
+given.  Masked scores are set to -1e30, never -inf, so a row with no key
+in its band averages every key uniformly.  Returns f32.
 """
 from __future__ import annotations
 
@@ -16,12 +17,13 @@ import torch
 MASK_VALUE = -1e30
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window=None):
+def attention_ref(q, k, v, *, causal: bool = True, window=None, scale=None):
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
     qg = q.float().reshape(B, Sq, Hkv, G, D)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    s = s / math.sqrt(D) if scale is None else s * scale
     q_pos = torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Skv, device=q.device)
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -32,4 +34,4 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None):
     s = torch.where(mask, s, torch.full((), MASK_VALUE, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, D)
+    return o.reshape(B, Sq, H, v.shape[-1])

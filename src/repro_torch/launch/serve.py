@@ -5,8 +5,13 @@ prompt one token at a time, then generates greedily; the counterpart of
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-Without ``--device cpu`` it runs on the card and raises if there is none.
-Every attention layer of every step runs K4's decode form on the card.
+``--arch`` takes every configuration of ``repro_torch.configs.ARCHS``:
+the dense attention families, MoE (granite-moe-3b-a800m), MLA with MoE
+(deepseek-v2-236b), Mamba2 (mamba2-1.3b) and the hybrid
+(jamba-1.5-large-398b).  Without ``--device cpu`` it runs on the card and
+raises if there is none.  On the card every GQA / MQA attention layer of
+every step runs K4's decode form; MLA decodes in latent space with plain
+matrix products, and a Mamba2 layer steps its SSM state.
 """
 from __future__ import annotations
 

@@ -33,6 +33,17 @@ def params_from_numpy(tree, device="cuda"):
 
 def cast_params(params, cfg: ModelConfig):
     """``params`` with each leaf cast to the type ``cfg``'s specs give it
-    (for example an f32 model's weights as the bf16 model's)."""
-    return tree_map(lambda t, p: t.to(DTYPES[p.dtype]), params,
-                    param_specs(cfg))
+    (for example an f32 model's weights as the bf16 model's), in place:
+    each leaf is replaced in its dict or list as it is cast, so the old
+    leaf is freed before the next is cast unless the caller holds it.
+    Returns ``params``."""
+    def cast(tree, specs):
+        for key in (tree.keys() if isinstance(tree, dict)
+                    else range(len(tree))):
+            if isinstance(tree[key], (dict, list)):
+                cast(tree[key], specs[key])
+            else:
+                tree[key] = tree[key].to(DTYPES[specs[key].dtype])
+
+    cast(params, param_specs(cfg))
+    return params

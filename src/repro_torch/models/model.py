@@ -1,7 +1,11 @@
 """Model assembly: parameter specs, periodic layer stacking (a loop over
 repeating periods, then the tail), and the prefill and decode forwards.
 
-The counterpart of ``repro.models.model`` for the dense attention family.
+The counterpart of ``repro.models.model``'s forward half, for every
+family: attention (GQA / MQA, or MLA) or Mamba2 mixers, and a gated MLP or
+a dropping MoE.  The reference's ``moe_ffn_a2a`` (``models/moe_a2a.py``)
+and ``norm_dist`` run only under a mesh; the port has none and takes
+``moe_ffn`` and ``norm``, as the reference does without one.
 Parameters are described by a spec tree of ``P`` leaves (shape, logical
 axes, init), and the parameter tree has the reference's layout exactly:
 ``period_slots`` (one dict per slot of the period, each leaf stacked over
@@ -32,28 +36,12 @@ class P:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     dtype: str = "bfloat16"
-    init: str = "normal"           # normal | zeros | ones
+    init: str = "normal"           # normal | zeros | ones | a_log | conv
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"P: shape {self.shape} and axes {self.axes} "
                              f"differ in length")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense attention family; MLA, MoE and Mamba wait
-    for a later slice."""
-    missing = []
-    if cfg.mla:
-        missing.append("MLA (mla_block)")
-    if cfg.moe_experts:
-        missing.append("MoE (moe_ffn)")
-    if any(kind != "attn" for kind in cfg.pattern):
-        missing.append("Mamba2/SSD (mamba_block)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"Queue 1 item 5)")
 
 
 # --------------------------------------------------------------------------
@@ -104,6 +92,43 @@ def _attn_specs(cfg: ModelConfig) -> Dict[str, P]:
     return s
 
 
+def _mla_specs(cfg: ModelConfig) -> Dict[str, P]:
+    D, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv, rank = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                        cfg.kv_lora_rank)
+    dt = cfg.dtype
+    s = {
+        "wkv_a": P((D, rank), ("embed", None), dt),
+        "wk_rope": P((D, dr), ("embed", None), dt),
+        "wk_b": P((rank, H, dn), (None, "heads", None), dt),
+        "wv_b": P((rank, H, dv), (None, "heads", None), dt),
+        "wo": P((H, dv, D), ("heads", None, "embed"), dt),
+    }
+    if cfg.q_lora_rank:
+        s["wq_a"] = P((D, cfg.q_lora_rank), ("embed", None), dt)
+        s["wq_b"] = P((cfg.q_lora_rank, H, dn + dr), (None, "heads", None),
+                      dt)
+    else:
+        s["wq_b"] = P((D, H, dn + dr), ("embed", "heads", None), dt)
+    return s
+
+
+def _mamba_specs(cfg: ModelConfig) -> Dict[str, P]:
+    D, di, N, H, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.ssm_conv)
+    G = 1
+    dt = cfg.dtype
+    conv_ch = di + 2 * G * N
+    return {
+        "w_in": P((D, 2 * di + 2 * G * N + H), ("embed", "inner"), dt),
+        "conv_w": P((K, conv_ch), (None, "inner"), dt, "conv"),
+        "dt_bias": P((H,), (None,), "float32", "zeros"),
+        "a_log": P((H,), (None,), "float32", "a_log"),
+        "d_skip": P((di,), ("inner",), "float32", "ones"),
+        "w_out": P((di, D), ("inner", "embed"), dt),
+    }
+
+
 def _mlp_specs(cfg: ModelConfig, ff: int) -> Dict[str, P]:
     D, dt = cfg.d_model, cfg.dtype
     return {
@@ -113,13 +138,42 @@ def _mlp_specs(cfg: ModelConfig, ff: int) -> Dict[str, P]:
     }
 
 
-def _slot_specs(cfg: ModelConfig, i: int) -> Dict[str, Any]:
+# the reference's expert axis: it pads the expert count to a multiple
+EXPERT_AXIS = 16
+
+
+def moe_experts_padded(cfg: ModelConfig) -> int:
+    """The reference's meets-or-exceeds rule (paper §2.4): the expert count
+    rounded up to a multiple of its 16-way expert axis, so the parameter
+    trees stay leaf for leaf equal (granite's 40 experts are 48)."""
+    return int(math.ceil(cfg.moe_experts / EXPERT_AXIS) * EXPERT_AXIS)
+
+
+def _moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    D, F, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    E = moe_experts_padded(cfg)
     s: Dict[str, Any] = {
-        "norm1": P((cfg.d_model,), (None,), "float32", "zeros"),
-        "attn": _attn_specs(cfg),
-        "norm2": P((cfg.d_model,), (None,), "float32", "zeros"),
+        "router": P((D, E), ("embed", None), "float32"),
+        "w_gate": P((E, D, F), ("expert", "embed", None), dt),
+        "w_up": P((E, D, F), ("expert", "embed", None), dt),
+        "w_down": P((E, F, D), ("expert", None, "embed"), dt),
     }
-    if cfg.d_ff > 0:
+    if cfg.moe_shared_ff:
+        s["shared"] = _mlp_specs(cfg, cfg.moe_shared_ff)
+    return s
+
+
+def _slot_specs(cfg: ModelConfig, i: int) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"norm1": P((cfg.d_model,), (None,), "float32",
+                                    "zeros")}
+    if cfg.layer_kind(i) == "attn":
+        s["attn"] = _mla_specs(cfg) if cfg.mla else _attn_specs(cfg)
+    else:
+        s["mamba"] = _mamba_specs(cfg)
+    s["norm2"] = P((cfg.d_model,), (None,), "float32", "zeros")
+    if cfg.layer_is_moe(i):
+        s["moe"] = _moe_specs(cfg)
+    elif cfg.d_ff > 0:
         s["mlp"] = _mlp_specs(cfg, cfg.d_ff)
     return s
 
@@ -129,7 +183,6 @@ def _stacked(n: int, spec: P) -> P:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    check_supported(cfg)
     per = cfg.period
     n_per = cfg.n_layers // per
     tail = cfg.n_layers % per
@@ -155,11 +208,18 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _draw(p: P, rng: np.random.RandomState) -> np.ndarray:
     """The reference's draw for one leaf (repro.models.model.init_params),
-    float64 (or float32 for zeros/ones) before the cast to its dtype."""
+    float64 (or float32 for zeros/ones) before the cast to its dtype.
+    ``a_log`` (log(1..8), evenly spaced) draws nothing; ``conv`` draws
+    normal(0, 0.2)."""
     if p.init == "zeros":
         return np.zeros(p.shape, np.float32)
     if p.init == "ones":
         return np.ones(p.shape, np.float32)
+    if p.init == "a_log":
+        return np.log(np.linspace(1.0, 8.0, int(np.prod(p.shape)))).reshape(
+            p.shape)
+    if p.init == "conv":
+        return rng.normal(0, 0.2, p.shape)
     fan_in = p.shape[0] if len(p.shape) == 1 else int(np.prod(p.shape[:-1]))
     return rng.normal(0, 1.0 / math.sqrt(max(1, fan_in)), p.shape)
 
@@ -182,18 +242,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 def cache_slot_specs(cfg: ModelConfig, i: int, batch: int, seq: int
                      ) -> Dict[str, P]:
-    w = cfg.layer_window(i)
-    if cfg.window_cache and w is not None:
-        # rolling window cache: local-attention layers never need more
-        # than `window` KV entries
-        seq = min(seq, w)
-    spec = P((batch, seq, cfg.n_kv_heads, cfg.hd),
-             ("act_batch", "kv_seq", "act_kv", None), cfg.dtype)
-    return {"k": spec, "v": spec}
+    """An attention layer's KV cache (MLA's: the latent and the rope key),
+    or a Mamba layer's conv window and SSM state."""
+    dt = cfg.dtype
+    if cfg.layer_kind(i) == "attn":
+        w = cfg.layer_window(i)
+        if cfg.window_cache and w is not None:
+            # rolling window cache: local-attention layers never need more
+            # than `window` KV entries
+            seq = min(seq, w)
+        if cfg.mla:
+            return {
+                "ckv": P((batch, seq, cfg.kv_lora_rank),
+                         ("act_batch", "kv_seq", None), dt),
+                "k_rope": P((batch, seq, cfg.qk_rope_dim),
+                            ("act_batch", "kv_seq", None), dt),
+            }
+        spec = P((batch, seq, cfg.n_kv_heads, cfg.hd),
+                 ("act_batch", "kv_seq", "act_kv", None), dt)
+        return {"k": spec, "v": spec}
+    G = 1
+    conv_ch = cfg.d_inner + 2 * G * cfg.ssm_state
+    return {
+        "conv": P((batch, cfg.ssm_conv - 1, conv_ch),
+                  ("act_batch", None, "inner"), dt),
+        "state": P((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                   ("act_batch", "act_heads", None, None), dt),
+    }
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
-    check_supported(cfg)
     per = cfg.period
     n_per = cfg.n_layers // per
     tail = cfg.n_layers % per
@@ -209,7 +287,8 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
 
 
 def zero_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
-    """A zero KV cache for ``batch`` sequences of up to ``seq`` tokens."""
+    """A zero cache (KV, latent, conv and SSM state) for ``batch``
+    sequences of up to ``seq`` tokens."""
     device = resolve_device(device)
     return tree_map(lambda p: torch.zeros(p.shape, dtype=DTYPES[p.dtype],
                                           device=device),
@@ -222,13 +301,25 @@ def zero_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
 
 def _block(x, slot_params, cfg: ModelConfig, slot_idx: int, *, positions,
            cache=None, cache_pos: Optional[int] = None):
+    """One layer: the mixer its kind names (attention, MLA or Mamba2),
+    then the MoE or the MLP.  A cache is written in place."""
     h = L.norm(x, slot_params["norm1"], cfg)
-    y, cache = L.attention_block(h, slot_params["attn"], cfg,
+    if cfg.layer_kind(slot_idx) != "attn":
+        y, _ = L.mamba_block(h, slot_params["mamba"], cfg, cache=cache)
+    elif cfg.mla:
+        y, _ = L.mla_block(h, slot_params["attn"], cfg, positions=positions,
+                           cache=cache, cache_pos=cache_pos)
+    else:
+        y, _ = L.attention_block(h, slot_params["attn"], cfg,
                                  positions=positions,
                                  window=cfg.layer_window(slot_idx),
                                  cache=cache, cache_pos=cache_pos)
     x = x + y
-    if "mlp" in slot_params:
+    if "moe" in slot_params:
+        h2 = L.norm(x, slot_params["norm2"], cfg)
+        x = x + L.moe_ffn(h2, slot_params["moe"], cfg,
+                          n_experts_padded=moe_experts_padded(cfg))
+    elif "mlp" in slot_params:
         h2 = L.norm(x, slot_params["norm2"], cfg)
         x = x + L.mlp(h2, slot_params["mlp"], cfg)
     return x
@@ -275,7 +366,6 @@ def build_forward(cfg: ModelConfig):
     """Returns (prefill_fn, decode_fn), the reference's forwards.  f32 runs
     want TF32 off for matrix products on the card
     (torch.backends.cuda.matmul.allow_tf32, False by default)."""
-    check_supported(cfg)
 
     def prefill_fn(params, batch):
         """Full-sequence forward returning last-token logits (B, 1, V)."""
@@ -289,7 +379,7 @@ def build_forward(cfg: ModelConfig):
         return _head(params, cfg, h)
 
     def decode_fn(params, cache, batch, index: Optional[int] = None):
-        """One decode step against a KV cache, written in place.
+        """One decode step against a cache, written in place.
         ``batch["positions"]`` (B, 1), or (3, B, 1) for M-RoPE, carries the
         current decode index; ``index`` is the same index on the host,
         read from the positions (one device read) when not given.  Returns

@@ -1,8 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (conv2d, sad,
 the generated megakernels, flash attention and the cycle kernel) against
 their plain PyTorch versions, the kernels backend on the card against the same
-pipeline on the CPU, and the model substrate's forwards on the card
-against the CPU.  Each is
+pipeline on the CPU, and the model substrate's forwards (every family) on
+the card against the CPU.  Each is
 marked ``card`` and skips where there is no CUDA device; run them on the
 GPU machine with
 
@@ -209,7 +209,8 @@ def test_point_fn_probes_on_card_match_cpu(card, probe):
 # D=256 f32, ragged bf16) at its tolerances, and the main path's shapes;
 # then bf16 cases for the tensor-core form: D 64/128/256 at a ragged Sq
 # and window, a non-causal ragged Skv, a window with empty-band rows (rows
-# 25.. of Sq 40 see no key of Skv 20) and GQA at D 256
+# 25.. of Sq 40 see no key of Skv 20), GQA at D 256, and granite's GQA (D
+# 64, 3 query heads a kv head) in both forms
 FLASH_CASES = [
     (2, 48, 48, 4, 2, 128, True, None, torch.float32, 2e-5),
     (2, 48, 48, 4, 4, 128, True, 13, torch.bfloat16, 3e-2),
@@ -227,6 +228,8 @@ FLASH_CASES = [
     # the SIMT form at D 256: a ragged Sq and window, GQA with g 4
     (1, 200, 200, 4, 1, 256, True, 70, torch.float32, 2e-5),
     (2, 130, 130, 8, 2, 256, True, None, torch.float32, 2e-5),
+    (2, 200, 200, 24, 8, 64, True, None, torch.bfloat16, 3e-2),
+    (2, 130, 130, 24, 8, 64, True, None, torch.float32, 2e-5),
 ]
 
 
@@ -255,6 +258,28 @@ def test_flash_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, D, causal,
                     else "prefill_simt")
     assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
                                "decode": 0, form: 1}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2),
+                                        (torch.float32, 2e-5)])
+def test_flash_padded_mla_prefill_matches_plain(card, dtype, atol):
+    """MLA's prefill as models.layers.mla_block hands it to K4: q and k at
+    192 (128 + 64) and v at 128, zero-padded to 256, the scale
+    1/sqrt(192); the output's last 128 columns are exactly zero and the
+    rest is the plain version's on the unpadded operands."""
+    rng = np.random.RandomState(192)
+    B, S, H = 2, 150, 16
+    q, k = (_randn(rng, (B, S, H, 192), dtype, card) for _ in range(2))
+    v = _randn(rng, (B, S, H, 128), dtype, card)
+    pad = [torch.nn.functional.pad(t, (0, 256 - t.shape[-1]))
+           for t in (q, k, v)]
+    out = flash_attention(*pad, causal=True, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, H, 256) and out.dtype == dtype
+    assert torch.equal(out[..., 128:], torch.zeros_like(out[..., 128:]))
+    want = attention_ref(q, k, v, causal=True)
+    assert (out[..., :128].float() - want).abs().max().item() <= atol
+    assert form_launches()[prefill_form(dtype)] == 1
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
@@ -392,15 +417,22 @@ def test_flash_decode_misaligned_raises(card):
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
-def test_model_forwards_on_card_match_cpu(card):
-    """Reduced gemma3-1b (head_dim 64, K4's smallest) in f32: prefill_fn
-    and the decode loop on the card against the same on the CPU, and
-    K4's launches: one per layer per call."""
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m",
+                                  "mamba2-1.3b", "deepseek-v2-236b",
+                                  "jamba-1.5-large-398b"])
+def test_model_forwards_on_card_match_cpu(card, arch):
+    """Reduced gemma3-1b, MoE, Mamba2, MLA + MoE and the hybrid in f32
+    (head_dim 64, K4's smallest; MLA's 16 + 16 is padded to 64; capacity
+    factor 8, so no token drops): prefill_fn and the decode loop on the
+    card against the same on the CPU, and K4's launches: one per attention
+    layer per prefill_fn, and per GQA layer per decode step (MLA decodes
+    in latent space)."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models import build_forward, init_params
     from repro_torch.models.model import zero_cache
-    cfg = reduced(ARCHS["gemma3-1b"]).replace(
-        dtype="float32", head_dim=64, attn_impl="blocked")
+    cfg = reduced(ARCHS[arch]).replace(
+        dtype="float32", head_dim=64, attn_impl="blocked",
+        moe_capacity_factor=8.0)
     B, S = 2, 12
     toks = np.random.RandomState(1).randint(2, cfg.vocab, (B, S))
     got = {}
@@ -417,8 +449,12 @@ def test_model_forwards_on_card_match_cpu(card):
         got[dev] = (full.cpu(), step.cpu())
     for a, b in zip(got["cuda"], got["cpu"]):
         assert torch.allclose(a, b, atol=2e-4, rtol=1e-4)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_decode = 0 if cfg.mla else n_attn * S
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": n_attn,
+                               "decode": n_decode}
     assert registry.get_kernel("flash_attention").launches() == \
-        cfg.n_layers * (1 + S)
+        n_attn + n_decode
 
 
 # ---- the cycle kernel (csrc/cyclesim.cu) against its plain version ----

@@ -8,12 +8,14 @@ rtol 1e-5 (they measure about 1e-6; the reference's own decode-against-
 prefill tolerance, tests/test_models.py, is atol 2e-3, rtol 1e-3).  bf16
 forwards round every activation to bf16 (8 bits of mantissa), at other
 places in XLA and in torch, so bf16 logits agree to a few bf16 ulps:
-atol 6e-2 (they measure up to 0.031, two ulps at 3.7).  The reference runs eagerly
-with its layer scans unrolled (``unroll_scans``), which
-tests/test_models.py::test_unroll_scans_matches_scan holds equal to the
-scanned form.
+atol 6e-2 (they measure up to 0.031, two ulps at 3.7, on the dense
+families, and 0.045, three ulps at 3.4, on the hybrid's decode).  The
+reference runs eagerly with its layer scans unrolled (``unroll_scans``),
+which tests/test_models.py::test_unroll_scans_matches_scan holds equal to
+the scanned form; its SSD inter-chunk scan stays a ``lax.scan``.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -30,17 +32,16 @@ from repro.models import init_params as ref_init_params  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
 from repro.models.model import cache_specs as ref_cache_specs  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.kernels.flash import flash_attention  # noqa: E402
+from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.models import build_forward, init_params  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.convert import cast_params, params_from_numpy  # noqa: E402
-from repro_torch.models.model import (cache_specs, tree_leaves,  # noqa: E402
-                                      zero_cache)
+from repro_torch.models.model import (  # noqa: E402
+    cache_specs, moe_experts_padded, tree_leaves, zero_cache)
 
-DENSE = ["command-r-plus-104b", "gemma-2b", "gemma3-1b", "musicgen-medium",
-         "qwen2-72b", "qwen2-vl-7b"]
-NOT_PORTED = ["deepseek-v2-236b", "granite-moe-3b-a800m",
-              "jamba-1.5-large-398b", "mamba2-1.3b"]
+ALL_ARCHS = sorted(configs.ARCHS)
 F32_TOL = dict(atol=2e-5, rtol=1e-5)
 BF16_ATOL = 6e-2
 
@@ -115,7 +116,7 @@ def test_configs_are_the_references(arch):
     assert configs.cells(True) == ref_configs.cells(True)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_carried_weights_equal_init_params_bit_for_bit(arch):
     """params_from_numpy(the reference's init_params) is the port's own
     init_params, leaf for leaf, in bf16 and in f32."""
@@ -131,7 +132,8 @@ def test_carried_weights_equal_init_params_bit_for_bit(arch):
         assert carried.keys() == port.keys()
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2-72b", "deepseek-v2-236b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b"])
 def test_cache_specs_and_cast(arch):
     ref_cfg, cfg = _cfgs(arch, window_cache=True)
     ref = jax.tree.leaves(ref_cache_specs(ref_cfg, 2, 12),
@@ -140,19 +142,12 @@ def test_cache_specs_and_cast(arch):
     assert [(p.shape, p.dtype) for p in got] == \
         [(p.shape, p.dtype) for p in ref]
     f32 = init_params(cfg.replace(dtype="float32"), 0, "cpu")
-    bf16 = cast_params(f32, cfg)
-    for a, b, p in zip(tree_leaves(bf16), tree_leaves(f32),
+    want = [t.clone() for t in tree_leaves(f32)]
+    bf16 = cast_params(f32, cfg)                 # in place
+    assert bf16 is f32
+    for a, b, p in zip(tree_leaves(bf16), want,
                        tree_leaves(init_params(cfg, 0, "cpu"))):
         assert a.dtype == p.dtype and torch.equal(a, b.to(p.dtype))
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_mla_moe_and_mamba_archs_raise(arch):
-    cfg = configs.reduced(configs.ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_forward(cfg)
 
 
 # --------------------------------------------------------------------------
@@ -260,6 +255,196 @@ def test_attention_block_decode_matches_reference(cache_len, window, pos):
 
 
 # --------------------------------------------------------------------------
+# MLA, MoE and the Mamba2 mixer, in f32
+
+
+def _slot(arch, key, **kw):
+    """Slot 0's ``key`` subtree of the reduced ``arch``'s first period, as
+    the reference's init_params draws it (f32): (jnp tree, torch tree),
+    and both configs."""
+    ref_cfg, cfg = _cfgs(arch, dtype="float32", **kw)
+    tree = jax.tree.map(lambda a: np.asarray(a)[0], ref_init_params(
+        ref_cfg, 0)["period_slots"][0][key])
+    return (jax.tree.map(jnp.asarray, tree),
+            jax.tree.map(lambda a: _t(a), tree), ref_cfg, cfg)
+
+
+def test_attention_ref_scale_on_zero_padded_head_dims():
+    """MLA's prefill through K4's contract: q and k at 24 and v at 16,
+    zero-padded to 64 with the scale 1/sqrt(24), are the reference's
+    naive attention on the unpadded operands; without ``scale``,
+    attention_ref scales by 1/sqrt(D)."""
+    rng = np.random.RandomState(7)
+    q = rng.randn(2, 9, 4, 24).astype(np.float32)
+    k = rng.randn(2, 9, 2, 24).astype(np.float32)
+    v = rng.randn(2, 9, 2, 16).astype(np.float32)
+    want = RL.naive_attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal=True)
+
+    def pad(a):
+        return torch.nn.functional.pad(_t(a), (0, 64 - a.shape[-1]))
+
+    scale = 1.0 / math.sqrt(24)
+    for fn in (attention_ref, flash_attention):
+        out = fn(pad(q), pad(k), pad(v), causal=True, scale=scale)
+        assert out.shape == (2, 9, 4, 64)
+        assert torch.equal(out[..., 16:], torch.zeros_like(out[..., 16:]))
+        assert np.allclose(_np(out[..., :16]), _np(want), atol=1e-5)
+    assert torch.allclose(attention_ref(_t(q), _t(k), _t(k), causal=False),
+                          attention_ref(_t(q), _t(k), _t(k), causal=False,
+                                        scale=scale), atol=1e-6)
+
+
+@pytest.mark.parametrize("q_lora", [32, 0])
+@pytest.mark.parametrize("impl", ["naive", "blocked"])
+def test_mla_block_prefill_matches_reference(impl, q_lora):
+    """The naive oracle, and K4's path (its plain version here) at the
+    padded head dim 64 for dn + dr = 32, dv = 16; with and without q's
+    LoRA."""
+    ref_p, p, ref_cfg, cfg = _slot("deepseek-v2-236b", "attn",
+                                   attn_impl=impl, q_lora_rank=q_lora)
+    assert ("wq_a" in p) == bool(q_lora)
+    assert TL.padded_head_dim(cfg.qk_nope_dim + cfg.qk_rope_dim) == 64
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 11, 64).astype(np.float32)
+    pos = np.broadcast_to(np.arange(3, 14)[None], (2, 11))
+    want, _ = RL.mla_block(jnp.asarray(x), ref_p, ref_cfg,
+                           positions=jnp.asarray(pos))
+    got, cache = TL.mla_block(_t(x), p, cfg,
+                              positions=torch.from_numpy(pos.copy()))
+    assert cache is None
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("cache_len,pos", [(16, 9), (8, 11)])
+def test_mla_block_absorbed_decode_matches_reference(cache_len, pos):
+    """One absorbed decode step over a random latent cache, the second
+    case past the cache's length (the write wraps to slot pos % 8): the
+    same output, and the same cache after the in-place write."""
+    ref_p, p, ref_cfg, cfg = _slot("deepseek-v2-236b", "attn")
+    rng = np.random.RandomState(cache_len + pos)
+    x = rng.randn(2, 1, 64).astype(np.float32)
+    ckv = rng.randn(2, cache_len, cfg.kv_lora_rank).astype(np.float32)
+    kr = rng.randn(2, cache_len, cfg.qk_rope_dim).astype(np.float32)
+    positions = np.full((2, 1), pos, np.int32)
+    want, ref_cache = RL.mla_block(
+        jnp.asarray(x), ref_p, ref_cfg, positions=jnp.asarray(positions),
+        cache={"ckv": jnp.asarray(ckv), "k_rope": jnp.asarray(kr)})
+    cache = {"ckv": _t(ckv), "k_rope": _t(kr)}
+    got, out_cache = TL.mla_block(_t(x), p, cfg,
+                                  positions=torch.from_numpy(positions),
+                                  cache=cache, cache_pos=pos)
+    assert out_cache is cache
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+    for k in ("ckv", "k_rope"):
+        assert np.allclose(_np(cache[k]), _np(ref_cache[k]), atol=1e-6)
+
+
+@pytest.mark.parametrize("cf", [0.5, 8.0])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b"])
+def test_moe_ffn_matches_reference(arch, cf):
+    """16 padded experts, top-2, 16 tokens a row: at capacity factor 0.5
+    (one slot an expert) tokens drop, the same ones as in the reference;
+    at 8 none do.  deepseek adds its shared expert."""
+    ref_p, p, ref_cfg, cfg = _slot(arch, "moe", moe_capacity_factor=cf)
+    E = moe_experts_padded(cfg)
+    assert E == 16 and ("shared" in p) == bool(cfg.moe_shared_ff)
+    x = np.random.RandomState(9).randn(2, 16, 64).astype(np.float32)
+    want = RL.moe_ffn(jnp.asarray(x), ref_p, ref_cfg, n_experts_padded=E)
+    got = TL.moe_ffn(_t(x), p, cfg, n_experts_padded=E)
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+    if cf < 1:
+        no_drop = TL.moe_ffn(_t(x), p, cfg.replace(moe_capacity_factor=8.0),
+                             n_experts_padded=E)
+        assert not torch.allclose(got, no_drop, atol=1e-3)
+
+
+def _ssd_inputs(rng, dtype=np.float32):
+    b, S, H, P_, G, N = 2, 64, 4, 8, 1, 16
+    return (rng.randn(b, S, H, P_) * 0.5,
+            -np.abs(rng.randn(b, S, H)) * 0.3,
+            rng.randn(b, S, G, N) * 0.3, rng.randn(b, S, G, N) * 0.3)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_ssd_chunked_matches_reference(chunk):
+    """The reference's ssd_chunked and both per-step oracles
+    (tests/test_models.py holds the reference's at 1e-4)."""
+    xh, a, Bm, Cm = (a.astype(np.float32)
+                     for a in _ssd_inputs(np.random.RandomState(10)))
+    want = RL.ssd_chunked(*map(jnp.asarray, (xh, a, Bm, Cm)), chunk)
+    got = TL.ssd_chunked(*map(_t, (xh, a, Bm, Cm)), chunk)
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+    oracle = TL.ssd_reference(*map(_t, (xh, a, Bm, Cm)))
+    assert np.allclose(_np(oracle), _np(RL.ssd_reference(
+        *map(jnp.asarray, (xh, a, Bm, Cm)))), atol=1e-5)
+    assert np.allclose(_np(got), _np(oracle), atol=1e-4)
+
+
+def test_ssd_chunked_bf16_matches_reference():
+    """bf16 inputs with an f32 decay, the reference's cast points."""
+    xh, a, Bm, Cm = _ssd_inputs(np.random.RandomState(11))
+    bf = [jnp.asarray(t, jnp.bfloat16) for t in (xh, Bm, Cm)]
+    a32 = jnp.asarray(a, jnp.float32)
+    want = RL.ssd_chunked(bf[0], a32, bf[1], bf[2], 16)
+    got = TL.ssd_chunked(_t(bf[0], torch.bfloat16), _t(a32),
+                         _t(bf[1], torch.bfloat16),
+                         _t(bf[2], torch.bfloat16), 16)
+    assert got.dtype == torch.bfloat16
+    assert np.abs(_np(got) - _np(want)).max() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_causal_conv1d_matches_reference(cached):
+    """Without a cache the window starts on zeros; with one it continues
+    from the cache, which is shifted in place."""
+    rng = np.random.RandomState(12)
+    S = 1 if cached else 9
+    x = rng.randn(2, S, 24).astype(np.float32)
+    w = rng.randn(4, 24).astype(np.float32)
+    c = rng.randn(2, 3, 24).astype(np.float32) if cached else None
+    want, ref_cache = RL.causal_conv1d(
+        jnp.asarray(x), jnp.asarray(w), None if c is None else jnp.asarray(c))
+    cache = None if c is None else _t(c)
+    got, out_cache = TL.causal_conv1d(_t(x), _t(w), cache)
+    assert out_cache is cache
+    assert np.allclose(_np(got), _np(want), atol=1e-6)
+    if cached:
+        assert np.array_equal(_np(cache), _np(ref_cache))
+
+
+@pytest.mark.parametrize("S", [11, 16])
+def test_mamba_block_prefill_matches_reference(S):
+    """Chunk 8: 11 tokens pad the tail to 16, 16 fill two chunks."""
+    ref_p, p, ref_cfg, cfg = _slot("mamba2-1.3b", "mamba")
+    x = np.random.RandomState(13).randn(2, S, 64).astype(np.float32)
+    want, _ = RL.mamba_block(jnp.asarray(x), ref_p, ref_cfg)
+    got, cache = TL.mamba_block(_t(x), p, cfg)
+    assert cache is None
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+
+
+def test_mamba_block_decode_matches_reference():
+    """One decode step from a random conv window and state: the same
+    output, and the same conv window and state, written in place."""
+    ref_p, p, ref_cfg, cfg = _slot("mamba2-1.3b", "mamba")
+    rng = np.random.RandomState(14)
+    x = rng.randn(2, 1, 64).astype(np.float32)
+    spec = cache_specs(cfg, 2, 4)["period_slots"][0]
+    c0 = {k: rng.randn(*spec[k].shape[1:]).astype(np.float32)
+          for k in ("conv", "state")}
+    want, ref_cache = RL.mamba_block(
+        jnp.asarray(x), ref_p, ref_cfg,
+        cache={k: jnp.asarray(v) for k, v in c0.items()})
+    cache = {k: _t(v) for k, v in c0.items()}
+    got, out_cache = TL.mamba_block(_t(x), p, cfg, cache=cache)
+    assert out_cache is cache
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+    for k in ("conv", "state"):
+        assert np.allclose(_np(cache[k]), _np(ref_cache[k]), atol=1e-6)
+
+
+# --------------------------------------------------------------------------
 # whole forwards
 
 
@@ -289,7 +474,7 @@ def _forwards(arch, dtype, attn_impl="naive", decode=True, **kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forwards_match_reference(arch, dtype):
     """prefill_fn with naive attention and with K4 (its plain version
     here; the reference's pure-JAX blocked flash), and the decode loop,
@@ -342,13 +527,12 @@ def _ref_serve_loop(cfg, params, tokens, gen):
         logits[:, -1]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_serve_matches_reference_loop(dtype):
-    """launch.serve.serve on reduced gemma3-1b, past its window: in f32
-    the same greedy ids, so every step is teacher-forced, and the same
-    logits; in bf16, whose near-ties may flip an id, the logits after the
-    prompt."""
-    ref_cfg, cfg = _cfgs("gemma3-1b", dtype=dtype)
+def _check_serve(arch, dtype):
+    """launch.serve.serve on reduced ``arch`` against the reference's loop:
+    in f32 the same greedy ids, so every step is teacher-forced, and the
+    same logits; in bf16, whose near-ties may flip an id, the logits after
+    the prompt."""
+    ref_cfg, cfg = _cfgs(arch, dtype=dtype)
     ref_params, params = _params(ref_cfg, cfg)
     prompt = port_serve.make_prompt(cfg, 3, 10)
     ids, prompt_logits, logits = _ref_serve_loop(ref_cfg, ref_params,
@@ -363,6 +547,21 @@ def test_serve_matches_reference_loop(dtype):
     else:
         assert np.abs(_np(res.prompt_logits)
                       - _np(prompt_logits)).max() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_matches_reference_loop(dtype):
+    """Reduced gemma3-1b, past its window."""
+    _check_serve("gemma3-1b", dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_families_match_reference_loop(arch, dtype):
+    """MoE, Mamba2 and the hybrid (Mamba2, attention and MoE in one
+    stack)."""
+    _check_serve(arch, dtype)
 
 
 def test_serve_cli_runs_on_cpu_and_wants_a_card_otherwise(capsys,
