@@ -187,10 +187,27 @@ phase prints one JSON line:
            to finiteness and shapes; per arch init seconds, peak memory,
            launches, prefill ms and its device ms (K4's share), decode ms
            per step, tokens/s and a profiled decode step
+  train    gemma3-1b's training path (launch/train's loop): K4's row
+           log-sum-exp in both prefill forms against the plain version's
+           and the attention gradient (K4 with its lse, the plain
+           block-recompute backward) against autograd through the plain
+           version, at the path's shapes (bf16 4 x 1024, a local and a
+           global layer) and the check's (f32 2 x 256), with the backward's
+           device ms beside scaled_dot_product_attention's backward; the
+           f32 loss and every gradient leaf of the model cut to 2 layers
+           at full width, card against CPU; then bf16 uncut, 8 AdamW steps
+           on 4 x 1024 tokens with an async checkpoint at step 4 and the
+           final one (K4's counters set to 0 just before the loop: the
+           tensor-core form 26 + 24 times a step, the 24 period layers
+           again in the remat backward), a step alone for its launches and
+           its device time, then the run resumed from step 4, whose
+           losses must replay steps 5-8: step ms (host), device ms,
+           tokens/s, peak memory
   total    the script's seconds so far
   kernels  one line: every kernel (K3 once per app segment, K4 once per
            form on gemma3-1b's path and once per form on each family's
            path that launches it, ``flash_attention:<form>:<arch>``, the
+           training path's ``flash_attention:prefill_mma:train``, the
            cycle kernel) with its launches on its main path (the counters
            are reset just before the cycle phase's path, the image path
            phase, each f32 prefill_fn call and each bf16 prefill_fn call;
@@ -235,6 +252,9 @@ FAMILIES = (("granite-moe-3b-a800m", {}), ("mamba2-1.3b", {}),
 FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 32
 FAM_F32_PROMPT, FAM_F32_PROMPT_MLA = 128, 64
 ROUTE_GAP = 1e-5        # a routing difference at or below it is a near-tie
+# K4's row log-sum-exp against the plain version's: f32 sums of up to 1024
+# exponentials of f32 scores (bf16 products are exact in f32)
+LSE_ATOL = 1e-4
 # each family's K4 forms on its path, with the key of flash_phase's case
 # at that path's shapes (mamba2 runs no attention, deepseek decodes MLA in
 # latent space)
@@ -1649,12 +1669,14 @@ def attention_pairs(np, sq: int, skv: int, causal: bool, window) -> int:
 
 
 def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
-               scale=None, dims=None):
+               scale=None, dims=None, lse=False):
     """K4 against its plain version on one case, then its time, the plain
     version's, scaled_dot_product_attention's and the bound.  ``dims`` =
     (Dk, Dv) are the real head dims of operands zero-padded to K4's D (MLA):
     the bound counts the unpadded work, 2 (Dk + Dv) flops a (q, k) pair,
-    and the library call takes the unpadded operands."""
+    and the library call takes the unpadded operands.  ``lse``: the
+    prefill with its row log-sum-exp (the training path's call), held to
+    the plain version's within LSE_ATOL; the bound counts its bytes."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
     from repro_torch.kernels.flash.ops import (decode_split, form_launches,
@@ -1665,15 +1687,26 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     form = "decode" if decode else prefill_form(q.dtype)
     if decode:
         run = lambda: flash_decode(q, k, v)                     # noqa: E731
-        plain = lambda: attention_ref(q, k, v, causal=False)    # noqa: E731
+        plain = plain_pair = lambda: attention_ref(             # noqa: E731
+            q, k, v, causal=False)
     else:
         run = lambda: flash_attention(q, k, v, causal=causal,   # noqa: E731
-                                      window=window, scale=scale)
-        plain = lambda: attention_ref(q, k, v, causal=causal,   # noqa: E731
-                                      window=window, scale=scale)
+                                      window=window, scale=scale,
+                                      return_lse=lse)
+        plain_pair = lambda: attention_ref(                     # noqa: E731
+            q, k, v, causal=causal, window=window, scale=scale,
+            return_lse=lse)
+        plain = (lambda: plain_pair()[0]) if lse else plain_pair  # noqa: E731
     before = form_launches()
     got = run()
     torch.cuda.synchronize()
+    lse_err = None
+    if lse:
+        got, got_lse = got
+        lse_err = float((got_lse - plain_pair()[1]).abs().max())
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"flash_attention {name}: lse max abs err "
+                                 f"{lse_err} above {LSE_ATOL}")
     after = form_launches()
     if any(after[f] - before[f] != (f == form) for f in after):
         raise AssertionError(f"flash_attention {name}: launched "
@@ -1695,6 +1728,9 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
             "tolerance": atol}
     if dims:
         line["shape"].update({"Dk": dk, "Dv": dv, "scale": scale})
+    if lse:
+        line.update({"lse": True, "lse_max_abs_err": lse_err,
+                     "lse_tolerance": LSE_ATOL})
     if decode:
         line["split"] = dict(zip(("kc", "nsplit"),
                                  decode_split(skv, B * hkv)))
@@ -1723,6 +1759,8 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         np, sq, skv, causal, window))
     elem = q.element_size()
     nbytes = elem * (B * sq * H * (dk + dv) + B * skv * hkv * (dk + dv))
+    if lse:
+        nbytes += 4 * B * H * sq
     flops = 2 * (dk + dv) * pairs
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1732,7 +1770,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     # work bounds when the kernel is short; the same two for the library
     line.update({
         "ms": device_ms(run, iters), "call_ms": cuda_ms(run, iters),
-        "plain_ms": cuda_ms(plain, 5, warmup=1),
+        "plain_ms": cuda_ms(plain_pair, 5, warmup=1),
         "library_ms": device_ms(library, iters),
         "library_call_ms": cuda_ms(library, iters),
         "library_max_abs_err": lib_err,
@@ -1949,7 +1987,7 @@ def decode_step_profile(torch, cfg, params, tokens, index: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_forward
     from repro_torch.models.model import zero_cache
-    _, decode_fn = build_forward(cfg)
+    _, _, decode_fn = build_forward(cfg)
     B = tokens.shape[0]
     cache = zero_cache(cfg, B, index + 8, "cuda")
     step_in = {"tokens": tokens,
@@ -2021,7 +2059,7 @@ def llm_phase(torch, np):
     # f32: decode_fn over the prompt against prefill_fn (the reference's
     # tolerance, tests/test_models.py:83), 26 launches per call and step;
     # the prefill takes the SIMT form (the counters reset just before)
-    prefill_fn, decode_fn = build_forward(cfg32)
+    _, prefill_fn, decode_fn = build_forward(cfg32)
     b32 = toks[:2]
     with torch.no_grad():
         registry.reset_launch_counts()
@@ -2060,7 +2098,7 @@ def llm_phase(torch, np):
     p2 = {"embed": params["embed"], "norm_f": params["norm_f"],
           "tail_slots": [tree_map(lambda t: t[0], params["period_slots"][s])
                          for s in range(2)]}
-    pf2 = build_forward(cfg2)[0]
+    pf2 = build_forward(cfg2)[1]
     with torch.no_grad():
         card = pf2(p2, {"tokens": b32}).float().cpu()
         cpu = pf2(tree_map(lambda t: t.cpu(), p2),
@@ -2076,7 +2114,7 @@ def llm_phase(torch, np):
     # bf16 serving: the weights cast, the counters reset just before
     params = cast_params(params, cfg)
     torch.cuda.empty_cache()
-    prefill_fn, _ = build_forward(cfg)
+    prefill_fn = build_forward(cfg)[1]
     with torch.no_grad():
         prefill_fn(params, {"tokens": toks})            # warm
         registry.reset_launch_counts()
@@ -2304,7 +2342,7 @@ def family(torch, np, arch: str, cut: dict):
     # tests/test_models.py:83)
     P = FAM_F32_PROMPT_MLA if cfg.mla else FAM_F32_PROMPT
     toks = torch.from_numpy(make_prompt(cfg, 2, P).tokens).cuda()
-    prefill_fn, decode_fn = build_forward(cfg32)
+    _, prefill_fn, decode_fn = build_forward(cfg32)
     with torch.no_grad():
         registry.reset_launch_counts()
         with RouteLog(torch) as r_pre:
@@ -2340,7 +2378,7 @@ def family(torch, np, arch: str, cut: dict):
     p2["period_slots"] = [tree_map(lambda t: t[:2],
                                    params["period_slots"][0])]
     p2["tail_slots"] = []
-    pf2 = build_forward(cfg2)[0]
+    pf2 = build_forward(cfg2)[1]
     t0 = time.perf_counter()
     with torch.no_grad():
         with RouteLog(torch) as r_card:
@@ -2361,7 +2399,7 @@ def family(torch, np, arch: str, cut: dict):
     # just before the prefill_fn call and read after serve
     params = cast_params(params, cfg)
     torch.cuda.empty_cache()
-    prefill_fn, _ = build_forward(cfg)
+    prefill_fn = build_forward(cfg)[1]
     ptoks = torch.from_numpy(make_prompt(cfg, FAM_BATCH,
                                          FAM_PREFILL).tokens).cuda()
     prompt = make_prompt(cfg, FAM_BATCH, FAM_PROMPT)
@@ -2422,6 +2460,305 @@ def families_phase(torch, np):
     return lines, launches
 
 
+# ---- the train phase: gemma3-1b's training path on the card ----
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT = 4, 1024, 8, 4
+CHECK_BATCH, CHECK_SEQ = 2, 256        # the f32 2-layer card-vs-CPU check
+GRAD_REL = {"bfloat16": 3e-2, "float32": 1e-4}
+LEAF_REL = 1e-4      # f32 gradient leaves, card against CPU
+RESUME_ATOL = 1e-3   # the resumed run's losses against the uninterrupted
+
+
+def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
+                        timed: bool):
+    """The attention Function (K4 with its lse, the plain block-recompute
+    backward) against autograd through attention_ref on the card: each
+    gradient within GRAD_REL of its largest; then, if ``timed``, the
+    backward's device ms (``flash_attention_bwd`` alone) beside
+    scaled_dot_product_attention's backward on the same operands, both by
+    CUDA events (the profiler misses the library's main backward kernel)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash.ref import attention_ref
+    from repro_torch.kernels.timing import device_ms
+    from repro_torch.models.layers import FlashAttention, flash_attention_bwd
+    from repro_torch.kernels.flash import flash_attention
+    rng = np.random.RandomState(S + H + D)
+
+    def randn(shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda(
+            ).to(dtype)
+
+    q, k, v = randn((B, S, H, D)), randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    do = randn((B, S, H, D))
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*ts).backward(do)
+        return [t.grad for t in ts]
+
+    got = grads(lambda a, b, c: FlashAttention.apply(a, b, c, True, window,
+                                                     None, 1024))
+    want = grads(lambda a, b, c: attention_ref(
+        a, b, c, causal=True, window=window).to(dtype))
+    rel = GRAD_REL[str(dtype).split(".")[-1]]
+    errs = []
+    for which, g, w in zip("qkv", got, want):
+        err = float((g.float() - w.float()).abs().max())
+        big = float(w.float().abs().max())
+        if not err <= rel * big:
+            raise AssertionError(f"attention grad {name} d{which}: max abs "
+                                 f"err {err}, {rel} of {big} allowed")
+        errs.append(err / big)
+    line = {"case": name, "dtype": str(dtype).split(".")[-1],
+            "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                      "window": window},
+            "max_rel_err": max(errs), "tolerance_rel": rel}
+    if not timed:
+        return line
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+    scale = D ** -0.5
+    bwd = lambda: flash_attention_bwd(                           # noqa: E731
+        q, k, v, out, lse, do, causal=True, window=window, scale=scale,
+        block_kv=1024)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        i = torch.arange(S, device="cuda")[:, None]
+        j = torch.arange(S, device="cuda")[None]
+        mask = (j <= i) & (j > i - window)
+    lib_out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_bwd = lambda: torch.autograd.grad(                       # noqa: E731
+        lib_out, (qt, kt, vt), dot, retain_graph=True)
+    # the backward's five products a (q, k) pair in the band (s again, dv,
+    # dp, dq, dk), 2 D flops each; the plain backward also computes the
+    # pairs outside the band
+    flops = 10 * D * B * H * attention_pairs(np, S, S, True, window)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    # the plain backward's device ms (the profiler's events) with its
+    # CUDA-event ms beside them; the library's by CUDA events alone
+    line.update({"bwd_ms": device_ms(bwd, 5), "bwd_call_ms": cuda_ms(bwd, 5),
+                 "sdpa_bwd_call_ms": cuda_ms(lib_bwd, 5),
+                 "bwd_flops": flops, "bwd_bound_ops_ms": flops / peak * 1e3})
+    return line
+
+
+def train_phase(torch, np):
+    """gemma3-1b's training path.  The checks: K4's lse and the attention
+    gradient at the model's shapes, then the f32 loss and every gradient
+    leaf of gemma3-1b cut to 2 layers at full width, card against CPU.
+    The path: bf16 gemma3-1b uncut, TRAIN_STEPS AdamW steps of launch/
+    train's loop on 4 x 1024 tokens, an async checkpoint at TRAIN_CKPT and
+    the final one, with K4's counters set to 0 just before and read just
+    after; then the run resumed from the step-TRAIN_CKPT checkpoint, whose
+    losses must replay the uninterrupted run's (its async save, 2 steps in,
+    reuses the first run's pinned buffers).  The line gives each save's
+    stall on the step that carries it and the rates over the whole loop
+    beside the median step's.  Returns the phase's line,
+    the lse case at the path's shapes and K4's launches on the path."""
+    import shutil
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash.ops import form_launches
+    from repro_torch.kernels.timing import device_events
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_forward
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.train import build_train_step, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LLM_ARCH]
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
+    line = {"phase": "train", "arch": cfg.name, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat": cfg.remat}
+
+    # K4's lse (both forms) and the attention gradient at the model's
+    # shapes: bf16 at the path's 4 x 1024, f32 at the 2-layer check's
+    rng = np.random.RandomState(24)
+
+    def randn(shape, dtype):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda(
+            ).to(dtype)
+
+    cases = {}
+    for name, (b, s_, dtype, window, atol) in {
+            "train_local_bf16": (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16, W,
+                                 3e-2),
+            "train_global_bf16": (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16,
+                                  None, 3e-2),
+            "train_check_f32": (CHECK_BATCH, CHECK_SEQ, torch.float32, W,
+                                2e-5)}.items():
+        cases[name] = flash_case(
+            torch, np, name, randn((b, s_, H, D), dtype),
+            randn((b, s_, Hkv, D), dtype), randn((b, s_, Hkv, D), dtype),
+            causal=True, window=window, decode=False, atol=atol, lse=True)
+        emit(cases[name])
+    # the backward timed at the path's shapes only
+    line["attention_grad"] = [
+        attention_grad_case(torch, np, n, b, s_, H, Hkv, D, w, dt,
+                            timed=dt == torch.bfloat16)
+        for n, (b, s_, w, dt) in {
+            "train_local_bf16": (TRAIN_BATCH, TRAIN_SEQ, W, torch.bfloat16),
+            "train_global_bf16": (TRAIN_BATCH, TRAIN_SEQ, None,
+                                  torch.bfloat16),
+            "check_local_f32": (CHECK_BATCH, CHECK_SEQ, W, torch.float32),
+            "check_global_f32": (CHECK_BATCH, CHECK_SEQ, None,
+                                 torch.float32)}.items()]
+    line["checks_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # f32, 2 layers at full width: the loss and every gradient leaf on the
+    # card (K4's SIMT form with its lse) against the CPU (the plain version)
+    cfg2 = cfg.replace(dtype="float32", n_layers=2)
+    p2 = card_params(torch, cfg2, 1)
+    host = _batch_at(DataConfig(CHECK_SEQ, CHECK_BATCH, cfg.vocab), 0, 0,
+                     CHECK_BATCH)
+    batch2 = {k: torch.from_numpy(v) for k, v in host.items()}
+    loss_fn2 = build_forward(cfg2)[0]
+    t0 = time.perf_counter()
+    registry.reset_launch_counts()
+    l_card, g_card = value_and_grad(loss_fn2, p2, {
+        k: v.cuda() for k, v in batch2.items()})
+    n_check = form_launches()
+    if n_check != {"prefill_mma": 0, "prefill_simt": 2, "decode": 0}:
+        raise AssertionError(f"f32 2-layer loss_fn launched {n_check}")
+    g_card = [g.cpu() for g in tree_leaves(g_card)]
+    l_cpu, g_cpu = value_and_grad(loss_fn2, tree_map(lambda t: t.cpu(), p2),
+                                  batch2)
+    del p2
+    loss_err = abs(float(l_card) - float(l_cpu))
+    leaf_err = 0.0
+    for a, b in zip(g_card, tree_leaves(g_cpu)):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        leaf_err = max(leaf_err, err)
+    if not (loss_err <= 1e-4 and leaf_err <= LEAF_REL):
+        raise AssertionError(f"f32 2-layer loss and grads, card against CPU: "
+                             f"loss diff {loss_err}, worst leaf {leaf_err}")
+    line["f32_2layer_card_vs_cpu"] = {
+        "batch": CHECK_BATCH, "seq": CHECK_SEQ, "loss": float(l_cpu),
+        "loss_abs_diff": loss_err, "loss_atol": 1e-4, "leaves": len(g_card),
+        "worst_leaf_rel_diff": leaf_err, "leaf_rel_tol": LEAF_REL,
+        "simt_launches": n_check["prefill_simt"],
+        "s": time.perf_counter() - t0}
+    del g_card, g_cpu
+    torch.cuda.empty_cache()
+
+    # bf16, uncut: the launcher's loop with the counters set to 0 just
+    # before it; K4's tensor-core form once per layer in the forward and
+    # once more per period layer in the remat backward
+    n_per = cfg.n_layers // cfg.period
+    per_step = cfg.n_layers + (n_per * cfg.period if cfg.remat else 0)
+    ckpt_dir = ROOT / ".train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    init = lambda c, dev: card_params(torch, c, 0)               # noqa: E731
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_CKPT, log_every=1,
+              device="cuda", init=init)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train(cfg, **kw)
+        run_s = time.perf_counter() - t0
+        launches = form_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = {"prefill_mma": TRAIN_STEPS * per_step, "prefill_simt": 0,
+                "decode": 0}
+        if launches != want:
+            raise AssertionError(f"training launched K4's forms {launches}, "
+                                 f"want {want}")
+        if not (np.all(np.isfinite(res.losses))
+                and np.all(np.isfinite(res.gnorms))):
+            raise AssertionError(f"training: a non-finite loss or gradient "
+                                 f"norm: {res.losses} {res.gnorms}")
+        # one more step, by itself: K4's launches on a step, then its device
+        # time and the top kernels under the profiler
+        step = build_train_step(cfg)
+        b = {k: torch.from_numpy(v).cuda() for k, v in _batch_at(
+            DataConfig(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab), TRAIN_STEPS, 0,
+            TRAIN_BATCH).items()}
+        registry.reset_launch_counts()
+        step(res.params, res.opt, b)
+        torch.cuda.synchronize()
+        on_step = form_launches()
+        if on_step["prefill_mma"] != per_step:
+            raise AssertionError(f"a train step launched {on_step}, want "
+                                 f"{per_step} of prefill_mma")
+        t0 = time.perf_counter()
+        dev_ms, by_name = device_events(lambda: step(res.params, res.opt, b),
+                                        1, warmup=0)
+        profile_s = time.perf_counter() - t0
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        losses, gnorms, step_s = res.losses, res.gnorms, res.step_s
+        save_s = res.save_s
+        del res, step
+        torch.cuda.empty_cache()
+
+        # resume from the step-TRAIN_CKPT checkpoint: the final one removed,
+        # the launcher replays steps TRAIN_CKPT + 1 .. TRAIN_STEPS, with an
+        # async save every 2 steps (one, into the first run's pinned buffers)
+        shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS}")
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        res2 = train(cfg, **dict(kw, ckpt_every=2))
+        resume_s = time.perf_counter() - t0
+        resumed = form_launches()["prefill_mma"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    replay, replay_s, replay_save_s = res2.losses, res2.step_s, res2.save_s
+    del res2
+    torch.cuda.empty_cache()
+    diff = float(np.max(np.abs(np.array(replay)
+                               - np.array(losses[TRAIN_CKPT:]))))
+    if len(replay) != TRAIN_STEPS - TRAIN_CKPT or not diff <= RESUME_ATOL:
+        raise AssertionError(f"resumed losses {replay} against "
+                             f"{losses[TRAIN_CKPT:]}")
+    if resumed != (TRAIN_STEPS - TRAIN_CKPT) * per_step:
+        raise AssertionError(f"the resumed run launched K4 {resumed} times")
+    # a save's copy on the caller's thread falls in the next step's time:
+    # the median of the steps after the first that carry none, each
+    # carrying step beside it, and the rate over the whole loop
+    steady_ms = 1e3 * float(np.median(
+        [t for i, t in enumerate(step_s) if i and i != TRAIN_CKPT]))
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    line.update({
+        "losses": losses, "gnorms": gnorms,
+        "step_ms_host": [1e3 * t for t in step_s],
+        "step_ms_median": steady_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady_ms * 1e3,
+        "tokens_per_s_loop": tokens / sum(step_s),
+        "tokens_per_s_run": tokens / run_s,
+        "save": {"step": TRAIN_CKPT, "caller_ms": 1e3 * save_s[0],
+                 "step_ms": 1e3 * step_s[TRAIN_CKPT],
+                 "stall_ms": 1e3 * step_s[TRAIN_CKPT] - steady_ms,
+                 "first": True},
+        "step_device_ms": dev_ms, "device_busy_share": dev_ms / steady_ms,
+        "k4_device_ms": sum(ms for n, ms in by_name.items()
+                            if "flash_mma_kernel" in n),
+        "top": [{"name": n[:80], "ms": ms} for n, ms in top[:10]],
+        "k4_launches_per_step": on_step, "k4_launches_path": launches,
+        "k4_launches_per_step_want": per_step,
+        "peak_memory_gb": peak, "run_s": run_s, "profile_s": profile_s,
+        "resume": {"from_step": TRAIN_CKPT, "losses": replay,
+                   "max_abs_diff": diff, "atol": RESUME_ATOL,
+                   "k4_launches": resumed, "s": resume_s,
+                   "step_ms_host": [1e3 * t for t in replay_s],
+                   "save": {"step": TRAIN_CKPT + 2,
+                            "caller_ms": 1e3 * replay_save_s[0],
+                            "step_ms": 1e3 * replay_s[2],
+                            "stall_ms": 1e3 * replay_s[2] - steady_ms,
+                            "first": False}},
+        "phase_s": time.perf_counter() - t_phase})
+    emit(line)
+    return line, cases["train_local_bf16"], launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2479,6 +2816,9 @@ def main() -> int:
     # counted twice
     _, llm_launches = llm_phase(torch, np)
     _, fam_launches = families_phase(torch, np)
+    # the training path: its counters set to 0 just before launch/train's
+    # loop and read just after
+    _, kern_train, train_launches = train_phase(torch, np)
     for arch, n in fam_launches.items():
         forms = FAMILY_K4.get(arch, (None, ()))[1]
         if any(n[f] != 0 for f in n if f not in forms) or \
@@ -2486,7 +2826,8 @@ def main() -> int:
             raise AssertionError(f"{arch}: K4 launched {n} on its path, "
                                  f"want exactly the forms {forms}")
     launches["flash_attention"] = sum(llm_launches.values()) + sum(
-        sum(n.values()) for n in fam_launches.values())
+        sum(n.values()) for n in fam_launches.values()) + sum(
+        train_launches.values())
     launches["cyclesim"] = kern_cycle["launches"]
     for n, count in launches.items():
         if count == 0:
@@ -2526,6 +2867,10 @@ def main() -> int:
           + [k4_line(f"flash_attention:{form}:{arch}",
                      kern_k4[f"{form}:{key}"], fam_launches[arch][form])
              for arch, (key, forms) in FAMILY_K4.items() for form in forms]
+          + [dict(k4_line("flash_attention:prefill_mma:train", kern_train,
+                          train_launches["prefill_mma"]),
+                  lse_max_abs_err=kern_train["lse_max_abs_err"],
+                  lse_tolerance=kern_train["lse_tolerance"])]
           + [dict(line("cyclesim", registry.get_kernel("cyclesim"),
                        kern_cycle, kern_cycle["launches"]),
                   case=f"flow 1920x1080, 1 frame, first "

@@ -14,6 +14,11 @@
 //   m, l, acc: online softmax over KV tiles           in f32
 //   acc += round_to_v_dtype(p) . v                    (kernel.py:58)
 //   out = acc / max(l, 1e-30)                         in q's dtype
+//   lse = m + log(max(l, 1e-30))     f32 (B, H, Sq), when asked for
+//
+// Both prefill forms write lse only when given a pointer to it (the
+// training path: the attention backward, models/layers.py, reads it);
+// serving passes null and nothing is written.
 //
 // q (B, Sq, H, D) and k, v (B, Skv, Hkv, D) are read through their element
 // strides, with only D contiguous, so neither a prefill's projections nor a
@@ -212,7 +217,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
                      const T* __restrict__ k, const T* __restrict__ v,
                      Strides qs, Strides ks, Strides vs, int H, int g, int sq,
-                     int skv, int causal, int window, float scale, int vec) {
+                     int skv, int causal, int window, float scale, int vec,
+                     float* __restrict__ lse) {
   static_assert(sizeof(T) == sizeof(float), "the SIMT form is f32 only");
   constexpr int RS = row_stride<D>();
   constexpr int CPL = D / 32;              // columns per lane
@@ -386,13 +392,16 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
     }
   }
 
-  // l of row r sits on lanes 4r .. 4r+3
+  // m and l of row r sit on lanes 4r .. 4r+3
 #pragma unroll
   for (int r = 0; r < kRW; ++r) {
     const float lr = __shfl_sync(0xffffffffu, l, 4 * r);
+    const float mr = __shfl_sync(0xffffffffu, m, 4 * r);
     const int qi = q0 + warp * kRW + r;
     if (qi >= sq) continue;
     const float den = fmaxf(lr, 1e-30f);
+    // the row's log-sum-exp of the scaled scores (m is in natural units)
+    if (lse != nullptr && lane == 0) lse[size_t(bh) * sq + qi] = mr + logf(den);
     float* orow = reinterpret_cast<float*>(out) +
                   ((size_t(b) * sq + qi) * H + h) * D + lane * VW;
 #pragma unroll
@@ -420,7 +429,8 @@ template <typename T, int D>
 cudaError_t launch_prefill(void* out, const void* q, const void* k,
                            const void* v, Strides qs, Strides ks, Strides vs,
                            int B, int H, int g, int sq, int skv, int causal,
-                           int window, float scale, cudaStream_t stream) {
+                           int window, float scale, float* lse,
+                           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
   // the attribute belongs to the current device)
@@ -434,7 +444,7 @@ cudaError_t launch_prefill(void* out, const void* q, const void* k,
   flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs, H, g,
-      sq, skv, causal, window, scale, vec);
+      sq, skv, causal, window, scale, vec, lse);
   return cudaGetLastError();
 }
 
@@ -811,7 +821,9 @@ cudaError_t launch_decode_any_g(void* out, float* ws, const void* q,
   } while (0)
 
 // bf16 prefill takes the tensor-core form and f32 the SIMT form; the SIMT
-// form has no bf16 instantiation
+// form has no bf16 instantiation.  lse: null, or f32 (B, H, sq) for each
+// row's log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30))
+// (what the attention backward reads).
 extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  const void* v, int dtype, int B, int H,
                                  int Hkv, int D, int sq, int skv,
@@ -819,15 +831,15 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  long long ksb, long long kss, long long ksh,
                                  long long vsb, long long vss, long long vsh,
                                  int causal, int window, float scale,
-                                 void* stream) {
+                                 float* lse, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K4_PREFILL_SIMT(T, DD)                                             \
   simt::launch_prefill<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq,  \
-                              skv, causal, window, scale, st)
+                              skv, causal, window, scale, lse, st)
 #define K4_PREFILL_MMA(T, DD)                                              \
   launch_mma<DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv, causal, \
-                 window, scale, st)
+                 window, scale, lse, st)
   if (dtype == 0) K4_DISPATCH_D(K4_PREFILL_SIMT, float);
   if (dtype == 1) K4_DISPATCH_D(K4_PREFILL_MMA, __nv_bfloat16);
   return int(cudaErrorInvalidValue);

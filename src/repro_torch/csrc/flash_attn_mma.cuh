@@ -62,7 +62,8 @@
 // the plain order on the model's grid (256 blocks, two per SM: one wave).
 // Epilogue: each warp writes acc / max(l, 1e-30) as bf16 pairs straight
 // from its fragments; staging them through shared memory for 16-byte rows
-// measured slower.
+// measured slower.  With an lse pointer, one thread of each quad writes
+// its row's m + log(max(l, 1e-30)) in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -209,7 +210,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
                  const bf16* __restrict__ k, const bf16* __restrict__ v,
                  Strides qs, Strides ks, Strides vs, int H, int g, int sq,
-                 int skv, int causal, int window, float scale) {
+                 int skv, int causal, int window, float scale,
+                 float* __restrict__ lse) {
   constexpr int RS = row_stride<D>(), BK = key_tile<D>();
   constexpr int NO = D / 8;              // n8 blocks of the O accumulator
   static_assert(BK % 16 == 0 && BK >= 16, "key tile: a multiple of 16");
@@ -346,6 +348,11 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = w0 + gr + r * 8;
     if (row >= sq) continue;
+    // the row's log-sum-exp of the scaled scores: m_r is in natural units
+    // (the exponentials above are exp2f of (s - m) * log2(e)), so log, not
+    // log2; the quad's four threads hold the same m_r and l_r
+    if (lse != nullptr && tig == 0)
+      lse[size_t(bh) * sq + row] = m_r[r] + logf(den[r]);
     bf16* orow = out + ((size_t(b) * sq + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -395,7 +402,7 @@ template <int D>
 cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
                        Strides qs, Strides ks, Strides vs, int B, int H,
                        int g, int sq, int skv, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       float scale, float* lse, cudaStream_t stream) {
   constexpr size_t smem = mma::smem_bytes<D>();
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
   // the attribute belongs to the current device)
@@ -407,7 +414,7 @@ cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
   mma::flash_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
       static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
       static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v), qs,
-      ks, vs, H, g, sq, skv, causal, window, scale);
+      ks, vs, H, g, sq, skv, causal, window, scale, lse);
   return cudaGetLastError();
 }
 

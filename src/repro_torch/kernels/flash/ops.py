@@ -32,7 +32,7 @@ KERNEL = "flash_attention"
 FORMS = ("prefill_mma", "prefill_simt", "decode")
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 7 + (_LL,) * 9
-                     + (_I, _I, ctypes.c_float, _P))
+                     + (_I, _I, ctypes.c_float, _P, _P))
 _DECODE_ARGTYPES = ((_P,) * 5 + (_I,) * 8 + (_LL,) * 8
                     + (ctypes.c_float, _P))
 _SCORES_ARGTYPES = (_P,) * 3 + (_I,) * 6 + (_LL,) * 6 + (_P,)
@@ -115,25 +115,32 @@ def form_launches() -> dict:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None,
-                    scale=None) -> torch.Tensor:
+                    causal: bool = True, window=None, scale=None,
+                    return_lse: bool = False):
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA with g = H // Hkv.
     Query i sees key j when j <= i (``causal``) and j > i - window
     (``window``); the scores are scaled by ``scale``, 1/sqrt(D) unless
-    given.  Returns (B, Sq, H, D) in q's dtype."""
+    given.  Returns (B, Sq, H, D) in q's dtype, and with ``return_lse``
+    also each row's log-sum-exp of the scaled, masked scores, f32
+    (B, H, Sq), which the kernel writes beside out."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
     if _checks.attention(KERNEL, q, k, v) == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale).to(q.dtype)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            scale=scale, return_lse=return_lse)
+        if return_lse:
+            return out[0].to(q.dtype), out[1]
+        return out.to(q.dtype)
     form = prefill_form(q.dtype)
     if form == "prefill_mma":
         _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if Sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     fn = _build.function("flash_attn", "flash_attn_launch",
                          _PREFILL_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -142,9 +149,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       k.data_ptr(), v.data_ptr(), _dtype_code(q), B, H, Hkv,
                       D, Sq, Skv, *_strides(q), *_strides(k), *_strides(v),
                       int(causal), window or 0,
-                      1.0 / math.sqrt(D) if scale is None else scale, stream,
+                      1.0 / math.sqrt(D) if scale is None else scale,
+                      None if lse is None else lse.data_ptr(), stream,
                       form=form)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

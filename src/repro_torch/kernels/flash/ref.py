@@ -6,7 +6,10 @@ mask and sliding window, f32 math.  The counterpart of
 q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); q head h reads kv head h // g
 with g = H // Hkv.  The scores are scaled by ``scale``, 1/sqrt(D) unless
 given.  Masked scores are set to -1e30, never -inf, so a row with no key
-in its band averages every key uniformly.  Returns f32.
+in its band averages every key uniformly.  Returns f32, and with
+``return_lse`` also each row's log-sum-exp of the scaled, masked scores,
+f32 (B, H, Sq) (-1e30 + log(Skv), which is -1e30 in f32, for a row with
+no key in its band).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 MASK_VALUE = -1e30
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window=None, scale=None):
+def attention_ref(q, k, v, *, causal: bool = True, window=None, scale=None,
+                  return_lse: bool = False):
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
@@ -34,4 +38,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window=None, scale=None):
     s = torch.where(mask, s, torch.full((), MASK_VALUE, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, v.shape[-1])
+    o = o.reshape(B, Sq, H, v.shape[-1])
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o

@@ -67,7 +67,8 @@ def main(argv=None) -> int:
     params = init_params(cfg, 0, "cuda")
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
-    prefill_fn, _ = build_forward(cfg)
+    # [-2]: prefill_fn of the triple, and of an older revision's pair
+    prefill_fn = build_forward(cfg)[-2]
     toks = torch.from_numpy(make_prompt(cfg, B, S).tokens).cuda()
     with torch.no_grad():
         prefill_fn(params, {"tokens": toks})

@@ -77,7 +77,7 @@ def serve(cfg: ModelConfig, params, prompt: Prompt, gen: int,
     steps.  The decode position is known on the host, so no step reads the
     card."""
     device = resolve_device(device)
-    _, decode_fn = build_forward(cfg)
+    _, _, decode_fn = build_forward(cfg)
     act = DTYPES[cfg.dtype]
     B, S = prompt.tokens.shape[:2]
     if cfg.input_mode == "tokens":

@@ -1,9 +1,11 @@
 """Model configuration: one dataclass covering the 10 assigned architecture
 families (dense GQA / MQA, MLA, MoE, SSM, hybrid, local:global attention,
 M-RoPE VLM stub, audio-token stub).  A copy of ``repro.models.config``; the
-knobs of the reference's XLA and mesh paths (``unroll_scans``, ``remat``,
-``moe_impl``, ``dist_norm``, the attention block sizes) are kept so that a
-config means the same in both packages, and the port ignores them."""
+knobs of the reference's XLA and mesh paths (``unroll_scans``, ``moe_impl``,
+``dist_norm``, ``attn_block_q``) are kept so that a config means the same
+in both packages, and the port ignores them.  It honours ``remat`` (each
+period checkpointed under a gradient) and ``attn_block_kv`` (the key block
+of the attention backward)."""
 from __future__ import annotations
 
 import dataclasses

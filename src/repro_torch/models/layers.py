@@ -1,11 +1,13 @@
 """Model layers: norms, RoPE / M-RoPE, attention (prefill through K4 or
-the naive oracle, decode through K4 over the valid span of a KV cache),
-the attention block, MLA (DeepSeek-V2: prefill through K4 at a padded head
-dim, absorbed decode over the latent cache), the gated MLP, the dropping
-top-k MoE, and the Mamba2 mixer (causal conv and the chunked SSD scan).
+the naive oracle; under a gradient K4 with its log-sum-exp and the
+reference's block-recompute backward; decode through K4 over the valid
+span of a KV cache), the attention block, MLA (DeepSeek-V2: prefill
+through K4 at a padded head dim, absorbed decode over the latent cache),
+the gated MLP, the dropping top-k MoE, and the Mamba2 mixer (causal conv
+and the chunked SSD scan).
 
-The counterpart of ``repro.models.layers``'s forward half.  Parameters
-are plain dicts of tensors.  Unlike the reference, a decode step writes
+The counterpart of ``repro.models.layers``.  Parameters are plain dicts
+of tensors.  Unlike the reference, a decode step writes
 its cache (KV, latent, conv window, SSM state) in place.  The reference's
 ``norm_dist`` is a ``shard_map`` body over a named mesh axis, taken only
 when a mesh is given; the port has no mesh and takes ``norm``, as the
@@ -110,6 +112,92 @@ def naive_attention(q, k, v, *, causal, window=None, q_offset=0):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
+# attention under a gradient: K4's prefill with the row log-sum-exp as the
+# forward, and the reference's block-recompute backward
+# (repro.models.layers._flash_bwd) in plain PyTorch.  Residuals are O(S*D)
+# (q, k, v, out, lse), never the S x S softmax.
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool, window,
+                        scale: float, block_kv: int):
+    """dq, dk, dv of softmax(q k^T * scale + mask) v, over key blocks of
+    ``block_kv``: each block's scores recomputed in f32, p = exp(s - lse),
+    dv = p^T do, dp = do v^T, ds = p (dp - dsum) scale with dsum =
+    sum(do * out), dq accumulated in f32, dk = ds^T q.  GQA sums dk and dv
+    over the g query heads of a kv head.  lse is (B, H, Sq), f32.  Returns
+    the three in q's dtype."""
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    dog = do.reshape(B, Sq, Hkv, G, Dv).float()
+    og = out.reshape(B, Sq, Hkv, G, Dv).float()
+    dsum = (dog * og).sum(-1).permute(0, 2, 3, 1)          # (B,Hkv,G,Sq)
+    lse = lse.reshape(B, Hkv, G, Sq)
+    q_pos = torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.empty((B, Skv, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty((B, Skv, Hkv, Dv), dtype=torch.float32, device=q.device)
+    for j0 in range(0, Skv, block_kv):
+        j1 = min(j0 + block_kv, Skv)
+        kblk = k[:, j0:j1].float()
+        vblk = v[:, j0:j1].float()
+        k_pos = torch.arange(j0, j1, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kblk) * scale
+        mask = torch.ones((Sq, j1 - j0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = s + torch.where(mask, 0.0, MASK_VALUE)
+        p = torch.exp(s - lse[..., None])                   # (B,Hkv,G,Sq,K)
+        dv[:, j0:j1] = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vblk)
+        ds = p * (dp - dsum[..., None]) * scale
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kblk)
+        dk[:, j0:j1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 (``flash_attention(..., return_lse=True)``; its plain version on
+    the CPU) under a gradient: the counterpart of the reference's
+    ``custom_vjp`` ``flash_attention``.  It saves (q, k, v, out, lse), and
+    its backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, block_kv):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window,
+                    1.0 / math.sqrt(q.shape[-1]) if scale is None else scale,
+                    block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale, block_kv = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=causal, window=window,
+                                         scale=scale, block_kv=block_kv)
+        return dq, dk, dv, None, None, None, None
+
+
+def prefill_attention(q, k, v, cfg, *, window=None, scale=None):
+    """K4's prefill (``attn_impl="blocked"``): through ``FlashAttention``
+    when grad mode is on and an operand requires grad, else the plain call
+    that serving makes."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, True, window, scale,
+                                    cfg.attn_block_kv)
+    return flash_attention(q, k, v, causal=True, window=window, scale=scale)
+
+
 def decode_attention(q, k_cache, v_cache, *, window=None, cur_idx: int):
     """One-token decode: q (B, 1, H, D) against a (B, S, Hkv, D) cache.
     The reference masks every slot but ``cur_idx - window < j <= cur_idx``
@@ -150,7 +238,7 @@ def attention_block(x, p, cfg, *, positions, window, cache=None,
         if cfg.attn_impl == "naive":
             o = naive_attention(q, k, v, causal=True, window=window)
         else:
-            o = flash_attention(q, k, v, causal=True, window=window)
+            o = prefill_attention(q, k, v, cfg, window=window)
     else:
         # rolling window caches (cache length <= window) wrap the write
         # index; every resident entry is then within the window, so no
@@ -229,8 +317,8 @@ def mla_block(x, p, cfg, *, positions, cache=None,
             k_full[..., dn:dn + dr] = k_rope[:, :, None, :]
             v_full = x.new_zeros((B, S, H, dp))
             v_full[..., :dv] = v
-            o = flash_attention(q_full, k_full, v_full, causal=True,
-                                scale=1.0 / math.sqrt(dn + dr))[..., :dv]
+            o = prefill_attention(q_full, k_full, v_full, cfg,
+                                  scale=1.0 / math.sqrt(dn + dr))[..., :dv]
     else:
         idx = cache_pos % cache["ckv"].shape[1]
         cache["ckv"][:, idx:idx + S] = ckv
@@ -347,12 +435,16 @@ def ssd_chunked(xh, a_log, Bm, Cm, chunk: int):
     Ch = Cm.reshape(b, nc, chunk, G, N).repeat_interleave(H // G, dim=3)
 
     cum = ac.cumsum(dim=2)                               # (b,nc,l,H)
-    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j.  The mask goes
+    # inside the exp (-inf above the diagonal): the same L, but no
+    # exp(cum_i - cum_j) of i < j, which overflows to inf once the decay
+    # over a chunk passes e^88 and then makes the gradient 0 * inf = NaN
+    # (the reference masks after the exp)
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=xh.device).tril()
-    L = torch.where(mask[None, None, :, :, None],
-                    torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]),
-                    0.0)                                 # (b,nc,i,j,H)
+    L = torch.exp(torch.where(mask[None, None, :, :, None],
+                              cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                              -math.inf))                # (b,nc,i,j,H)
     scores = torch.einsum("bcihn,bcjhn->bcijh", Ch.float(), Bh.float()) * L
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores.to(dt), xc)
 

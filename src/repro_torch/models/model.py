@@ -1,18 +1,19 @@
 """Model assembly: parameter specs, periodic layer stacking (a loop over
-repeating periods, then the tail), and the prefill and decode forwards.
+repeating periods, then the tail), the train / prefill / decode forwards,
+and memory-bounded chunked cross-entropy.
 
-The counterpart of ``repro.models.model``'s forward half, for every
-family: attention (GQA / MQA, or MLA) or Mamba2 mixers, and a gated MLP or
-a dropping MoE.  The reference's ``moe_ffn_a2a`` (``models/moe_a2a.py``)
-and ``norm_dist`` run only under a mesh; the port has none and takes
-``moe_ffn`` and ``norm``, as the reference does without one.
+The counterpart of ``repro.models.model``, for every family: attention
+(GQA / MQA, or MLA) or Mamba2 mixers, and a gated MLP or a dropping MoE.
+The reference's ``moe_ffn_a2a`` (``models/moe_a2a.py``) and ``norm_dist``
+run only under a mesh; the port has none and takes ``moe_ffn`` and
+``norm``, as the reference does without one.
 Parameters are described by a spec tree of ``P`` leaves (shape, logical
 axes, init), and the parameter tree has the reference's layout exactly:
 ``period_slots`` (one dict per slot of the period, each leaf stacked over
 the periods) and ``tail_slots``, so the reference's parameters carry over
 leaf by leaf (models.convert).  ``init_params`` draws the reference's
-numbers bit for bit.  ``loss_fn`` and ``chunked_xent`` wait for the
-training slice.
+numbers bit for bit.  Gradients are torch autograd's: ``loss_fn`` under
+``torch.autograd`` is the reference's ``jax.value_and_grad(loss_fn)``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..core.lowering import resolve_device
 from . import layers as L
@@ -62,14 +64,40 @@ def tree_leaves(tree) -> Iterator[Any]:
 
 def tree_map(f: Callable, tree, *rest):
     """``f`` over the leaves of ``tree`` (and the same leaves of ``rest``),
-    keeping the structure."""
+    keeping the structure: dicts, lists, tuples and NamedTuples."""
     if isinstance(tree, dict):
         return {k: tree_map(f, tree[k], *(r[k] for r in rest))
                 for k in tree}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(f, t, *(r[i] for r in rest))
-                for i, t in enumerate(tree)]
+        return _like(tree, [tree_map(f, t, *(r[i] for r in rest))
+                            for i, t in enumerate(tree)])
     return f(tree, *rest)
+
+
+def _like(seq, items):
+    """``items`` as a sequence of ``seq``'s type (list, tuple, NamedTuple)."""
+    if isinstance(seq, list):
+        return items
+    return type(seq)(*items) if hasattr(seq, "_fields") else tuple(items)
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves, in ``tree_leaves``'
+    order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return _like(t, [build(e) for e in t])
+        return next(it)
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -325,20 +353,47 @@ def _block(x, slot_params, cfg: ModelConfig, slot_idx: int, *, positions,
     return x
 
 
+def _period(x, slots, cfg: ModelConfig, positions):
+    """One period's slots, without a cache."""
+    for s, slot in enumerate(slots):
+        x = _block(x, slot, cfg, s, positions=positions)
+    return x
+
+
 def _stack_forward(params, x, cfg: ModelConfig, *, positions, cache=None,
                    cache_pos: Optional[int] = None):
     """Run all layers: the periods (period j's slot s reads index j of the
     stacked leaves, where the reference scans), then the tail.  A cache is
-    written in place."""
+    written in place.  Under a gradient (no cache, a stacked leaf that
+    requires grad) each stacked leaf is unbound once instead, so its
+    gradient is stacked once rather than scattered into a zero stack per
+    period; with ``cfg.remat`` each period is then checkpointed, as the
+    reference's ``jax.checkpoint`` (nothing saveable): only its input is
+    kept, and its forward runs again in the backward."""
     per = cfg.period
     n_per = cfg.n_layers // per
-    for j in range(n_per):
-        for s in range(per):
-            slot = tree_map(lambda t: t[j], params["period_slots"][s])
-            c = (tree_map(lambda t: t[j], cache["period_slots"][s])
-                 if cache is not None else None)
-            x = _block(x, slot, cfg, s, positions=positions, cache=c,
-                       cache_pos=cache_pos)
+    if n_per and cache is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_leaves(params["period_slots"])):
+        periods = [[] for _ in range(n_per)]
+        for tree in params["period_slots"]:
+            unbound = [t.unbind(0) for t in tree_leaves(tree)]
+            for j in range(n_per):
+                periods[j].append(
+                    tree_unflatten(tree, [u[j] for u in unbound]))
+        for slots in periods:
+            if cfg.remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _period, x, slots, cfg, positions, use_reentrant=False)
+            else:
+                x = _period(x, slots, cfg, positions)
+    else:
+        for j in range(n_per):
+            for s in range(per):
+                slot = tree_map(lambda t: t[j], params["period_slots"][s])
+                c = (tree_map(lambda t: t[j], cache["period_slots"][s])
+                     if cache is not None else None)
+                x = _block(x, slot, cfg, s, positions=positions, cache=c,
+                           cache_pos=cache_pos)
     for i, slot in enumerate(params["tail_slots"]):
         c = cache["tail_slots"][i] if cache is not None else None
         x = _block(x, slot, cfg, n_per * per + i, positions=positions,
@@ -362,19 +417,55 @@ def _head(params, cfg: ModelConfig, h):
     return h @ params["head"]
 
 
+def _xent_chunk(params, cfg: ModelConfig, hh, ll):
+    """sum(logsumexp(logits) - logits[label]) over one chunk, f32."""
+    logits = _head(params, cfg, hh).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, ll[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
+def chunked_xent(params, cfg: ModelConfig, h, labels, chunk: int = 256):
+    """Cross-entropy without materializing (B, S, V) logits: a loop over
+    sequence chunks, each chunk's f32 logits recomputed in the backward
+    (``torch.utils.checkpoint``), so one chunk's logits are alive at a
+    time."""
+    B, S, D = h.shape
+    nch = max(1, S // chunk)
+    hc = h.reshape(B, nch, S // nch, D)
+    lc = labels.reshape(B, nch, S // nch)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nch):
+        total = total + torch.utils.checkpoint.checkpoint(
+            _xent_chunk, params, cfg, hc[:, c], lc[:, c], use_reentrant=False)
+    return total / (B * S)
+
+
+def _positions(batch, x):
+    pos = batch.get("positions")
+    if pos is None:
+        B, S = x.shape[0], x.shape[1]
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    return pos
+
+
 def build_forward(cfg: ModelConfig):
-    """Returns (prefill_fn, decode_fn), the reference's forwards.  f32 runs
-    want TF32 off for matrix products on the card
+    """Returns (loss_fn, prefill_fn, decode_fn), the reference's forwards.
+    f32 runs want TF32 off for matrix products on the card
     (torch.backends.cuda.matmul.allow_tf32, False by default)."""
+
+    def loss_fn(params, batch):
+        """Mean next-token cross-entropy of ``batch["labels"]`` (f32, 0-d);
+        its gradient is autograd's."""
+        x = _embed(params, cfg, batch["tokens"])
+        h = _stack_forward(params, x, cfg, positions=_positions(batch, x))
+        h = L.norm(h, params["norm_f"], cfg)
+        return chunked_xent(params, cfg, h, batch["labels"])
 
     def prefill_fn(params, batch):
         """Full-sequence forward returning last-token logits (B, 1, V)."""
         x = _embed(params, cfg, batch["tokens"])
-        pos = batch.get("positions")
-        if pos is None:
-            B, S = x.shape[0], x.shape[1]
-            pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        h = _stack_forward(params, x, cfg, positions=pos)
+        h = _stack_forward(params, x, cfg, positions=_positions(batch, x))
         h = L.norm(h[:, -1:], params["norm_f"], cfg)
         return _head(params, cfg, h)
 
@@ -393,4 +484,4 @@ def build_forward(cfg: ModelConfig):
         h = L.norm(h, params["norm_f"], cfg)
         return _head(params, cfg, h), cache
 
-    return prefill_fn, decode_fn
+    return loss_fn, prefill_fn, decode_fn

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
 from repro_torch.apps import BENCH_CASES, KERNEL_OF  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core.lowering.megakernel import FLOAT_ULP_BOUND  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d_stencil  # noqa: E402
@@ -438,7 +439,7 @@ def test_model_forwards_on_card_match_cpu(card, arch):
     got = {}
     for dev in ("cuda", "cpu"):
         params = init_params(cfg, 0, dev)
-        prefill_fn, decode_fn = build_forward(cfg)
+        _, prefill_fn, decode_fn = build_forward(cfg)
         t = torch.from_numpy(toks).to(dev)
         full = prefill_fn(params, {"tokens": t})
         cache = zero_cache(cfg, B, S, dev)
@@ -455,6 +456,176 @@ def test_model_forwards_on_card_match_cpu(card, arch):
                                "decode": n_decode}
     assert registry.get_kernel("flash_attention").launches() == \
         n_attn + n_decode
+
+
+# ---- the training path: K4's log-sum-exp, the attention gradient, and a
+# train step of every reduced arch ----
+
+# (B, Sq, Skv, H, Hkv, D, window): gemma3-1b's local and global layers,
+# granite's D 64 and g 3, a ragged Sq with a window, and rows 25.. of Sq 40
+# with no key of Skv 20 in their band (window 6)
+LSE_CASES = [(2, 1024, 1024, 4, 1, 256, 512), (2, 1024, 1024, 4, 1, 256, None),
+             (2, 256, 256, 24, 8, 64, None), (1, 200, 200, 4, 1, 64, 70),
+             (2, 40, 20, 4, 2, 64, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,window", LSE_CASES)
+def test_flash_lse_matches_plain(card, B, Sq, Skv, H, Hkv, D, window,
+                                 dtype):
+    """Both prefill forms' row log-sum-exp against attention_ref's, within
+    1e-4 (f32 sums of up to 1024 exponentials; bf16 products are exact in
+    f32, so the bf16 form's scores are the plain version's up to the order
+    of the sum), and the output as without it."""
+    rng = np.random.RandomState(Sq + D)
+    q = _randn(rng, (B, Sq, H, D), dtype, card)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+    plain = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want_out, want = attention_ref(q, k, v, causal=True, window=window,
+                                   return_lse=True)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert (lse - want).abs().max().item() <= 1e-4
+    assert torch.equal(out, plain)
+    assert form_launches()[prefill_form(dtype)] == 2
+
+
+def _attn_grads(q, k, v, do, fn):
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fn(*ts).backward(do)
+    return [t.grad for t in ts]
+
+
+# (B, S, H, Hkv, Dk, Dv, window, scale): gemma3-1b's local and global
+# layers, granite's GQA, and MLA's q, k at 192 and v at 128 zero-padded to
+# 256 (16 of its 128 heads)
+GRAD_CASES = {"gemma3_local": (2, 1024, 4, 1, 256, 256, 512, None),
+              "gemma3_global": (2, 1024, 4, 1, 256, 256, None, None),
+              "granite": (2, 512, 24, 8, 64, 64, None, None),
+              "mla_padded": (2, 256, 16, 16, 192, 128, None, 192 ** -0.5)}
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_attention_function_on_card_matches_autograd_of_plain(card, case,
+                                                              dtype, rel):
+    """FlashAttention (K4 with its lse, the block-recompute backward) on
+    the card against autograd through attention_ref on the card, on the
+    unpadded operands; each gradient within ``rel`` of its largest (f32:
+    sums in another order; bf16: K4 rounds p to bf16 before p . v and out
+    to bf16, which the backward's sum(do * out) reads, and every gradient
+    is rounded to bf16)."""
+    from repro_torch.models.layers import FlashAttention
+    B, S, H, Hkv, dk, dv, window, scale = GRAD_CASES[case]
+    rng = np.random.RandomState(S + H)
+    q = _randn(rng, (B, S, H, dk), dtype, card)
+    k = _randn(rng, (B, S, Hkv, dk), dtype, card)
+    v = _randn(rng, (B, S, Hkv, dv), dtype, card)
+    do = _randn(rng, (B, S, H, dv), dtype, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dp = 256 if dk > 128 or dv != dk else dk
+
+    def k4(a, b, c):
+        pads = [torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+                for t in (a, b, c)]
+        return FlashAttention.apply(*pads, True, window, scale,
+                                    1024)[..., :dv]
+
+    def plain(a, b, c):
+        return attention_ref(a, b, c, causal=True, window=window,
+                             scale=scale).to(dtype)
+
+    got = _attn_grads(q, k, v, do, k4)
+    want = _attn_grads(q, k, v, do, plain)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= rel * w.float().abs().max().item(), err
+    assert form_launches()[prefill_form(dtype)] == 1
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One train step of the reduced arch in f32 (head_dim 64, K4's
+    smallest; MLA's 16 + 16 padded to 64; capacity factor 8, so no token
+    drops; M-RoPE's sections widened to match) on the card against the
+    same on the CPU: the loss within 1e-5,
+    the gradient norm within 1e-5 relative, each gradient leaf within 1e-4
+    of its largest, and K4's SIMT form once per attention layer in the
+    step (reduced configs take no remat)."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import build_forward, init_params
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS[arch]).replace(
+        dtype="float32", head_dim=64, attn_impl="blocked",
+        moe_capacity_factor=8.0)
+    if cfg.mrope_sections:      # M-RoPE's sections cover head_dim / 2
+        cfg = cfg.replace(mrope_sections=(16, 8, 8))
+    B, S = 2, 16
+    rng = np.random.RandomState(5)
+    if cfg.input_mode == "tokens":
+        toks = rng.randint(2, cfg.vocab, (B, S)).astype(np.int32)
+    else:
+        toks = (rng.randn(B, S, cfg.d_model) * 0.3).astype(np.float32)
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(
+        rng.randint(2, cfg.vocab, (B, S)).astype(np.int32))}
+    if cfg.mrope_sections:
+        batch["positions"] = torch.arange(S, dtype=torch.int32)[
+            None, None].expand(3, B, S).contiguous()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(cfg, 0, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        registry.reset_launch_counts()
+        _, _, m = build_train_step(cfg)(params, adamw_init(params), b)
+        launches = form_launches()
+        _, grads = value_and_grad(build_forward(cfg)[0], params, b)
+        got[dev] = (float(m["loss"]), float(m["gnorm"]),
+                    [g.cpu() for g in tree_leaves(grads)], launches)
+    (l1, n1, g1, k1), (l2, n2, g2, _) = got["cuda"], got["cpu"]
+    assert abs(l1 - l2) <= 1e-5 and abs(n1 - n2) <= 1e-5 * n2
+    for a, b in zip(g1, g2):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item() \
+            + 1e-12
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    assert k1 == {"prefill_mma": 0, "prefill_simt": n_attn, "decode": 0}
+
+
+def test_async_save_reuses_its_pinned_buffers(card, tmp_path):
+    """A second async save of card tensors copies into the first's pinned
+    buffers (a leaf of another shape gets a new one), and each checkpoint
+    holds the values of its own save."""
+    from repro_torch.checkpoint import ckpt
+    tree = {"w": torch.arange(6, dtype=torch.float32, device="cuda"),
+            "b": torch.ones(3, dtype=torch.bfloat16, device="cuda")}
+    ckpt.async_save(str(tmp_path), 1, tree)
+    first = list(ckpt._pinned)
+    assert len(first) == 2 and all(b.is_pinned() for b in first)
+    tree["w"].add_(100.0)
+    ckpt.async_save(str(tmp_path), 2, tree)
+    assert [b.data_ptr() for b in ckpt._pinned] == \
+        [b.data_ptr() for b in first]
+    tree["b"] = torch.zeros(5, dtype=torch.bfloat16, device="cuda")
+    ckpt.async_save(str(tmp_path), 3, tree)
+    ckpt.wait_for_save()
+    kept = {b.data_ptr() for b in first}
+    assert [b.data_ptr() in kept for b in ckpt._pinned] == [True, False]
+    w0 = torch.arange(6, dtype=torch.float32)
+    old = {"w": w0, "b": torch.ones(3, dtype=torch.bfloat16)}
+    back = [ckpt.restore_checkpoint(str(tmp_path), s, t, device="cpu")
+            for s, t in ((1, old), (2, old), (3, tree))]
+    assert torch.equal(back[0]["w"], w0)
+    assert torch.equal(back[1]["w"], w0 + 100.0)
+    assert torch.equal(back[1]["b"], old["b"])
+    assert torch.equal(back[2]["b"], torch.zeros(5, dtype=torch.bfloat16))
 
 
 # ---- the cycle kernel (csrc/cyclesim.cu) against its plain version ----

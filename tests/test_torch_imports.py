@@ -4,7 +4,8 @@
   process that lowers and runs every app, compiles, simulates and sizes
   the FIFOs of one through the hardware half (the packed-state engine, a
   population, the explorer and the ingest model included), verifies it
-  and serves a few of its frames, and serves a reduced model, and by a
+  and serves a few of its frames, serves a reduced model, and takes a
+  reduced train step, a checkpoint round trip and a data batch; and by a
   scan of its sources.
 - Compiling loads neither the lowering nor torch.
 - Its entry points never fall back quietly to the CPU: without a card and
@@ -71,6 +72,24 @@ def test_port_runs_without_importing_jax_or_repro():
         from repro_torch.launch.serve import main
         main(["--arch", "gemma3-1b", "--smoke", "--batch", "2",
               "--prompt-len", "3", "--gen", "2", "--device", "cpu"])
+        import tempfile
+        import torch
+        from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+        from repro_torch.configs import ARCHS, reduced
+        from repro_torch.data import DataConfig, make_dataset
+        from repro_torch.models import init_params
+        from repro_torch.optim import adamw_init
+        from repro_torch.train import build_train_step
+        cfg = reduced(ARCHS["gemma3-1b"])
+        batch = next(make_dataset(DataConfig(8, 2, cfg.vocab), device="cpu"))
+        params = init_params(cfg, 0, "cpu")
+        params, opt, m = build_train_step(cfg)(params, adamw_init(params),
+                                               batch)
+        assert torch.isfinite(m["loss"])
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, 1, (params, opt))
+            back = restore_checkpoint(d, 1, (params, opt))
+        assert torch.equal(back[0]["embed"], params["embed"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
@@ -94,6 +113,10 @@ def _port_files():
 def test_port_sources_import_nothing_of_jax_or_repro():
     files = _port_files()
     assert len(files) > 20
+    # the training half is scanned too
+    for part in ("optim", "checkpoint", "data", "train"):
+        assert any(os.sep + part + os.sep in f for f in files), part
+    assert any(f.endswith(os.path.join("launch", "train.py")) for f in files)
     bad = [f for f in files if _FORBIDDEN.search(Path(f).read_text())]
     assert not bad
 
@@ -144,6 +167,24 @@ def test_entry_points_raise_without_a_card(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(design, entry)(*args, device="cuda")
     assert getattr(design, entry)(*args, device="cpu") is not None
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """launch.train and make_dataset want the card unless given the CPU."""
+    from repro_torch.data import DataConfig, make_dataset
+    from repro_torch.launch import train as launch_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "gemma3-1b", "--smoke", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(make_dataset(DataConfig(8, 2, 50)))
+    assert next(make_dataset(DataConfig(8, 2, 50), device="cpu"))[
+        "tokens"].device.type == "cpu"
+    res = launch_train.main(["--arch", "gemma3-1b", "--smoke", "--steps", "1",
+                             "--batch", "2", "--seq", "8", "--ckpt-dir",
+                             str(tmp_path), "--device", "cpu"])
+    assert res.end_step == 1
 
 
 def test_unknown_backend_and_device_are_refused():

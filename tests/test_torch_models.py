@@ -457,7 +457,7 @@ def _forwards(arch, dtype, attn_impl="naive", decode=True, **kw):
     ref_params, params = _params(ref_cfg, cfg)
     ref_batch, batch = _batch(cfg, B, S, np.random.RandomState(0))
     _, ref_prefill, ref_decode = ref_build_forward(ref_cfg)
-    prefill_fn, decode_fn = build_forward(cfg)
+    _, prefill_fn, decode_fn = build_forward(cfg)
     out = {"prefill": (ref_prefill(ref_params, ref_batch),
                        prefill_fn(params, batch))}
     if decode:
