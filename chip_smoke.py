@@ -203,12 +203,30 @@ phase prints one JSON line:
            its device time, then the run resumed from step 4, whose
            losses must replay steps 5-8: step ms (host), device ms,
            tokens/s, peak memory
+  train_families  K4's row log-sum-exp and the attention gradient at the
+           families' training shapes (granite's GQA at D 64 on 4 x 1024,
+           deepseek's MLA zero-padded to D 256 on 2 x 1024; bf16) with
+           the plain backward's ms beside scaled_dot_product_attention's
+           backward;
+           then granite-moe-3b-a800m and mamba2-1.3b uncut and
+           deepseek-v2-236b cut to 1 layer, all at full width: one f32
+           step of the model cut to 2 layers (deepseek 1) with K4 against
+           the same step with the plain attention on the card (mamba2:
+           card against CPU), loss and every gradient leaf; 4 bf16 AdamW
+           steps (the in-place update) on 4 x 1024 tokens (deepseek 2 x
+           1024), K4's counters
+           set to 0 before each step and read after it (the tensor-core
+           form once per attention layer and once more in the remat
+           backward), step ms (host and CUDA events), the device ms of a
+           profiled fifth step, peak memory; then moe_ffn_a2a through a
+           one-rank NCCL process group on a (1, 1) mesh, granite cut to 2
+           layers in f32, loss and gradients against moe_ffn
   total    the script's seconds so far
   kernels  one line: every kernel (K3 once per app segment, K4 once per
            form on gemma3-1b's path and once per form on each family's
            path that launches it, ``flash_attention:<form>:<arch>``, the
-           training path's ``flash_attention:prefill_mma:train``, the
-           cycle kernel) with its launches on its main path (the counters
+           training paths' ``flash_attention:prefill_mma:train`` and
+           ``flash_attention:prefill_mma:train:<arch>``, the cycle kernel) with its launches on its main path (the counters
            are reset just before the cycle phase's path, the image path
            phase, each f32 prefill_fn call and each bf16 prefill_fn call;
            each K4 entry counts one path's launches beside the case at
@@ -1657,30 +1675,21 @@ def serve_phase(torch, np, paper):
     return line
 
 
-def attention_pairs(np, sq: int, skv: int, causal: bool, window) -> int:
-    """Unmasked (q, k) pairs of one head: row i sees keys
-    max(0, i - W + 1) .. min(i, skv - 1); a row whose band is empty
-    averages every key, so it counts skv."""
-    i = np.arange(sq)
-    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
-    n = hi - lo + 1
-    return int(np.where(n > 0, n, skv).sum())
-
-
 def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
-               scale=None, dims=None, lse=False):
+               scale=None, dims=None, lse=False, q_offset=0):
     """K4 against its plain version on one case, then its time, the plain
     version's, scaled_dot_product_attention's and the bound.  ``dims`` =
     (Dk, Dv) are the real head dims of operands zero-padded to K4's D (MLA):
     the bound counts the unpadded work, 2 (Dk + Dv) flops a (q, k) pair,
     and the library call takes the unpadded operands.  ``lse``: the
     prefill with its row log-sum-exp (the training path's call), held to
-    the plain version's within LSE_ATOL; the bound counts its bytes."""
+    the plain version's within LSE_ATOL; the bound counts its bytes.
+    ``q_offset``: query row i at key position i + q_offset (a
+    context-parallel rank's rows)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
-    from repro_torch.kernels.flash.ops import (decode_split, form_launches,
-                                               prefill_form)
+    from repro_torch.kernels.flash.ops import (
+        attention_pairs, decode_split, form_launches, prefill_form)
     from repro_torch.kernels.timing import device_ms
     from repro_torch.kernels.flash.ref import attention_ref
 
@@ -1692,10 +1701,10 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     else:
         run = lambda: flash_attention(q, k, v, causal=causal,   # noqa: E731
                                       window=window, scale=scale,
-                                      return_lse=lse)
+                                      return_lse=lse, q_offset=q_offset)
         plain_pair = lambda: attention_ref(                     # noqa: E731
             q, k, v, causal=causal, window=window, scale=scale,
-            return_lse=lse)
+            return_lse=lse, q_offset=q_offset)
         plain = (lambda: plain_pair()[0]) if lse else plain_pair  # noqa: E731
     before = form_launches()
     got = run()
@@ -1728,6 +1737,8 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
             "tolerance": atol}
     if dims:
         line["shape"].update({"Dk": dk, "Dv": dv, "scale": scale})
+    if q_offset:
+        line["shape"]["q_offset"] = q_offset
     if lse:
         line.update({"lse": True, "lse_max_abs_err": lse_err,
                      "lse_tolerance": LSE_ATOL})
@@ -1740,10 +1751,10 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     qt, kt, vt = (t[..., :d].transpose(1, 2).contiguous()
                   for t, d in ((q, dk), (k, dk), (v, dv)))
     mask = None
-    if window and not decode:
-        i = torch.arange(sq, device=q.device)[:, None]
+    if (window or q_offset) and not decode:
+        i = q_offset + torch.arange(sq, device=q.device)[:, None]
         j = torch.arange(skv, device=q.device)[None]
-        mask = (j <= i) & (j > i - window)
+        mask = (j <= i) & (j > i - window) if window else j <= i
     is_causal = causal and not decode and mask is None
 
     def library():
@@ -1756,7 +1767,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     one = cuda_ms(run, 1, warmup=1)
     iters = max(5, min(200, int(200 / max(one, 1e-3))))
     pairs = B * H * (skv if decode else attention_pairs(
-        np, sq, skv, causal, window))
+        sq, skv, causal, window, q_offset))
     elem = q.element_size()
     nbytes = elem * (B * sq * H * (dk + dv) + B * skv * hkv * (dk + dv))
     if lse:
@@ -1944,6 +1955,19 @@ def flash_phase(torch, np):
             torch, np, name, q, k, v, causal=True, window=None,
             decode=False, atol=atol, scale=dk ** -0.5, dims=(dk, dv))
         del q, k, v
+    # a context-parallel rank's rows (models.layers._on_mesh): the last
+    # quarter of a 1024-token sequence against the keys before it, with
+    # the lse, and rows at an offset under a window
+    for name, (b, sq, skv, h, hkv, d, off, window, dtype, atol) in {
+            "offset_rows_bf16": (2, 256, 1024, 4, 1, 256, 768, None, bf16,
+                                 3e-2),
+            "offset_window_f32": (1, 200, 400, 8, 2, 64, 200, 70, f32,
+                                  2e-5)}.items():
+        lines[name] = flash_case(
+            torch, np, name, randn((b, sq, h, d), dtype),
+            randn((b, skv, hkv, d), dtype), randn((b, skv, hkv, d), dtype),
+            causal=True, window=window, decode=False, atol=atol,
+            lse=dtype == bf16, q_offset=off)
     torch.cuda.empty_cache()
     for line in lines.values():
         emit(line)
@@ -2224,13 +2248,14 @@ class RouteLog:
         torch, orig = self.torch, self.L.moe_ffn
         self.orig = orig
 
-        def logged(x, p, cfg, *, n_experts_padded):
+        def logged(x, p, cfg, **kw):
             K = cfg.moe_top_k
-            gates = torch.softmax(x.float() @ p["router"], dim=-1)
-            top, idx = torch.topk(gates, K + 1, dim=-1)
-            self.calls.append((idx[..., :K].sort(dim=-1).values,
-                               top[..., K - 1] - top[..., K]))
-            return orig(x, p, cfg, n_experts_padded=n_experts_padded)
+            with torch.no_grad():       # no graph kept under a gradient
+                gates = torch.softmax(x.float() @ p["router"], dim=-1)
+                top, idx = torch.topk(gates, K + 1, dim=-1)
+                self.calls.append((idx[..., :K].sort(dim=-1).values,
+                                   top[..., K - 1] - top[..., K]))
+            return orig(x, p, cfg, **kw)
 
         self.L.moe_ffn = logged
         return self
@@ -2470,14 +2495,18 @@ RESUME_ATOL = 1e-3   # the resumed run's losses against the uninterrupted
 
 
 def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
-                        timed: bool):
+                        timed: bool, scale=None, dims=None):
     """The attention Function (K4 with its lse, the plain block-recompute
     backward) against autograd through attention_ref on the card: each
     gradient within GRAD_REL of its largest; then, if ``timed``, the
     backward's device ms (``flash_attention_bwd`` alone) beside
     scaled_dot_product_attention's backward on the same operands, both by
-    CUDA events (the profiler misses the library's main backward kernel)."""
+    CUDA events (the profiler misses the library's main backward kernel).
+    ``dims`` = (Dk, Dv): operands zero-padded to D past them (MLA), with
+    ``scale``; the library takes the unpadded operands and the flops count
+    the unpadded work."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash.ops import attention_pairs
     from repro_torch.kernels.flash.ref import attention_ref
     from repro_torch.kernels.timing import device_ms
     from repro_torch.models.layers import FlashAttention, flash_attention_bwd
@@ -2488,8 +2517,13 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda(
             ).to(dtype)
 
-    q, k, v = randn((B, S, H, D)), randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
-    do = randn((B, S, H, D))
+    dk, dv = dims or (D, D)
+
+    def padded(shape, d):
+        return torch.nn.functional.pad(randn(shape[:-1] + (d,)), (0, D - d))
+
+    q, k = padded((B, S, H, D), dk), padded((B, S, Hkv, D), dk)
+    v, do = padded((B, S, Hkv, D), dv), padded((B, S, H, D), dv)
 
     def grads(fn):
         ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -2497,9 +2531,9 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
         return [t.grad for t in ts]
 
     got = grads(lambda a, b, c: FlashAttention.apply(a, b, c, True, window,
-                                                     None, 1024))
+                                                     scale, 1024))
     want = grads(lambda a, b, c: attention_ref(
-        a, b, c, causal=True, window=window).to(dtype))
+        a, b, c, causal=True, window=window, scale=scale).to(dtype))
     rel = GRAD_REL[str(dtype).split(".")[-1]]
     errs = []
     for which, g, w in zip("qkv", got, want):
@@ -2516,27 +2550,28 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
     if not timed:
         return line
     out, lse = flash_attention(q, k, v, causal=True, window=window,
-                               return_lse=True)
-    scale = D ** -0.5
+                               scale=scale, return_lse=True)
     bwd = lambda: flash_attention_bwd(                           # noqa: E731
-        q, k, v, out, lse, do, causal=True, window=window, scale=scale,
-        block_kv=1024)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
+        q, k, v, out, lse, do, causal=True, window=window,
+        scale=D ** -0.5 if scale is None else scale, block_kv=1024)
+    qt, kt, vt = (t[..., :d].transpose(1, 2).contiguous().requires_grad_(True)
+                  for t, d in ((q, dk), (k, dk), (v, dv)))
     mask = None
     if window:
         i = torch.arange(S, device="cuda")[:, None]
         j = torch.arange(S, device="cuda")[None]
         mask = (j <= i) & (j > i - window)
     lib_out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
-    dot = do.transpose(1, 2).contiguous()
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale,
+        enable_gqa=True)
+    dot = do[..., :dv].transpose(1, 2).contiguous()
     lib_bwd = lambda: torch.autograd.grad(                       # noqa: E731
         lib_out, (qt, kt, vt), dot, retain_graph=True)
     # the backward's five products a (q, k) pair in the band (s again, dv,
     # dp, dq, dk), 2 D flops each; the plain backward also computes the
     # pairs outside the band
-    flops = 10 * D * B * H * attention_pairs(np, S, S, True, window)
+    flops = 2 * (3 * dk + 2 * dv) * B * H * attention_pairs(S, S, True,
+                                                            window)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     # the plain backward's device ms (the profiler's events) with its
     # CUDA-event ms beside them; the library's by CUDA events alone
@@ -2759,6 +2794,317 @@ def train_phase(torch, np):
     return line, cases["train_local_bf16"], launches
 
 
+# ---- the train_families phase: MoE, Mamba2 and MLA + MoE trained at full
+# width, and the expert-parallel MoE through NCCL ----
+
+# (arch, cut, batch): each at full width, deepseek-v2 cut to its first
+# layer (one MLA and one 160-expert MoE layer, 5.02 B parameters) and
+# trained on batch 2: at batch 4 its 60 GB of parameters, gradients and
+# moments and the plain attention backward's f32 temporaries (128 heads)
+# pass the card's 80 GB
+TRAIN_FAMILIES = (("granite-moe-3b-a800m", {}, 4), ("mamba2-1.3b", {}, 4),
+                  ("deepseek-v2-236b", {"n_layers": 1}, 2))
+FAM_TRAIN_BATCH, FAM_TRAIN_SEQ, FAM_TRAIN_STEPS = 4, 1024, 4
+FAM_CHECK_SEQ = {"granite-moe-3b-a800m": 128, "mamba2-1.3b": 128,
+                 "deepseek-v2-236b": 64}    # the f32 checks' batch is 2
+LOSS_ATOL = 1e-4     # f32 losses: K4 against the plain attention, a2a
+A2A_RTOL, A2A_ATOL = 1e-5, 1e-4   # tests/test_perf_variants.py's
+
+
+def _grads_held(torch, what, la, ga, lb, gb, atol, rtol=None):
+    """The loss within LOSS_ATOL of ``lb``, and every gradient leaf finite
+    and, with ``rtol``, within atol + rtol |b| elementwise, else within
+    ``atol`` of the leaf's largest magnitude."""
+    from repro_torch.models.model import tree_leaves
+    loss_err = abs(float(la) - float(lb))
+    worst, n = 0.0, 0
+    for a, b in zip(tree_leaves(ga), tree_leaves(gb)):
+        a, b, n = a.float(), b.float(), n + 1
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        if rtol is None:
+            big = max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+            ok, worst = err <= atol * big, max(worst, err / big)
+        else:
+            ok = bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+            worst = max(worst, err)
+        if not (ok and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{what}: a gradient leaf off by {err}")
+    if not loss_err <= LOSS_ATOL:
+        raise AssertionError(f"{what}: loss {float(la)} against {float(lb)}")
+    return {"loss": float(lb), "loss_abs_diff": loss_err,
+            "loss_atol": LOSS_ATOL, "leaves": n, "worst_leaf_diff": worst,
+            "leaf_atol": atol, "leaf_rtol": rtol}
+
+
+def train_family(torch, np, arch: str, cut: dict, batch: int):
+    """One family trained on the card: the f32 checks, then FAM_TRAIN_STEPS
+    bf16 AdamW steps (the in-place update) on ``batch`` x FAM_TRAIN_SEQ
+    tokens, K4's counters set to 0 before each step and read
+    after it.  Returns the line and K4's launches on the training path."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash.ops import form_launches
+    from repro_torch.kernels.timing import device_events
+    from repro_torch.models import build_forward
+    from repro_torch.models.model import moe_experts_padded, tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step, value_and_grad
+
+    cfg = ARCHS[arch].replace(**cut)
+    if cfg.period != 1:
+        raise AssertionError(f"{arch}: the cuts take period 1")
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    E = moe_experts_padded(cfg) if cfg.moe_experts else 0
+    t_arch = time.perf_counter()
+    line = {"phase": "train_families", "arch": arch, "reduced": cut,
+            "allocated_gb_at_start": torch.cuda.memory_allocated() / 1e9,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "attn_layers": n_attn, "mla": cfg.mla, "moe_layers": n_moe,
+            "experts_padded": E, "remat": cfg.remat}
+
+    # f32, the model cut to 2 layers (deepseek: its 1), capacity factor
+    # E / K (no drop): the loss and every gradient leaf with K4 (its SIMT
+    # form, with the lse) against the same step with the plain attention
+    # (attn_impl "naive"), both on the card; mamba2 has no attention and
+    # holds the card against the CPU.  A batch row whose MoE routes differ
+    # between the two (a near-tie, compare_routes) is left out and both
+    # are taken again on the other rows.
+    n2 = min(2, cfg.n_layers)
+    cfg32 = cfg.replace(dtype="float32", n_layers=n2, moe_capacity_factor=(
+        E / cfg.moe_top_k if E else cfg.moe_capacity_factor))
+    n_attn2 = sum(cfg32.layer_kind(i) == "attn" for i in range(n2))
+    n_moe2 = sum(cfg32.layer_is_moe(i) for i in range(n2))
+    seq = FAM_CHECK_SEQ[arch]
+    host = _batch_at(DataConfig(seq, 2, cfg.vocab), 0, 0, 2)
+    p32 = card_params(torch, cfg32, 1)
+    t0 = time.perf_counter()
+
+    def run(c, params, rows, device):
+        b = {k: torch.from_numpy(v[rows]).to(device) for k, v in host.items()}
+        registry.reset_launch_counts()
+        with RouteLog(torch) as log:
+            out = value_and_grad(build_forward(c)[0], params, b)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        return out, log, form_launches()
+
+    rows = [0, 1]
+    # K4's SIMT form in the forward and the remat recompute, once each an
+    # attention layer
+    want = {"prefill_mma": 0, "prefill_simt": 2 * n_attn2, "decode": 0}
+    for _ in range(2):
+        (la, ga), log_a, n_a = run(cfg32, p32, rows, "cuda")
+        if n_a != want:
+            raise AssertionError(f"{arch} f32 step launched {n_a}, want "
+                                 f"{want}")
+        if n_attn2:
+            (lb, gb), log_b, _ = run(cfg32.replace(attn_impl="naive"), p32,
+                                     rows, "cuda")
+            other = "plain attention on the card"
+        else:
+            from repro_torch.models.model import tree_map
+            (lb, gb), log_b, _ = run(cfg32, tree_map(lambda t: t.cpu(), p32),
+                                     rows, "cpu")
+            other = "the CPU"
+        kept, roots = compare_routes(torch, log_a, log_b, n_moe2, len(rows))
+        if len(kept) == len(rows):
+            break
+        rows = [rows[r] for r in kept]
+    ga = [g.cpu() for g in tree_leaves(ga)] if not n_attn2 else ga
+    line["f32_step"] = dict(
+        _grads_held(torch, f"{arch} f32 step, K4 against {other}", la, ga,
+                    lb, gb, LEAF_REL),
+        against=other, n_layers=n2, batch_rows=rows, seq=seq,
+        capacity_factor=cfg32.moe_capacity_factor, route_roots=roots,
+        simt_launches=n_a["prefill_simt"], s=time.perf_counter() - t0)
+    del p32, ga, gb, log_a, log_b
+    torch.cuda.empty_cache()
+
+    # bf16 at full width: FAM_TRAIN_STEPS steps of build_train_step with
+    # the in-place AdamW, then one more under the profiler
+    per_step = n_attn + (cfg.n_layers // cfg.period * sum(
+        cfg.layer_kind(i) == "attn" for i in range(cfg.period))
+        if cfg.remat else 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = card_params(torch, cfg, 0)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    line["init_s"] = time.perf_counter() - t0
+    line["params"] = sum(t.numel() for t in tree_leaves(params))
+    step = build_train_step(cfg)
+    dcfg = DataConfig(FAM_TRAIN_SEQ, batch, cfg.vocab)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in _batch_at(dcfg, i, 0, batch).items()}
+
+    losses, gnorms, host_ms, event_ms, launches = [], [], [], [], []
+    total = {"prefill_mma": 0, "prefill_simt": 0, "decode": 0}
+    for i in range(FAM_TRAIN_STEPS):
+        b = batch_at(i)
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1 = time.perf_counter()
+        ev0.record()
+        params, opt, metrics = step(params, opt, b)
+        ev1.record()
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t1))
+        event_ms.append(ev0.elapsed_time(ev1))
+        n = form_launches()
+        if n != {"prefill_mma": per_step, "prefill_simt": 0, "decode": 0}:
+            raise AssertionError(f"{arch} train step {i} launched {n}, want "
+                                 f"{per_step} of prefill_mma")
+        launches.append(n)
+        total = {f: total[f] + n[f] for f in total}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(gnorms))):
+        raise AssertionError(f"{arch} training: a non-finite loss or gradient "
+                             f"norm: {losses} {gnorms}")
+    b = batch_at(FAM_TRAIN_STEPS)
+    t1 = time.perf_counter()
+    dev_ms, by_name = device_events(lambda: step(params, opt, b), 1,
+                                    warmup=0)
+    profile_s = time.perf_counter() - t1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    del params, opt, step, b
+    torch.cuda.empty_cache()
+    line.update({
+        "batch": batch, "seq": FAM_TRAIN_SEQ,
+        "steps": FAM_TRAIN_STEPS, "losses": losses, "gnorms": gnorms,
+        "step_ms_host": host_ms, "step_ms_events": event_ms,
+        "step_ms_median": float(np.median(host_ms[1:])),
+        "step_device_ms": dev_ms,
+        "device_busy_share": dev_ms / float(np.median(host_ms[1:])),
+        "k4_device_ms": sum(ms for nm, ms in by_name.items()
+                            if "flash_mma_kernel" in nm),
+        "top": [{"name": nm[:80], "ms": ms} for nm, ms in top[:8]],
+        "k4_launches_per_step": launches[0],
+        "k4_launches_per_step_want": per_step,
+        "peak_memory_gb": peak, "profile_s": profile_s,
+        "arch_s": time.perf_counter() - t_arch})
+    emit(line)
+    return line, total
+
+
+def a2a_case(torch, np):
+    """``moe_ffn_a2a`` through NCCL: a one-rank process group and a (1, 1)
+    DeviceMesh, granite cut to 2 layers at full width in f32, capacity
+    factor 8: the loss and every gradient leaf of ``build_forward`` with
+    the mesh (``_block`` takes moe_ffn_a2a, its all-to-alls and local_map
+    at size 1) against ``moe_ffn`` without it, at the reference test's
+    tolerances; the collectives counted by ``parallel.collective_bytes``."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.models import build_forward
+    from repro_torch.parallel import collective_bytes
+    from repro_torch.train import value_and_grad
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = ARCHS["granite-moe-3b-a800m"].replace(
+            n_layers=2, dtype="float32", moe_capacity_factor=8.0)
+        params = card_params(torch, cfg, 2)
+        b = {k: torch.from_numpy(v).cuda() for k, v in _batch_at(
+            DataConfig(128, 2, cfg.vocab), 0, 0, 2).items()}
+        la, ga = value_and_grad(build_forward(cfg)[0], params, b)
+        with collective_bytes() as rec:
+            lb, gb = value_and_grad(build_forward(
+                cfg.replace(moe_impl="a2a"), mesh=mesh)[0], params, b)
+            torch.cuda.synchronize()
+        held = _grads_held(torch, "moe_ffn_a2a through NCCL against moe_ffn",
+                           lb, gb, la, ga, A2A_ATOL, A2A_RTOL)
+        if not rec.calls.get("all-to-all"):
+            raise AssertionError(f"moe_ffn_a2a: no all-to-all counted "
+                                 f"({rec.calls})")
+        line = {"phase": "train_families", "check": "moe_a2a_nccl",
+                "arch": cfg.name, "n_layers": 2, "batch": 2, "seq": 128,
+                "mesh": [1, 1], "backend": dist.get_backend(),
+                "capacity_factor": 8.0, **held,
+                "collective_calls": rec.calls,
+                "collective_bytes": rec.counts,
+                "s": time.perf_counter() - t0}
+        del params, ga, gb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit(line)
+    return line
+
+
+def train_families_phase(torch, np):
+    """K4's lse and the attention gradient at the families' training
+    shapes (granite's at batch 4, MLA's at deepseek's batch 2), each
+    family trained (train_family), and the NCCL a2a case.
+    Returns K4's cases (granite's GQA D 64 and MLA's padded D 256) and
+    each family's K4 launches on its training path."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    t_phase = time.perf_counter()
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers import padded_head_dim
+    rng = np.random.RandomState(25)
+
+    def randn(shape, dtype):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda(
+            ).to(dtype)
+
+    g, m = ARCHS["granite-moe-3b-a800m"], ARCHS["deepseek-v2-236b"]
+    dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    dp = padded_head_dim(dk)
+    # each at its training path's batch
+    B, S, bf16 = FAM_TRAIN_BATCH, FAM_TRAIN_SEQ, torch.bfloat16
+    Bm = {a: b for a, _, b in TRAIN_FAMILIES}["deepseek-v2-236b"]
+    cases = {"granite": flash_case(
+        torch, np, "train_granite_bf16", randn((B, S, g.n_heads, g.hd), bf16),
+        randn((B, S, g.n_kv_heads, g.hd), bf16),
+        randn((B, S, g.n_kv_heads, g.hd), bf16), causal=True, window=None,
+        decode=False, atol=3e-2, lse=True)}
+    q, k, v = (torch.nn.functional.pad(randn((Bm, S, m.n_heads, d), bf16),
+                                       (0, dp - d)) for d in (dk, dk, dv))
+    cases["mla"] = flash_case(
+        torch, np, "train_mla_bf16", q, k, v, causal=True, window=None,
+        decode=False, atol=3e-2, scale=dk ** -0.5, dims=(dk, dv), lse=True)
+    del q, k, v
+    for c in cases.values():
+        emit(c)
+    grads = [attention_grad_case(torch, np, "train_granite_bf16", B, S,
+                                 g.n_heads, g.n_kv_heads, g.hd, None, bf16,
+                                 timed=True),
+             attention_grad_case(torch, np, "train_mla_bf16", Bm, S,
+                                 m.n_heads, m.n_heads, dp, None, bf16,
+                                 timed=True, scale=dk ** -0.5,
+                                 dims=(dk, dv))]
+    emit({"phase": "train_families", "attention_grad": grads})
+    torch.cuda.empty_cache()
+    lines, launches = {}, {}
+    for arch, cut, batch in TRAIN_FAMILIES:
+        lines[arch], launches[arch] = train_family(torch, np, arch, cut,
+                                                   batch)
+    a2a_case(torch, np)
+    emit({"phase": "train_families",
+          "archs": [a for a, _, _ in TRAIN_FAMILIES],
+          "phase_s": time.perf_counter() - t_phase})
+    return cases, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2819,6 +3165,9 @@ def main() -> int:
     # the training path: its counters set to 0 just before launch/train's
     # loop and read just after
     _, kern_train, train_launches = train_phase(torch, np)
+    # the families' training paths: counters set to 0 before each step and
+    # read after it
+    kern_fam_train, fam_train_launches = train_families_phase(torch, np)
     for arch, n in fam_launches.items():
         forms = FAMILY_K4.get(arch, (None, ()))[1]
         if any(n[f] != 0 for f in n if f not in forms) or \
@@ -2827,7 +3176,8 @@ def main() -> int:
                                  f"want exactly the forms {forms}")
     launches["flash_attention"] = sum(llm_launches.values()) + sum(
         sum(n.values()) for n in fam_launches.values()) + sum(
-        train_launches.values())
+        train_launches.values()) + sum(
+        sum(n.values()) for n in fam_train_launches.values())
     launches["cyclesim"] = kern_cycle["launches"]
     for n, count in launches.items():
         if count == 0:
@@ -2871,6 +3221,13 @@ def main() -> int:
                           train_launches["prefill_mma"]),
                   lse_max_abs_err=kern_train["lse_max_abs_err"],
                   lse_tolerance=kern_train["lse_tolerance"])]
+          + [dict(k4_line(f"flash_attention:prefill_mma:train:{arch}",
+                          kern_fam_train[key],
+                          fam_train_launches[arch]["prefill_mma"]),
+                  lse_max_abs_err=kern_fam_train[key]["lse_max_abs_err"],
+                  lse_tolerance=kern_fam_train[key]["lse_tolerance"])
+             for arch, key in (("granite-moe-3b-a800m", "granite"),
+                               ("deepseek-v2-236b", "mla"))]
           + [dict(line("cyclesim", registry.get_kernel("cyclesim"),
                        kern_cycle, kern_cycle["launches"]),
                   case=f"flow 1920x1080, 1 frame, first "

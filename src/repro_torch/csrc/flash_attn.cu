@@ -217,8 +217,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
                      const T* __restrict__ k, const T* __restrict__ v,
                      Strides qs, Strides ks, Strides vs, int H, int g, int sq,
-                     int skv, int causal, int window, float scale, int vec,
-                     float* __restrict__ lse) {
+                     int skv, int causal, int window, int q_off, float scale,
+                     int vec, float* __restrict__ lse) {
   static_assert(sizeof(T) == sizeof(float), "the SIMT form is f32 only");
   constexpr int RS = row_stride<D>();
   constexpr int CPL = D / 32;              // columns per lane
@@ -239,12 +239,14 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
   const float* kb = reinterpret_cast<const float*>(k) + b * ks.b + hk * ks.h;
   const float* vb = reinterpret_cast<const float*>(v) + b * vs.b + hk * vs.h;
 
-  // the keys this tile's band meets; a row with no key in its band (only
-  // possible with a window and sq > skv) needs every key, at -1e30
-  int kv_lo = 0, kv_hi = causal ? min(skv, q1) : skv;
+  // the keys this tile's band meets (row i sits at position i + q_off); a
+  // row with no key in its band (only possible with a window and
+  // sq + q_off > skv) needs every key, at -1e30
+  const int p0 = q0 + q_off, p1 = q1 + q_off;
+  int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
   if (window > 0) {
-    if (q1 - window >= skv) kv_hi = skv;
-    else kv_lo = max(0, q0 - window + 1);
+    if (p1 - window >= skv) kv_hi = skv;
+    else kv_lo = max(0, p0 - window + 1);
   }
   const int ntiles = (kv_hi - kv_lo + kBK - 1) / kBK;
 
@@ -329,7 +331,7 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
     }
 
     // online softmax over the tile: row rl on lanes 4rl .. 4rl+3
-    const int qi = q0 + warp * kRW + rl;
+    const int qi = q0 + warp * kRW + rl + q_off;   // the row's position
     float mx = -INFINITY;
 #pragma unroll
     for (int c = 0; c < kBK / 4; ++c) {
@@ -429,7 +431,7 @@ template <typename T, int D>
 cudaError_t launch_prefill(void* out, const void* q, const void* k,
                            const void* v, Strides qs, Strides ks, Strides vs,
                            int B, int H, int g, int sq, int skv, int causal,
-                           int window, float scale, float* lse,
+                           int window, int q_off, float scale, float* lse,
                            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
@@ -444,7 +446,7 @@ cudaError_t launch_prefill(void* out, const void* q, const void* k,
   flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs, H, g,
-      sq, skv, causal, window, scale, vec, lse);
+      sq, skv, causal, window, q_off, scale, vec, lse);
   return cudaGetLastError();
 }
 
@@ -811,6 +813,8 @@ cudaError_t launch_decode_any_g(void* out, float* ws, const void* q,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  D: 64, 128 or 256.  window 0 = none.
+// q_off: query row i sits at key position i + q_off for the causal and
+// window masks (0: row i aligns with key i).
 // Strides are in elements, (b, s, h) for each of q, k, v.
 #define K4_DISPATCH_D(CALL, T)                                             \
   do {                                                                     \
@@ -830,16 +834,16 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  long long qsb, long long qss, long long qsh,
                                  long long ksb, long long kss, long long ksh,
                                  long long vsb, long long vss, long long vsh,
-                                 int causal, int window, float scale,
-                                 float* lse, void* stream) {
+                                 int causal, int window, int q_off,
+                                 float scale, float* lse, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K4_PREFILL_SIMT(T, DD)                                             \
   simt::launch_prefill<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq,  \
-                              skv, causal, window, scale, lse, st)
+                              skv, causal, window, q_off, scale, lse, st)
 #define K4_PREFILL_MMA(T, DD)                                              \
   launch_mma<DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv, causal, \
-                 window, scale, lse, st)
+                 window, q_off, scale, lse, st)
   if (dtype == 0) K4_DISPATCH_D(K4_PREFILL_SIMT, float);
   if (dtype == 1) K4_DISPATCH_D(K4_PREFILL_MMA, __nv_bfloat16);
   return int(cudaErrorInvalidValue);

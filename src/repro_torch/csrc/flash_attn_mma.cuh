@@ -210,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
                  const bf16* __restrict__ k, const bf16* __restrict__ v,
                  Strides qs, Strides ks, Strides vs, int H, int g, int sq,
-                 int skv, int causal, int window, float scale,
+                 int skv, int causal, int window, int q_off, float scale,
                  float* __restrict__ lse) {
   constexpr int RS = row_stride<D>(), BK = key_tile<D>();
   constexpr int NO = D / 8;              // n8 blocks of the O accumulator
@@ -229,12 +229,14 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
-  // the keys this tile's band meets (as the SIMT form); a row with no key
-  // in its band (only with a window and sq > skv) needs every key, at -1e30
-  int kv_lo = 0, kv_hi = causal ? min(skv, q1) : skv;
+  // the keys this tile's band meets (as the SIMT form: row i sits at
+  // position i + q_off); a row with no key in its band (only with a window
+  // and sq + q_off > skv) needs every key, at -1e30
+  const int p0 = q0 + q_off, p1 = q1 + q_off, pw0 = w0 + q_off;
+  int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
   if (window > 0) {
-    if (q1 - window >= skv) kv_hi = skv;
-    else kv_lo = max(0, q0 - window + 1);
+    if (p1 - window >= skv) kv_hi = skv;
+    else kv_lo = max(0, p0 - window + 1);
   }
 
   load_tile<D, kBQ>(sQ, qb, qs.s, q0, sq, tid);
@@ -271,8 +273,8 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
     // scale and mask; a tile inside every row's band of this warp skips
     // the per-element test
     const bool inside = t0 + BK <= skv &&
-                        (!causal || t0 + BK - 1 <= w0) &&
-                        (window <= 0 || t0 > w0 + 15 - window);
+                        (!causal || t0 + BK - 1 <= pw0) &&
+                        (window <= 0 || t0 > pw0 + 15 - window);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
@@ -280,7 +282,7 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
       for (int c = 0; c < 4; ++c) {
         float x = s[n][c] * scale;
         if (!inside) {
-          const int row = w0 + gr + (c >> 1) * 8;
+          const int row = pw0 + gr + (c >> 1) * 8;   // its position
           const int key = t0 + n * 8 + tig * 2 + (c & 1);
           bool keep = !causal || key <= row;
           if (window > 0) keep = keep && key > row - window;
@@ -402,7 +404,8 @@ template <int D>
 cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
                        Strides qs, Strides ks, Strides vs, int B, int H,
                        int g, int sq, int skv, int causal, int window,
-                       float scale, float* lse, cudaStream_t stream) {
+                       int q_off, float scale, float* lse,
+                       cudaStream_t stream) {
   constexpr size_t smem = mma::smem_bytes<D>();
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
   // the attribute belongs to the current device)
@@ -414,7 +417,7 @@ cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
   mma::flash_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
       static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
       static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v), qs,
-      ks, vs, H, g, sq, skv, causal, window, scale, lse);
+      ks, vs, H, g, sq, skv, causal, window, q_off, scale, lse);
   return cudaGetLastError();
 }
 

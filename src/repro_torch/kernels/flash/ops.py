@@ -16,23 +16,33 @@ no other form to fall back to).
 Every launch counts under ``flash_attention`` and under its form,
 ``flash_attention:<form>`` for the forms of ``FORMS``; ``form_launches``
 reads the latter.
+
+On the CPU the prefill is the operator ``repro_torch::flash_attention``:
+its plain version on CPU tensors, and on fake tensors (a dry run) its
+outputs' shapes alone, with the flops K4 does (``prefill_flops``: the
+unmasked (q, k) pairs) for ``torch.utils.flop_counter``, so that a dry run
+counts the attention as K4 runs it, without an S x S score matrix.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import re
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build, _checks
+from torch.utils.flop_counter import register_flop_formula
+
 from .ref import attention_ref
 
 KERNEL = "flash_attention"
 FORMS = ("prefill_mma", "prefill_simt", "decode")
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 7 + (_LL,) * 9
-                     + (_I, _I, ctypes.c_float, _P, _P))
+                     + (_I, _I, _I, ctypes.c_float, _P, _P))
 _DECODE_ARGTYPES = ((_P,) * 5 + (_I,) * 8 + (_LL,) * 8
                     + (ctypes.c_float, _P))
 _SCORES_ARGTYPES = (_P,) * 3 + (_I,) * 6 + (_LL,) * 6 + (_P,)
@@ -114,23 +124,69 @@ def form_launches() -> dict:
     return {f: _build.launch_count(f"{KERNEL}:{f}") for f in FORMS}
 
 
+def attention_pairs(sq: int, skv: int, causal: bool, window,
+                    q_offset: int = 0) -> int:
+    """Unmasked (q, k) pairs of one head: row i, at position
+    p = i + q_offset, sees keys max(0, p - W + 1) .. min(p, skv - 1); a
+    row whose band is empty averages every key, so it counts skv."""
+    # numpy, not torch: a flop formula runs under the fake tensor mode
+    p = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(p, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, p - window + 1) if window else np.zeros(sq, np.int64)
+    n = hi - lo + 1
+    return int(np.where(n > 0, n, skv).sum())
+
+
+def prefill_flops(q_shape, k_shape, v_shape, causal: bool, window,
+                  q_offset: int = 0) -> int:
+    """K4's prefill flops: q . k and p . v over the unmasked pairs."""
+    B, sq, H, D = q_shape
+    return (2 * B * H * (D + v_shape[3])
+            * attention_pairs(sq, k_shape[1], causal, window, q_offset))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _plain_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: Optional[int],
+                   scale: Optional[float], q_offset: int,
+                   return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, lse = attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, q_offset=q_offset, return_lse=True)
+    return out.to(q.dtype), (lse if return_lse else lse.new_empty(0))
+
+
+@_plain_prefill.register_fake
+def _(q, k, v, causal, window, scale, q_offset, return_lse):
+    B, sq, H, _ = q.shape
+    return (q.new_empty((B, sq, H, v.shape[3])),
+            q.new_empty((B, H, sq) if return_lse else (0,),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, scale, q_offset,
+      return_lse, *, out_shape=None, **kwargs) -> int:
+    return prefill_flops(q_shape, k_shape, v_shape, causal, window, q_offset)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, scale=None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA with g = H // Hkv.
-    Query i sees key j when j <= i (``causal``) and j > i - window
-    (``window``); the scores are scaled by ``scale``, 1/sqrt(D) unless
-    given.  Returns (B, Sq, H, D) in q's dtype, and with ``return_lse``
-    also each row's log-sum-exp of the scaled, masked scores, f32
-    (B, H, Sq), which the kernel writes beside out."""
+    Query i, at position p = i + ``q_offset``, sees key j when j <= p
+    (``causal``) and j > p - window (``window``); the scores are scaled by
+    ``scale``, 1/sqrt(D) unless given.  Returns (B, Sq, H, D) in q's dtype,
+    and with ``return_lse`` also each row's log-sum-exp of the scaled,
+    masked scores, f32 (B, H, Sq), which the kernel writes beside out."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
+    if q_offset < 0:
+        raise ValueError(f"{KERNEL}: q_offset {q_offset} must be at least 0")
     if _checks.attention(KERNEL, q, k, v) == "cpu":
-        out = attention_ref(q, k, v, causal=causal, window=window,
-                            scale=scale, return_lse=return_lse)
-        if return_lse:
-            return out[0].to(q.dtype), out[1]
-        return out.to(q.dtype)
+        out, lse = torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, window, scale, q_offset, return_lse)
+        return (out, lse) if return_lse else out
     form = prefill_form(q.dtype)
     if form == "prefill_mma":
         _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
@@ -148,7 +204,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.launch(KERNEL, fn, out.data_ptr(), q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), _dtype_code(q), B, H, Hkv,
                       D, Sq, Skv, *_strides(q), *_strides(k), *_strides(v),
-                      int(causal), window or 0,
+                      int(causal), window or 0, q_offset,
                       1.0 / math.sqrt(D) if scale is None else scale,
                       None if lse is None else lse.data_ptr(), stream,
                       form=form)

@@ -4,9 +4,14 @@ and memory-bounded chunked cross-entropy.
 
 The counterpart of ``repro.models.model``, for every family: attention
 (GQA / MQA, or MLA) or Mamba2 mixers, and a gated MLP or a dropping MoE.
-The reference's ``moe_ffn_a2a`` (``models/moe_a2a.py``) and ``norm_dist``
-run only under a mesh; the port has none and takes ``moe_ffn`` and
-``norm``, as the reference does without one.
+The forwards take the reference's ``shard`` hook (an activation layout
+constraint: ``parallel.ShardingMapper.shard``, which redistributes a
+DTensor) and ``mesh`` (a ``DeviceMesh``): on a mesh with a model axis
+(of any size, one rank too), ``cfg.dist_norm`` takes ``norm_dist`` and
+``cfg.moe_impl == "a2a"`` takes ``moe_ffn_a2a`` (``models/moe_a2a.py``),
+where the axis divides the features, or the sequence and the experts, as
+in the reference.  With no mesh and no hook they compute what they did
+without them.
 Parameters are described by a spec tree of ``P`` leaves (shape, logical
 axes, init), and the parameter tree has the reference's layout exactly:
 ``period_slots`` (one dict per slot of the period, each leaf stacked over
@@ -26,8 +31,10 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.lowering import resolve_device
+from ..parallel.mapper import axis_sizes
 from . import layers as L
 from .config import ModelConfig
+from .layers import Shard, _noshard
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -234,6 +241,13 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # materialization
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtypes, no storage (the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=DTYPES[p.dtype],
+                                          device="meta"), param_specs(cfg))
+
+
 def _draw(p: P, rng: np.random.RandomState) -> np.ndarray:
     """The reference's draw for one leaf (repro.models.model.init_params),
     float64 (or float32 for zeros/ones) before the cast to its dtype.
@@ -326,42 +340,73 @@ def zero_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda"):
 # --------------------------------------------------------------------------
 # forward
 
+def _model_axis(mesh) -> int:
+    return 0 if mesh is None else axis_sizes(mesh).get("model", 0)
+
+
+def _norm(x, scale, cfg: ModelConfig, mesh):
+    """Norm dispatch, the reference's: the distributed (all-reduced
+    statistics) norm when the residual is model-sharded on D."""
+    if cfg.dist_norm and x.ndim == 3:
+        msize = _model_axis(mesh)
+        if msize and x.shape[-1] % msize == 0:
+            return L.norm_dist(x, scale, cfg, mesh)
+    return L.norm(x, scale, cfg)
+
 
 def _block(x, slot_params, cfg: ModelConfig, slot_idx: int, *, positions,
-           cache=None, cache_pos: Optional[int] = None):
+           cache=None, cache_pos: Optional[int] = None,
+           shard: Shard = _noshard, mesh=None):
     """One layer: the mixer its kind names (attention, MLA or Mamba2),
     then the MoE or the MLP.  A cache is written in place."""
-    h = L.norm(x, slot_params["norm1"], cfg)
+    h = _norm(x, slot_params["norm1"], cfg, mesh)
     if cfg.layer_kind(slot_idx) != "attn":
         y, _ = L.mamba_block(h, slot_params["mamba"], cfg, cache=cache)
     elif cfg.mla:
         y, _ = L.mla_block(h, slot_params["attn"], cfg, positions=positions,
-                           cache=cache, cache_pos=cache_pos)
+                           cache=cache, cache_pos=cache_pos, shard=shard)
     else:
         y, _ = L.attention_block(h, slot_params["attn"], cfg,
                                  positions=positions,
                                  window=cfg.layer_window(slot_idx),
-                                 cache=cache, cache_pos=cache_pos)
-    x = x + y
-    if "moe" in slot_params:
-        h2 = L.norm(x, slot_params["norm2"], cfg)
-        x = x + L.moe_ffn(h2, slot_params["moe"], cfg,
-                          n_experts_padded=moe_experts_padded(cfg))
-    elif "mlp" in slot_params:
-        h2 = L.norm(x, slot_params["norm2"], cfg)
-        x = x + L.mlp(h2, slot_params["mlp"], cfg)
-    return x
+                                 cache=cache, cache_pos=cache_pos,
+                                 shard=shard)
+    # the mixer output constrained to the residual layout before the add
+    # (a reduce-scatter of the partial sums rather than an all-reduce)
+    x = x + shard(y, ("act_batch", "act_seq", "act_embed"))
+    if "moe" in slot_params or "mlp" in slot_params:
+        h2 = _norm(x, slot_params["norm2"], cfg, mesh)
+        if "mlp" in slot_params:
+            f = L.mlp(h2, slot_params["mlp"], cfg)
+        elif (cfg.moe_impl == "a2a" and _model_axis(mesh)
+              and h2.shape[1] % _model_axis(mesh) == 0
+              and moe_experts_padded(cfg) % _model_axis(mesh) == 0):
+            from .moe_a2a import moe_ffn_a2a
+            f = moe_ffn_a2a(h2, slot_params["moe"], cfg,
+                            n_experts_padded=moe_experts_padded(cfg),
+                            mesh=mesh)
+            if cfg.moe_shared_ff:
+                f = f + L.mlp(h2, slot_params["moe"]["shared"], cfg)
+        else:
+            f = L.moe_ffn(h2, slot_params["moe"], cfg,
+                          n_experts_padded=moe_experts_padded(cfg),
+                          shard=shard)
+        x = x + shard(f, ("act_batch", "act_seq", "act_embed"))
+    return shard(x, ("act_batch", "act_seq", "act_embed"))
 
 
-def _period(x, slots, cfg: ModelConfig, positions):
+def _period(x, slots, cfg: ModelConfig, positions, shard: Shard = _noshard,
+            mesh=None):
     """One period's slots, without a cache."""
     for s, slot in enumerate(slots):
-        x = _block(x, slot, cfg, s, positions=positions)
+        x = _block(x, slot, cfg, s, positions=positions, shard=shard,
+                   mesh=mesh)
     return x
 
 
 def _stack_forward(params, x, cfg: ModelConfig, *, positions, cache=None,
-                   cache_pos: Optional[int] = None):
+                   cache_pos: Optional[int] = None, shard: Shard = _noshard,
+                   mesh=None):
     """Run all layers: the periods (period j's slot s reads index j of the
     stacked leaves, where the reference scans), then the tail.  A cache is
     written in place.  Under a gradient (no cache, a stacked leaf that
@@ -383,9 +428,10 @@ def _stack_forward(params, x, cfg: ModelConfig, *, positions, cache=None,
         for slots in periods:
             if cfg.remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _period, x, slots, cfg, positions, use_reentrant=False)
+                    _period, x, slots, cfg, positions, shard, mesh,
+                    use_reentrant=False)
             else:
-                x = _period(x, slots, cfg, positions)
+                x = _period(x, slots, cfg, positions, shard, mesh)
     else:
         for j in range(n_per):
             for s in range(per):
@@ -393,11 +439,11 @@ def _stack_forward(params, x, cfg: ModelConfig, *, positions, cache=None,
                 c = (tree_map(lambda t: t[j], cache["period_slots"][s])
                      if cache is not None else None)
                 x = _block(x, slot, cfg, s, positions=positions, cache=c,
-                           cache_pos=cache_pos)
+                           cache_pos=cache_pos, shard=shard, mesh=mesh)
     for i, slot in enumerate(params["tail_slots"]):
         c = cache["tail_slots"][i] if cache is not None else None
         x = _block(x, slot, cfg, n_per * per + i, positions=positions,
-                   cache=c, cache_pos=cache_pos)
+                   cache=c, cache_pos=cache_pos, shard=shard, mesh=mesh)
     return x
 
 
@@ -413,19 +459,68 @@ def _embed(params, cfg: ModelConfig, tokens_or_emb):
 
 def _head(params, cfg: ModelConfig, h):
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["head"]
+        return L.mm(h, params["embed"].T)
+    return L.mm(h, params["head"])
 
 
-def _xent_chunk(params, cfg: ModelConfig, hh, ll):
+def _xent_chunk(params, cfg: ModelConfig, hh, ll, shard: Shard = _noshard):
     """sum(logsumexp(logits) - logits[label]) over one chunk, f32."""
-    logits = _head(params, cfg, hh).float()
+    logits = shard(_head(params, cfg, hh).float(),
+                   ("act_batch", None, "vocab"))
+    if L._is_dtensor(logits):
+        return _xent_on_mesh(logits, ll)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, ll[..., None].long())[..., 0]
     return (lse - gold).sum()
 
 
-def chunked_xent(params, cfg: ModelConfig, h, labels, chunk: int = 256):
+def _xent_on_mesh(logits, labels):
+    """``_xent_chunk``'s sum for DTensor logits (B, c, V), vocab-parallel:
+    each rank takes its logits' rows and vocab slice; the row maximum,
+    the sum of exponentials and the label's logit (from the rank whose
+    slice holds it) are reduced over the mesh axes that split the vocab.
+    The chunk's sum is counted once over those axes (by the rank at their
+    origin) and summed over the axes that split the rows; returned
+    replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from ..parallel.spmd import pmax, psum
+    mesh = logits.device_mesh
+    pls = [Replicate() if isinstance(p, Partial) else p
+           for p in logits.placements]
+    lg = logits.redistribute(mesh, pls).to_local()
+    vocab = [md for md, p in enumerate(pls)
+             if isinstance(p, Shard) and p.dim == 2]
+    ll = labels.redistribute(mesh, [
+        p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+        for p in pls]).to_local().long()
+    coord = mesh.get_coordinate()
+    lo = 0
+    for md in vocab:                       # split major to minor
+        lo = lo * mesh.size(md) + coord[md]
+    n = lg.shape[-1]
+    lo *= n
+    groups = [mesh.get_group(md) for md in vocab]
+    m = lg.detach().amax(-1, keepdim=True)
+    for g in groups:
+        m = pmax(m, g)
+    se = (lg - m).exp().sum(-1)
+    rel = ll - lo
+    inside = (rel >= 0) & (rel < n)
+    gold = torch.where(inside, lg.gather(-1, rel.clamp(0, n - 1)[..., None])
+                       [..., 0], 0.0)
+    for g in groups:
+        se, gold = psum(se, g), psum(gold, g)
+    total = (m[..., 0] + se.log() - gold).sum()
+    if any(coord[md] for md in vocab):
+        total = total * 0.0
+    out = DTensor.from_local(total, mesh, [
+        Partial() if isinstance(p, Shard) else Replicate() for p in pls],
+        run_check=False)
+    return out.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def chunked_xent(params, cfg: ModelConfig, h, labels, chunk: int = 256,
+                 shard: Shard = _noshard):
     """Cross-entropy without materializing (B, S, V) logits: a loop over
     sequence chunks, each chunk's f32 logits recomputed in the backward
     (``torch.utils.checkpoint``), so one chunk's logits are alive at a
@@ -437,7 +532,8 @@ def chunked_xent(params, cfg: ModelConfig, h, labels, chunk: int = 256):
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(nch):
         total = total + torch.utils.checkpoint.checkpoint(
-            _xent_chunk, params, cfg, hc[:, c], lc[:, c], use_reentrant=False)
+            _xent_chunk, params, cfg, hc[:, c], lc[:, c], shard,
+            use_reentrant=False)
     return total / (B * S)
 
 
@@ -449,23 +545,28 @@ def _positions(batch, x):
     return pos
 
 
-def build_forward(cfg: ModelConfig):
+def build_forward(cfg: ModelConfig, shard: Shard = _noshard, mesh=None):
     """Returns (loss_fn, prefill_fn, decode_fn), the reference's forwards.
     f32 runs want TF32 off for matrix products on the card
-    (torch.backends.cuda.matmul.allow_tf32, False by default)."""
+    (torch.backends.cuda.matmul.allow_tf32, False by default).  ``shard``
+    and ``mesh`` as the reference's: the activation layout hook, and the
+    ``DeviceMesh`` that ``norm_dist`` and ``moe_ffn_a2a`` run on."""
+    act = ("act_batch", "act_seq", "act_embed")
 
     def loss_fn(params, batch):
         """Mean next-token cross-entropy of ``batch["labels"]`` (f32, 0-d);
         its gradient is autograd's."""
-        x = _embed(params, cfg, batch["tokens"])
-        h = _stack_forward(params, x, cfg, positions=_positions(batch, x))
+        x = shard(_embed(params, cfg, batch["tokens"]), act)
+        h = _stack_forward(params, x, cfg, positions=_positions(batch, x),
+                           shard=shard, mesh=mesh)
         h = L.norm(h, params["norm_f"], cfg)
-        return chunked_xent(params, cfg, h, batch["labels"])
+        return chunked_xent(params, cfg, h, batch["labels"], shard=shard)
 
     def prefill_fn(params, batch):
         """Full-sequence forward returning last-token logits (B, 1, V)."""
-        x = _embed(params, cfg, batch["tokens"])
-        h = _stack_forward(params, x, cfg, positions=_positions(batch, x))
+        x = shard(_embed(params, cfg, batch["tokens"]), act)
+        h = _stack_forward(params, x, cfg, positions=_positions(batch, x),
+                           shard=shard, mesh=mesh)
         h = L.norm(h[:, -1:], params["norm_f"], cfg)
         return _head(params, cfg, h)
 
@@ -475,12 +576,13 @@ def build_forward(cfg: ModelConfig):
         current decode index; ``index`` is the same index on the host,
         read from the positions (one device read) when not given.  Returns
         (logits (B, 1, V), cache)."""
-        x = _embed(params, cfg, batch["tokens"])   # (B,1) or (B,1,D)
+        x = shard(_embed(params, cfg, batch["tokens"]),   # (B,1) or (B,1,D)
+                  ("act_batch", None, "act_embed"))
         pos = batch["positions"]
         if index is None:
             index = int(pos.reshape(-1)[0])
         h = _stack_forward(params, x, cfg, positions=pos, cache=cache,
-                           cache_pos=index)
+                           cache_pos=index, shard=shard, mesh=mesh)
         h = L.norm(h, params["norm_f"], cfg)
         return _head(params, cfg, h), cache
 

@@ -8,19 +8,23 @@ Options, as the reference's:
     absolute maximum and dequantized (the round trip that brackets a
     reduction; torch.round and jnp.round both round half to even).
 
-The reference's ``input_specs`` (ShapeDtypeStructs for its dry run) has
-no counterpart: the port has no dry run.
+``shard`` and ``mesh`` go to ``build_forward`` as in the reference.
+``input_specs`` gives every model input of one (arch x shape) dry-run cell
+as a ``meta`` tensor (the reference's ShapeDtypeStructs).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any, Dict
 
 import torch
 
 from ..models import build_forward
 from ..models.config import ModelConfig
-from ..models.model import tree_leaves, tree_map, tree_unflatten
-from ..optim import adamw_update
+from ..models.layers import _noshard
+from ..models.model import (DTYPES, cache_specs, tree_leaves, tree_map,
+                            tree_unflatten)
+from ..optim import adamw_update_
 
 
 @dataclass(frozen=True)
@@ -53,16 +57,50 @@ def value_and_grad(loss_fn, params, batch):
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
-def build_train_step(cfg: ModelConfig, opts: StepOptions = StepOptions()):
-    """train_step(params, opt_state, batch) -> (new params, new AdamW state,
-    {"loss", "gnorm"}), each metric a 0-d f32 tensor."""
-    loss_fn = build_forward(cfg)[0]
+def _microbatches(v, mb: int):
+    """``v`` split along its first axis into ``mb`` equal chunks (the
+    reference's reshape).  A DTensor split over its first axis is split on
+    each rank instead: chunk i holds every rank's i-th part of its rows, so
+    no row moves; the chunks are the same rows in another grouping, and
+    the mean of equal chunks' mean losses (and its gradient) is the
+    batch's."""
+    from ..models.layers import _is_dtensor
+    if not _is_dtensor(v) or not any(
+            getattr(p, "dim", None) == 0 for p in v.placements):
+        return v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
+    from torch.distributed.tensor import DTensor
+    local = v.to_local()
+    parts = local.reshape((mb, local.shape[0] // mb) + local.shape[1:])
+    shape = (v.shape[0] // mb,) + tuple(v.shape[1:])
+    return [DTensor.from_local(t, v.device_mesh, v.placements,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=torch.empty(shape, device="meta")
+                               .stride()) for t in parts]
+
+
+def _placed_as(g, p):
+    """A DTensor gradient redistributed to its parameter's placements (the
+    data-parallel reduction of the gradient: a reduce-scatter or an
+    all-reduce of its partial sums)."""
+    if hasattr(g, "redistribute") and tuple(g.placements) != tuple(
+            p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def build_train_step(cfg: ModelConfig, shard=_noshard,
+                     opts: StepOptions = StepOptions(), mesh=None):
+    """train_step(params, opt_state, batch) -> (params, new AdamW state,
+    {"loss", "gnorm"}), each metric a 0-d f32 tensor.  The update is
+    written into the given parameter and moment tensors, which are
+    returned (``adamw_update_``, the reference's ``donate_argnums=(0,
+    1)``): no second copy of them is alive during the update."""
+    loss_fn = build_forward(cfg, shard=shard, mesh=mesh)[0]
 
     def train_step(params, opt_state, batch):
         if opts.microbatch > 1:
             mb = opts.microbatch
-            chunks = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
-                      for k, v in batch.items()}
+            chunks = {k: _microbatches(v, mb) for k, v in batch.items()}
             loss_sum = grads = None
             for i in range(mb):
                 l, g = value_and_grad(loss_fn, params,
@@ -77,15 +115,54 @@ def build_train_step(cfg: ModelConfig, opts: StepOptions = StepOptions()):
             grads = tree_map(lambda a: a / mb, grads)
         else:
             loss, grads = value_and_grad(loss_fn, params, batch)
+        if mesh is not None:
+            grads = tree_map(_placed_as, grads, params)
         if opts.grad_compress_int8:
             grads = _int8_compress_grads(grads)
-        new_params, new_opt, gnorm = adamw_update(params, grads, opt_state)
+        new_params, new_opt, gnorm = adamw_update_(params, grads, opt_state)
         return new_params, new_opt, {"loss": loss, "gnorm": gnorm}
 
     return train_step
 
 
-def build_serve_steps(cfg: ModelConfig):
+def build_serve_steps(cfg: ModelConfig, shard=_noshard, mesh=None):
     """(prefill_fn, decode_fn) of ``cfg``."""
-    _, prefill_fn, decode_fn = build_forward(cfg)
+    _, prefill_fn, decode_fn = build_forward(cfg, shard=shard, mesh=mesh)
     return prefill_fn, decode_fn
+
+
+# --------------------------------------------------------------------------
+# dry-run input specs (meta tensors; no allocation)
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, seq: int, batch: int,
+                kind: str) -> Dict[str, Any]:
+    """Stand-ins for every model input of one (arch x shape) cell, on the
+    ``meta`` device: int32 tokens (or activation-type embeddings), labels,
+    M-RoPE's (3, B, S) positions, and for decode the (B, 1) positions and
+    the cache."""
+    i32 = torch.int32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def tok(b, s):
+        if cfg.input_mode == "embeddings":
+            return meta((b, s, cfg.d_model), DTYPES[cfg.dtype])
+        return meta((b, s), i32)
+
+    if kind in ("train", "prefill"):
+        batch_spec = {"tokens": tok(batch, seq)}
+        if kind == "train":
+            batch_spec["labels"] = meta((batch, seq), i32)
+        if cfg.mrope_sections:
+            batch_spec["positions"] = meta((3, batch, seq), i32)
+        return {"batch": batch_spec}
+    if kind == "decode":
+        batch_spec = {"tokens": tok(batch, 1),
+                      "positions": meta((3, batch, 1) if cfg.mrope_sections
+                                        else (batch, 1), i32)}
+        cache = tree_map(lambda p: meta(p.shape, DTYPES[p.dtype]),
+                         cache_specs(cfg, batch, seq))
+        return {"batch": batch_spec, "cache": cache}
+    raise ValueError(kind)

@@ -493,6 +493,37 @@ def test_flash_lse_matches_plain(card, B, Sq, Skv, H, Hkv, D, window,
     assert form_launches()[prefill_form(dtype)] == 2
 
 
+# a context-parallel rank's rows: Sq rows at q_offset, against keys up to
+# and past their last position (D 256: MLA's padded head dim)
+OFFSET_CASES = [(2, 256, 1024, 4, 1, 256, 768, None),
+                (2, 256, 1024, 4, 1, 256, 512, 300),
+                (1, 200, 400, 8, 2, 64, 200, 70),
+                (2, 40, 100, 4, 2, 128, 61, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,D,q_offset,window", OFFSET_CASES)
+def test_flash_q_offset_matches_plain(card, B, Sq, Skv, H, Hkv, D, q_offset,
+                                      window, dtype):
+    """Both prefill forms with query row i at position i + q_offset (the
+    causal and window bands shifted, tiles outside them skipped): the
+    output (atol 2e-5 in f32, 3e-2 in bf16) and the row log-sum-exp
+    (1e-4) against attention_ref at the same offset."""
+    rng = np.random.RandomState(Sq + q_offset + D)
+    q = _randn(rng, (B, Sq, H, D), dtype, card)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               q_offset=q_offset, return_lse=True)
+    torch.cuda.synchronize()
+    want_out, want = attention_ref(q, k, v, causal=True, window=window,
+                                   q_offset=q_offset, return_lse=True)
+    atol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert (out.float() - want_out).abs().max().item() <= atol
+    assert (lse - want).abs().max().item() <= 1e-4
+    assert form_launches()[prefill_form(dtype)] == 1
+
+
 def _attn_grads(q, k, v, do, fn):
     ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
     fn(*ts).backward(do)
@@ -1005,3 +1036,49 @@ def test_read_back_runs_on_its_own_streams(card):
             _same(out, _frame_of(want, i))
     for a, b in zip(first, kept):
         _same(a, b)
+
+
+def test_moe_a2a_through_nccl_matches_moe_ffn(card):
+    """moe_ffn_a2a on the card through a one-rank NCCL process group and a
+    (1, 1) mesh (its all-to-alls and local_map at size 1), reduced granite
+    in f32 at capacity factor 8: the loss and every gradient leaf of
+    build_forward with the mesh against moe_ffn without it, at the
+    reference test's rtol 1e-5 / atol 1e-4."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import reduced
+    from repro_torch.models import build_forward, init_params
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.parallel import collective_bytes
+    from repro_torch.train import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = reduced(ARCHS["granite-moe-3b-a800m"]).replace(
+            dtype="float32", head_dim=64, attn_impl="blocked",
+            moe_capacity_factor=8.0)
+        params = init_params(cfg, 0, "cuda")
+        rng = np.random.RandomState(0)
+        batch = {k: torch.from_numpy(rng.randint(2, cfg.vocab, (4, 16))
+                                     .astype(np.int32)).cuda()
+                 for k in ("tokens", "labels")}
+        la, ga = value_and_grad(build_forward(cfg)[0], params, batch)
+        with collective_bytes() as rec:
+            lb, gb = value_and_grad(build_forward(
+                cfg.replace(moe_impl="a2a"), mesh=mesh)[0], params, batch)
+            torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert rec.calls.get("all-to-all") == 5 * cfg.n_layers
+    np.testing.assert_allclose(float(lb), float(la), rtol=1e-5)
+    for a, b in zip(tree_leaves(gb), tree_leaves(ga)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)

@@ -99,6 +99,57 @@ def test_flash_attention_masks_match_reference(Sq, Skv, causal, window):
     assert np.allclose(_f32(out), _f32(oracle), atol=2e-5)
 
 
+@pytest.mark.parametrize("Sq,Skv,q_offset,window,dtype", [
+    (16, 40, 24, None, "float32"),    # the last rows of a causal span
+    (16, 40, 10, 7, "bfloat16"),      # a window, keys past the rows
+    (24, 24, 0, 5, "float32"),        # no offset
+    (8, 64, 30, 40, "float32"),       # a window wider than the offset
+])
+def test_q_offset_matches_reference_rows_at_the_offset(Sq, Skv, q_offset,
+                                                       window, dtype):
+    """Query rows at positions q_offset .. q_offset + Sq - 1 (a context-
+    parallel rank's rows): the output and log-sum-exp of the reference's
+    oracle on the same rows after q_offset zero rows, which puts them at
+    those positions."""
+    (jq, jk, jv), (q, k, v) = _inputs(Sq + Skv + q_offset, 2, Sq, Skv, 4, 2,
+                                      64, dtype)
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               q_offset=q_offset, return_lse=True)
+    assert out.dtype == q.dtype and lse.shape == (2, 4, Sq)
+    jq_at = jnp.concatenate([jnp.zeros((2, q_offset, 4, 64), jq.dtype), jq],
+                            axis=1)
+    oracle = jax_attention_ref(jq_at, jk, jv, causal=True,
+                               window=window)[:, q_offset:]
+    assert np.allclose(_f32(out), _f32(oracle), atol=ATOL[dtype])
+    q_at = torch.cat([q.new_zeros((2, q_offset, 4, 64)), q], 1)
+    _, lse_at = attention_ref(q_at, k, v, causal=True, window=window,
+                              return_lse=True)
+    assert torch.equal(lse, lse_at[..., q_offset:])
+
+
+def test_cpu_prefill_is_an_operator_with_k4s_flops():
+    """On fake tensors the CPU prefill (the operator
+    ``repro_torch::flash_attention``) gives its outputs' shapes without an
+    S x S score matrix, and FlopCounterMode counts K4's flops: 2 (D + Dv)
+    per unmasked (q, k) pair."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.flash.ops import attention_pairs, prefill_flops
+    assert attention_pairs(4, 10, True, None, 6) == 7 + 8 + 9 + 10
+    assert attention_pairs(4, 10, True, 3, 6) == 12
+    assert attention_pairs(3, 5, False, None) == 15
+    with FakeTensorMode():
+        q = torch.empty(2, 4096, 8, 64)
+        kv = torch.empty(2, 4096, 2, 64)
+        with FlopCounterMode(display=False) as fc:
+            out, lse = flash_attention(q, kv, kv, window=512, q_offset=0,
+                                       return_lse=True)
+    assert out.shape == q.shape and lse.shape == (2, 8, 4096)
+    pairs = attention_pairs(4096, 4096, True, 512)
+    assert fc.get_total_flops() == 2 * 2 * 8 * 128 * pairs == prefill_flops(
+        q.shape, kv.shape, kv.shape, True, 512)
+
+
 def test_strided_views_give_the_same_result():
     """The model hands K4 a slice of its KV cache and head views of its
     projections; a view gives what its contiguous copy gives."""

@@ -121,6 +121,47 @@ def test_port_sources_import_nothing_of_jax_or_repro():
     assert not bad
 
 
+def test_distributed_layer_imports_nothing_of_jax_or_repro():
+    """The distributed layer (parallel/, launch/{mesh,dryrun,sweep},
+    models/moe_a2a) is scanned, and in a fresh process it plans a pipeline,
+    maps every arch's parameters on both production meshes and dry-runs a
+    reduced train step on a fake 2x4 mesh without loading jax or repro."""
+    files = _port_files()
+    for part in (("parallel", "__init__.py"), ("parallel", "mapper.py"),
+                 ("parallel", "pipeline.py"), ("parallel", "comm.py"),
+                 ("parallel", "spmd.py"), ("launch", "mesh.py"),
+                 ("launch", "dryrun.py"), ("launch", "sweep.py"),
+                 ("models", "moe_a2a.py")):
+        assert any(f.endswith(os.path.join(*part)) for f in files), part
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.configs import ARCHS, reduced
+        from repro_torch.launch import sweep  # noqa: F401
+        from repro_torch.launch.dryrun import fake_mesh, lower_cell
+        from repro_torch.launch.mesh import production_shape
+        from repro_torch.models.moe_a2a import moe_ffn_a2a  # noqa: F401
+        from repro_torch.parallel import param_shardings
+        from repro_torch.parallel.pipeline import plan_1f1b
+        assert plan_1f1b(4, 8).stash_per_stage == [4, 3, 2, 1]
+        for multi in (False, True):
+            for cfg in ARCHS.values():
+                param_shardings(cfg, production_shape(multi_pod=multi))
+        cfg = reduced(ARCHS["granite-moe-3b-a800m"]).replace(
+            attn_impl="blocked", moe_impl="a2a", dist_norm=True)
+        art = lower_cell(cfg, "reduced", False, shape=(16, 4, "train"),
+                         mesh=fake_mesh((2, 4), ("data", "model")))
+        assert art["collectives"]["all-to-all"] > 0
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
+
+
 def test_compiling_loads_no_lowering_torch_jax_or_repro():
     """The hardware half alone (compile, simulate, size the FIFOs, report)
     in a fresh process loads neither ``repro_torch.core.lowering`` nor the

@@ -316,16 +316,18 @@ def test_train_step_matches_reference(microbatch, int8, monkeypatch):
     from the reference's parameters and state: the loss, the gradient
     norm, the gradients the step hands to AdamW, and the new parameters
     as AdamW makes them from those gradients.  Both optimizers' inputs are
-    captured by wrapping ``adamw_update`` for the test."""
+    captured by wrapping each step's AdamW for the test (the reference's
+    ``adamw_update``, the port's in-place ``adamw_update_``); the port's
+    step gets its own copy of the state, which it updates in place."""
     kw = dict(dtype="float32", attn_impl="blocked")
     ref_cfg = ref_configs.reduced(ref_configs.ARCHS["gemma3-1b"]).replace(
         **kw)
     cfg = configs.reduced(configs.ARCHS["gemma3-1b"]).replace(**kw)
-    real_ref, real = ref_steps.adamw_update, steps.adamw_update
+    real_ref, real = ref_steps.adamw_update, steps.adamw_update_
     monkeypatch.setattr(ref_steps, "adamw_update", lambda p, g, st: (
         *real_ref(p, g, st)[:2], (real_ref(p, g, st)[2], g)))
     seen = []
-    monkeypatch.setattr(steps, "adamw_update", lambda p, g, st: (
+    monkeypatch.setattr(steps, "adamw_update_", lambda p, g, st: (
         seen.append(g), real(p, g, st))[1])
     ref_step = jax.jit(ref_steps.build_train_step(
         ref_cfg, opts=ref_steps.StepOptions(microbatch=microbatch,
@@ -337,7 +339,7 @@ def test_train_step_matches_reference(microbatch, int8, monkeypatch):
     ref_b, b = _train_batch(cfg, 4, 16, 2)
     for _ in range(2):
         p, st = _torch_state(ref_p, ref_st)
-        new_p, new_st, m = step(p, st, b)
+        new_p, new_st, m = step(*_torch_state(ref_p, ref_st), b)
         ref_p, ref_st, ref_m = ref_step(ref_p, ref_st, ref_b)
         ref_gnorm, ref_g = ref_m["gnorm"]
         assert abs(float(m["loss"]) - float(ref_m["loss"])) <= 2e-6

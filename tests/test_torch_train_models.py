@@ -117,6 +117,30 @@ def test_attention_function_grad_matches_reference_vjp(case):
         _rel_close(t.grad, w, 2e-5)
 
 
+@pytest.mark.parametrize("q_offset,window", [(12, None), (12, 5), (3, 9)])
+def test_attention_function_grad_at_a_row_offset(q_offset, window):
+    """The rows of a context-parallel rank: q's rows at q_offset against
+    every key before them.  The gradients of q, k, v against the
+    reference's flash_attention vjp on the rows after q_offset zero rows
+    (the zero rows' cotangent 0)."""
+    rng = np.random.RandomState(4)
+    B, Sq, H, Hkv, D = 2, 16, 4, 2, 16
+    Skv = q_offset + Sq
+    q = rng.randn(B, Sq, H, D).astype(np.float32)
+    _, k, v = _qkv(rng, B, Skv, H, Hkv, D)
+    do = rng.randn(B, Sq, H, D).astype(np.float32)
+    zeros = np.zeros((B, q_offset, H, D), np.float32)
+    want = _ref_vjp(np.concatenate([zeros, q], 1), k, v,
+                    np.concatenate([zeros, do], 1), window=window,
+                    block_kv=8)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = TL.FlashAttention.apply(*ts, True, window, None, 8, q_offset)
+    out.backward(torch.from_numpy(do))
+    _rel_close(ts[0].grad, np.asarray(want[0])[:, q_offset:], 2e-5)
+    for t, w in zip(ts[1:], want[1:]):
+        _rel_close(t.grad, w, 2e-5)
+
+
 def test_attention_function_grad_on_mla_padded_operands():
     """MLA's prefill as mla_block hands it to K4: q, k at dn + dr = 24 and
     v at 16, zero-padded to 64, scale 1/sqrt(24); the gradients of the
