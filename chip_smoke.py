@@ -56,11 +56,14 @@ phase prints one JSON line:
            aligned), and the families' shapes (granite's GQA, D 64 and
            g 3, bf16 at 4 x 1024 and f32 at 2 x 128; its decode over
            serving's 4 x 160-slot cache and a 100-slot view of it in bf16
-           and over the f32 loop's 2 x 128 keys; deepseek's MLA
-           prefill with q, k at 192 and v at 128 zero-padded to 256, the
-           scale 1/sqrt(192), 128 heads, bf16 at 4 x 1024 and f32 at
-           2 x 64, bounded by the unpadded work, 2 (Dk + Dv) flops a
-           pair, and the library given the unpadded operands); each case
+           and over the f32 loop's 2 x 128 keys, and its rows at an
+           offset with the lse; deepseek's MLA prefill with q, k at 192
+           and v at 128 as K4 takes them unpadded, the scale
+           1/sqrt(192), 128 heads, bf16 at 4 x 1024 and f32 at 2 x 64,
+           and once more zero-padded to 256 as before K4 took Dv != Dk
+           (the padded time, bounded by the same unpadded work, 2
+           (Dk + Dv) flops a pair, the library given the unpadded
+           operands)); each case
            must launch its own form; per case the max abs error, K4's
            device ms (the profiler's kernel time) and call ms (CUDA events
            around back-to-back wrapper calls, host work included), plain ms,
@@ -182,8 +185,9 @@ phase prints one JSON line:
            (``RouteLog``): a root difference with a gap above 1e-5 fails,
            rows with a difference are left out of the comparison; then in
            bf16 with the counters reset, prefill_fn on 4 x 1024 tokens
-           (the tensor-core form once per attention layer, MLA's at the
-           padded head dim 256) and serve (4 x 128, 32 generated), held
+           (the tensor-core form once per attention layer, MLA's at Dk
+           192 and Dv 128 with no zero pad: the profiled call must run no
+           aten::constant_pad_nd) and serve (4 x 128, 32 generated), held
            to finiteness and shapes; per arch init seconds, peak memory,
            launches, prefill ms and its device ms (K4's share), decode ms
            per step, tokens/s and a profiled decode step
@@ -205,7 +209,8 @@ phase prints one JSON line:
            tokens/s, peak memory
   train_families  K4's row log-sum-exp and the attention gradient at the
            families' training shapes (granite's GQA at D 64 on 4 x 1024,
-           deepseek's MLA zero-padded to D 256 on 2 x 1024; bf16) with
+           deepseek's MLA unpadded on 2 x 1024, and its lse call
+           zero-padded to 256 once more as the earlier form; bf16) with
            the plain backward's ms beside scaled_dot_product_attention's
            backward;
            then granite-moe-3b-a800m and mamba2-1.3b uncut and
@@ -217,7 +222,8 @@ phase prints one JSON line:
            1024), K4's counters
            set to 0 before each step and read after it (the tensor-core
            form once per attention layer and once more in the remat
-           backward), step ms (host and CUDA events), the device ms of a
+           backward; deepseek's step runs no aten::constant_pad_nd),
+           step ms (host and CUDA events), the device ms of a
            profiled fifth step, peak memory; then moe_ffn_a2a through a
            one-rank NCCL process group on a (1, 1) mesh, granite cut to 2
            layers in f32, loss and gradients against moe_ffn
@@ -270,12 +276,22 @@ FAMILIES = (("granite-moe-3b-a800m", {}), ("mamba2-1.3b", {}),
 FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 32
 FAM_F32_PROMPT, FAM_F32_PROMPT_MLA = 128, 64
 ROUTE_GAP = 1e-5        # a routing difference at or below it is a near-tie
+# the head dim MLA's q, k and v were zero-padded to before K4 took
+# Dv != Dk: its "before" cases time that call once more
+MLA_PADDED = 256
 # K4's row log-sum-exp against the plain version's: f32 sums of up to 1024
 # exponentials of f32 scores (bf16 products are exact in f32)
 LSE_ATOL = 1e-4
 # each family's K4 forms on its path, with the key of flash_phase's case
 # at that path's shapes (mamba2 runs no attention, deepseek decodes MLA in
 # latent space)
+# K4's prefill kernels by ``flash.ops.resources``' keys: the tensor-core
+# form's D 256 kernel and its Q-register kernel at (Dk, Dv) with 1..GH_max
+# heads a block, the SIMT form at each (Dk, Dv)
+K4_PREFILL_BUILDS = {
+    "prefill_mma": ["bf16_d256", "bf16_d64_g1", "bf16_d64_g2", "bf16_d64_g3",
+                    "bf16_d128_g1", "bf16_d192_128_g1"],
+    "prefill_simt": ["f32_d64", "f32_d128", "f32_d192_128", "f32_d256"]}
 FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", ("prefill_mma",
                                                   "prefill_simt", "decode")),
              "deepseek-v2-236b": ("mla", ("prefill_mma", "prefill_simt"))}
@@ -286,6 +302,12 @@ MK_ODD = {"flow": (37, 13), "descriptor": (45, 19), "pyramid": (36, 20)}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def kernel_form(name: str):
+    """K4's form whose kernel a profiler event's name is, or None."""
+    from repro_torch.kernels.flash.ops import kernel_form as form
+    return form(name)
 
 
 def smi(query: str) -> str:
@@ -606,10 +628,11 @@ def build_phase(designs, extra):
     k4 = flash_ops.resources(built["flash_attn"])
     if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
         raise AssertionError("the SIMT prefill form has a bf16 build")
-    for form, dtype in (("prefill_mma", "bf16"), ("prefill_simt", "f32")):
+    for form, want in K4_PREFILL_BUILDS.items():
         dims = sorted(k4.get(form, {}))
-        if dims != [f"{dtype}_d{d}" for d in (128, 256, 64)]:
-            raise AssertionError(f"K4's {form} form built for {dims}")
+        if dims != sorted(want):
+            raise AssertionError(f"K4's {form} form built for {dims}, "
+                                 f"want {sorted(want)}")
         for dim, use in k4[form].items():
             if use.get("spill_stores", 1) or use.get("spill_loads", 1):
                 raise AssertionError(f"K4's {form} form spills at {dim}: "
@@ -1196,6 +1219,16 @@ def _host_ops(torch, fn, top: int = 8):
          "total_ms": e.cpu_time_total / 1e3} for e in ops[:top]]}
 
 
+def _aten_calls(torch, fn, op: str) -> int:
+    """Calls of the operator ``op`` (``"aten::constant_pad_nd"``) in one
+    call of ``fn`` under torch.profiler (CPU activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key == op)
+
+
 def path_phase(torch, np, paper):
     """Every app at the paper's sizes through the entry points a user
     calls, on the kernels backend: the launches of each app's kernel are
@@ -1685,7 +1718,8 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     prefill with its row log-sum-exp (the training path's call), held to
     the plain version's within LSE_ATOL; the bound counts its bytes.
     ``q_offset``: query row i at key position i + q_offset (a
-    context-parallel rank's rows)."""
+    context-parallel rank's rows).  Unpadded operands at Dv != Dk need no
+    ``dims``: the head dims are q's and v's."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
     from repro_torch.kernels.flash.ops import (
@@ -1727,7 +1761,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                              f"above {atol}")
     B, sq, H, D = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    dk, dv = dims or (D, D)
+    dk, dv = dims or (D, v.shape[3])
     line = {"phase": "kernel", "name": "flash_attention", "case": name,
             "form": form,
             "shape": {"B": B, "Sq": sq, "Skv": skv, "H": H, "Hkv": hkv,
@@ -1735,8 +1769,9 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                       "window": None if decode else window},
             "dtype": str(q.dtype).split(".")[-1], "max_abs_err": err,
             "tolerance": atol}
-    if dims:
-        line["shape"].update({"Dk": dk, "Dv": dv, "scale": scale})
+    if dims or dv != D:
+        line["shape"].update({"Dk": dk, "Dv": dv, "scale": scale,
+                              "zero_padded_to": D if dims else None})
     if q_offset:
         line["shape"]["q_offset"] = q_offset
     if lse:
@@ -1909,11 +1944,12 @@ def flash_phase(torch, np):
     del qkv
     # the families phase's shapes: granite's GQA (D 64, 24 query heads on
     # 8 kv heads, g 3), in bf16 at the serving prefill's 4 x 1024 and in
-    # f32 at the f32 check's 2 x 128; deepseek's MLA prefill as
-    # models.layers.mla_block hands it over (q, k at 192 and v at 128,
-    # zero-padded to 256, the scale 1/sqrt(192), 128 heads), in bf16 at
-    # 4 x 1024 and in f32 at the f32 check's 2 x 64
-    from repro_torch.models.layers import padded_head_dim
+    # f32 at the f32 check's 2 x 128, and its last 256 rows at offset 768
+    # with the lse (grouped heads at an offset); deepseek's MLA prefill as
+    # models.layers.mla_block hands it over (q, k at 192 and v at 128, the
+    # scale 1/sqrt(192), 128 heads), in bf16 at 4 x 1024 and in f32 at the
+    # f32 check's 2 x 64, and in bf16 once more zero-padded to 256, the
+    # form it took before K4 took Dv != Dk (its time, for the record)
     g = ARCHS["granite-moe-3b-a800m"]
     for name, (b, s, dtype, atol) in {
             "granite_prefill_bf16": (FAM_BATCH, FAM_PREFILL, bf16, 3e-2),
@@ -1923,6 +1959,13 @@ def flash_phase(torch, np):
             randn((b, s, g.n_kv_heads, g.hd), dtype),
             randn((b, s, g.n_kv_heads, g.hd), dtype), causal=True,
             window=None, decode=False, atol=atol)
+    lines["granite_offset_lse_bf16"] = flash_case(
+        torch, np, "granite_offset_lse_bf16",
+        randn((FAM_BATCH, FAM_PREFILL // 4, g.n_heads, g.hd), bf16),
+        randn((FAM_BATCH, FAM_PREFILL, g.n_kv_heads, g.hd), bf16),
+        randn((FAM_BATCH, FAM_PREFILL, g.n_kv_heads, g.hd), bf16),
+        causal=True, window=None, decode=False, atol=3e-2, lse=True,
+        q_offset=FAM_PREFILL * 3 // 4)
     # granite's decode as models.layers.decode_attention hands it over:
     # serving's last step over the whole 4 x 160-slot cache and a step
     # over the first 100 slots (a strided view) in bf16, and the f32
@@ -1944,16 +1987,21 @@ def flash_phase(torch, np):
     del kc, vc, q1
     m = ARCHS["deepseek-v2-236b"]
     dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
-    dp = padded_head_dim(dk)
     for name, (b, s, dtype, atol) in {
             "mla_prefill_bf16": (FAM_BATCH, FAM_PREFILL, bf16, 3e-2),
             "mla_prefill_f32": (2, FAM_F32_PROMPT_MLA, f32, 2e-5)}.items():
-        q, k, v = (torch.nn.functional.pad(
-            randn((b, s, m.n_heads, d), dtype), (0, dp - d))
-            for d in (dk, dk, dv))
+        q, k, v = (randn((b, s, m.n_heads, d), dtype) for d in (dk, dk, dv))
         lines[name] = flash_case(
             torch, np, name, q, k, v, causal=True, window=None,
-            decode=False, atol=atol, scale=dk ** -0.5, dims=(dk, dv))
+            decode=False, atol=atol, scale=dk ** -0.5)
+        if name == "mla_prefill_bf16":
+            padded = [torch.nn.functional.pad(t, (0, MLA_PADDED - d))
+                      for t, d in ((q, dk), (k, dk), (v, dv))]
+            lines["mla_prefill_padded_bf16"] = flash_case(
+                torch, np, "mla_prefill_padded_bf16", *padded, causal=True,
+                window=None, decode=False, atol=atol, scale=dk ** -0.5,
+                dims=(dk, dv))
+            del padded
         del q, k, v
     # a context-parallel rank's rows (models.layers._on_mesh): the last
     # quarter of a 1024-token sequence against the keys before it, with
@@ -1999,7 +2047,7 @@ def prefill_device(torch, call, wall_ms: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
             "k4_device_ms": sum(ms for name, ms in by_name.items()
-                                if "flash_mma_kernel" in name),
+                                if kernel_form(name) == "prefill_mma"),
             "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]}
 
 
@@ -2429,7 +2477,13 @@ def family(torch, np, arch: str, cut: dict):
                                          FAM_PREFILL).tokens).cuda()
     prompt = make_prompt(cfg, FAM_BATCH, FAM_PROMPT)
     with torch.no_grad():
-        prefill_fn(params, {"tokens": ptoks})              # warm
+        # the warm call, profiled: MLA hands K4 its operands unpadded, so
+        # the call pads nothing
+        pads = _aten_calls(torch, lambda: prefill_fn(
+            params, {"tokens": ptoks}), "aten::constant_pad_nd")
+        if cfg.mla and pads:
+            raise AssertionError(f"{arch} bf16 prefill_fn ran "
+                                 f"aten::constant_pad_nd {pads} times")
         registry.reset_launch_counts()
         logits, prefill_ms = _sync_ms(
             torch, lambda: prefill_fn(params, {"tokens": ptoks}))
@@ -2450,7 +2504,7 @@ def family(torch, np, arch: str, cut: dict):
         "bf16_prefill": dict(
             {"batch": FAM_BATCH, "prompt": FAM_PREFILL, "ms": prefill_ms,
              "capacity_factor": cfg.moe_capacity_factor,
-             "k4_launches": n_mma,
+             "k4_launches": n_mma, "constant_pad_nd_calls": pads,
              "tokens_per_s": FAM_BATCH * FAM_PREFILL / prefill_ms * 1e3},
             **prefill_device(torch, lambda: prefill_fn(
                 params, {"tokens": ptoks}), prefill_ms)),
@@ -2495,16 +2549,17 @@ RESUME_ATOL = 1e-3   # the resumed run's losses against the uninterrupted
 
 
 def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
-                        timed: bool, scale=None, dims=None):
+                        timed: bool, scale=None, dims=None, Dv=None):
     """The attention Function (K4 with its lse, the plain block-recompute
     backward) against autograd through attention_ref on the card: each
     gradient within GRAD_REL of its largest; then, if ``timed``, the
     backward's device ms (``flash_attention_bwd`` alone) beside
     scaled_dot_product_attention's backward on the same operands, both by
     CUDA events (the profiler misses the library's main backward kernel).
-    ``dims`` = (Dk, Dv): operands zero-padded to D past them (MLA), with
+    ``dims`` = (Dk, Dv): operands zero-padded to D past them, with
     ``scale``; the library takes the unpadded operands and the flops count
-    the unpadded work."""
+    the unpadded work.  ``Dv``: v's and the output's own head dim (MLA's
+    unpadded operands, D being q's and k's)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash.ops import attention_pairs
     from repro_torch.kernels.flash.ref import attention_ref
@@ -2517,13 +2572,14 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda(
             ).to(dtype)
 
-    dk, dv = dims or (D, D)
+    dk, dv = dims or (D, Dv or D)
+    Dpv = Dv or D                 # v's head dim as K4 receives it
 
-    def padded(shape, d):
-        return torch.nn.functional.pad(randn(shape[:-1] + (d,)), (0, D - d))
+    def padded(shape, d, to):
+        return torch.nn.functional.pad(randn(shape[:-1] + (d,)), (0, to - d))
 
-    q, k = padded((B, S, H, D), dk), padded((B, S, Hkv, D), dk)
-    v, do = padded((B, S, Hkv, D), dv), padded((B, S, H, D), dv)
+    q, k = padded((B, S, H, D), dk, D), padded((B, S, Hkv, D), dk, D)
+    v, do = padded((B, S, Hkv, D), dv, Dpv), padded((B, S, H, D), dv, Dpv)
 
     def grads(fn):
         ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -2545,7 +2601,7 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
         errs.append(err / big)
     line = {"case": name, "dtype": str(dtype).split(".")[-1],
             "shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
-                      "window": window},
+                      "Dv": Dpv, "window": window},
             "max_rel_err": max(errs), "tolerance_rel": rel}
     if not timed:
         return line
@@ -2775,7 +2831,7 @@ def train_phase(torch, np):
                  "first": True},
         "step_device_ms": dev_ms, "device_busy_share": dev_ms / steady_ms,
         "k4_device_ms": sum(ms for n, ms in by_name.items()
-                            if "flash_mma_kernel" in n),
+                            if kernel_form(n) == "prefill_mma"),
         "top": [{"name": n[:80], "ms": ms} for n, ms in top[:10]],
         "k4_launches_per_step": on_step, "k4_launches_path": launches,
         "k4_launches_per_step_want": per_step,
@@ -2973,6 +3029,12 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
     dev_ms, by_name = device_events(lambda: step(params, opt, b), 1,
                                     warmup=0)
     profile_s = time.perf_counter() - t1
+    # MLA's attention pads nothing under a gradient either
+    pads = _aten_calls(torch, lambda: step(params, opt, b),
+                       "aten::constant_pad_nd")
+    if cfg.mla and pads:
+        raise AssertionError(f"{arch} train step ran aten::constant_pad_nd "
+                             f"{pads} times")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     del params, opt, step, b
     torch.cuda.empty_cache()
@@ -2984,11 +3046,12 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
         "step_device_ms": dev_ms,
         "device_busy_share": dev_ms / float(np.median(host_ms[1:])),
         "k4_device_ms": sum(ms for nm, ms in by_name.items()
-                            if "flash_mma_kernel" in nm),
+                            if kernel_form(nm) == "prefill_mma"),
         "top": [{"name": nm[:80], "ms": ms} for nm, ms in top[:8]],
         "k4_launches_per_step": launches[0],
         "k4_launches_per_step_want": per_step,
         "peak_memory_gb": peak, "profile_s": profile_s,
+        "constant_pad_nd_calls": pads,
         "arch_s": time.perf_counter() - t_arch})
     emit(line)
     return line, total
@@ -3054,12 +3117,12 @@ def train_families_phase(torch, np):
     """K4's lse and the attention gradient at the families' training
     shapes (granite's at batch 4, MLA's at deepseek's batch 2), each
     family trained (train_family), and the NCCL a2a case.
-    Returns K4's cases (granite's GQA D 64 and MLA's padded D 256) and
-    each family's K4 launches on its training path."""
+    Returns K4's cases (granite's GQA D 64 and MLA's unpadded (192, 128))
+    and each family's K4 launches on its training path; MLA's lse call
+    zero-padded to 256 is timed once more beside them."""
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     t_phase = time.perf_counter()
     from repro_torch.configs import ARCHS
-    from repro_torch.models.layers import padded_head_dim
     rng = np.random.RandomState(25)
 
     def randn(shape, dtype):
@@ -3068,7 +3131,6 @@ def train_families_phase(torch, np):
 
     g, m = ARCHS["granite-moe-3b-a800m"], ARCHS["deepseek-v2-236b"]
     dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
-    dp = padded_head_dim(dk)
     # each at its training path's batch
     B, S, bf16 = FAM_TRAIN_BATCH, FAM_TRAIN_SEQ, torch.bfloat16
     Bm = {a: b for a, _, b in TRAIN_FAMILIES}["deepseek-v2-236b"]
@@ -3077,21 +3139,25 @@ def train_families_phase(torch, np):
         randn((B, S, g.n_kv_heads, g.hd), bf16),
         randn((B, S, g.n_kv_heads, g.hd), bf16), causal=True, window=None,
         decode=False, atol=3e-2, lse=True)}
-    q, k, v = (torch.nn.functional.pad(randn((Bm, S, m.n_heads, d), bf16),
-                                       (0, dp - d)) for d in (dk, dk, dv))
+    q, k, v = (randn((Bm, S, m.n_heads, d), bf16) for d in (dk, dk, dv))
     cases["mla"] = flash_case(
         torch, np, "train_mla_bf16", q, k, v, causal=True, window=None,
-        decode=False, atol=3e-2, scale=dk ** -0.5, dims=(dk, dv), lse=True)
-    del q, k, v
+        decode=False, atol=3e-2, scale=dk ** -0.5, lse=True)
+    padded = [torch.nn.functional.pad(t, (0, MLA_PADDED - d))
+              for t, d in ((q, dk), (k, dk), (v, dv))]
+    emit(flash_case(
+        torch, np, "train_mla_padded_bf16", *padded, causal=True,
+        window=None, decode=False, atol=3e-2, scale=dk ** -0.5,
+        dims=(dk, dv), lse=True))
+    del q, k, v, padded
     for c in cases.values():
         emit(c)
     grads = [attention_grad_case(torch, np, "train_granite_bf16", B, S,
                                  g.n_heads, g.n_kv_heads, g.hd, None, bf16,
                                  timed=True),
              attention_grad_case(torch, np, "train_mla_bf16", Bm, S,
-                                 m.n_heads, m.n_heads, dp, None, bf16,
-                                 timed=True, scale=dk ** -0.5,
-                                 dims=(dk, dv))]
+                                 m.n_heads, m.n_heads, dk, None, bf16,
+                                 timed=True, scale=dk ** -0.5, Dv=dv)]
     emit({"phase": "train_families", "attention_grad": grads})
     torch.cuda.empty_cache()
     lines, launches = {}, {}

@@ -20,13 +20,15 @@
 // training path: the attention backward, models/layers.py, reads it);
 // serving passes null and nothing is written.
 //
-// q (B, Sq, H, D) and k, v (B, Skv, Hkv, D) are read through their element
-// strides, with only D contiguous, so neither a prefill's projections nor a
-// decode step's slice of the cache is copied.  Query head h reads kv head
-// h / g (GQA); no KV is repeated in memory.  out is (B, Sq, H, D),
-// contiguous.  Keys at or past skv get no weight at all; a row whose band
-// holds no key sees every key at -1e30 and so averages them uniformly, as
-// the plain version (attention_ref) does.
+// q (B, Sq, H, Dk), k (B, Skv, Hkv, Dk) and v (B, Skv, Hkv, Dv) are read
+// through their element strides, with only the head dim contiguous, so
+// neither a prefill's projections nor a decode step's slice of the cache is
+// copied.  Dv differs from Dk only in prefill, at (192, 128): MLA's
+// unpadded heads.  Query head h reads kv head h / g (GQA); no KV is
+// repeated in memory.  out is (B, Sq, H, Dv), contiguous.  Keys at or
+// past skv get no weight at all; a row whose band holds no key sees every
+// key at -1e30 and so averages them uniformly, as the plain version
+// (attention_ref) does.
 //
 // bf16 prefill: flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a
 // cp.async ring); its note gives the design.
@@ -131,11 +133,18 @@ constexpr int kPS = kBK + 4;           // row stride of a warp's p tile
 template <int D> __host__ __device__ constexpr int row_stride() {
   return D + 16;
 }
-// a two-stage ring of K and V tiles, each warp's p tile and its rows'
-// corrections
-template <int D> __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(2 * 2 * kBK) * row_stride<D>() +
-                          size_t(kWarps) * kRW * (kPS + 1));
+// a two-stage ring of K (DK) and V (DV) tiles, each warp's p tile and its
+// rows' corrections
+template <int DK, int DV> __host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (size_t(2 * kBK) * (row_stride<DK>() + row_stride<DV>()) +
+          size_t(kWarps) * kRW * (kPS + 1));
+}
+
+// floats per vector of a lane's D / 32 columns: 4, or the largest power of
+// two that divides them (2 at D 64 and 192)
+template <int D> __host__ __device__ constexpr int vec_width() {
+  return (D / 32) % 4 == 0 ? 4 : (D / 32) % 2 == 0 ? 2 : 1;
 }
 
 // 4 bytes global -> shared; src-size 0 writes zeros
@@ -172,7 +181,7 @@ __device__ __forceinline__ void load_tile(float* s, const float* g,
   }
 }
 
-// VW floats at p into f (VW 4 or 2; p aligned to VW floats)
+// VW floats at p into f (VW 4, 2 or 1; p aligned to VW floats)
 template <int VW>
 __device__ __forceinline__ void load_vec(float* f, const float* p) {
   if (VW == 4) {
@@ -181,10 +190,12 @@ __device__ __forceinline__ void load_vec(float* f, const float* p) {
     f[1] = t.y;
     f[2] = t.z;
     f[3] = t.w;
-  } else {
+  } else if (VW == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     f[0] = t.x;
     f[1] = t.y;
+  } else {
+    f[0] = *p;
   }
 }
 
@@ -195,8 +206,8 @@ __device__ __forceinline__ float part(const float4& v, int u) {
 // Block (b*H + h, q tile): kBQ query rows, the q tiles in reverse order
 // (the longest causal tiles start first when the grid takes more than one
 // wave).  Warp w owns rows 8w .. 8w+7 for the whole softmax, and lane L
-// owns columns c(L) = {L*VW + 32*VW*n + e} of D (VW = min(4, D/32)) for
-// Q, K and O alike.
+// owns columns c(L) = {L*VW + 32*VW*n + e} of Q and K (D = DK) and of V
+// and O (D = DV), VW = vec_width<D>().
 //   S = Q K^T  Q lives in registers: lane L holds its columns of the
 //              warp's 8 rows.  Per 4 keys a lane forms 32 partial dot
 //              products over its columns (8 rows x 4 keys, one K float4 read
@@ -212,7 +223,7 @@ __device__ __forceinline__ float part(const float4& v, int u) {
 //              (no block barrier: __syncwarp);
 //   O += P V   lane L holds all 8 rows x its D/32 columns of O and reads p
 //              as broadcast float4 (4 keys of a row) and V rows as float4.
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
                      const T* __restrict__ k, const T* __restrict__ v,
@@ -220,14 +231,17 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
                      int skv, int causal, int window, int q_off, float scale,
                      int vec, float* __restrict__ lse) {
   static_assert(sizeof(T) == sizeof(float), "the SIMT form is f32 only");
-  constexpr int RS = row_stride<D>();
-  constexpr int CPL = D / 32;              // columns per lane
-  constexpr int VW = CPL < 4 ? CPL : 4;    // floats per vector
+  constexpr int RS = row_stride<DK>(), RSV = row_stride<DV>();
+  constexpr int CPL = DK / 32;             // Q and K columns per lane
+  constexpr int VW = vec_width<DK>();      // floats per vector
   constexpr int NVEC = CPL / VW;
+  constexpr int CPLV = DV / 32;            // V and O columns per lane
+  constexpr int VWV = vec_width<DV>();
+  constexpr int NVECV = CPLV / VWV;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);   // [2][kBK][RS]
-  float* sV = sK + 2 * kBK * RS;                 // [2][kBK][RS]
-  float* sP = sV + 2 * kBK * RS;                 // [kWarps][kRW][kPS]
+  float* sV = sK + 2 * kBK * RS;                 // [2][kBK][RSV]
+  float* sP = sV + 2 * kBK * RSV;                // [kWarps][kRW][kPS]
   float* sC = sP + kWarps * kRW * kPS;           // [kWarps][kRW]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -251,8 +265,8 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
   const int ntiles = (kv_hi - kv_lo + kBK - 1) / kBK;
 
   if (ntiles > 0) {
-    load_tile<D>(sK, kb, ks.s, kv_lo, skv, vec, tid);
-    load_tile<D>(sV, vb, vs.s, kv_lo, skv, vec, tid);
+    load_tile<DK>(sK, kb, ks.s, kv_lo, skv, vec, tid);
+    load_tile<DV>(sV, vb, vs.s, kv_lo, skv, vec, tid);
   }
   mma::cp_async_commit();
 
@@ -278,24 +292,24 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
   }
 
   float m = kMaskAdd, l = 0.f;             // of row rl
-  float acc[kRW][CPL];
+  float acc[kRW][CPLV];
 #pragma unroll
   for (int r = 0; r < kRW; ++r)
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < CPLV; ++c) acc[r][c] = 0.f;
   float* pw = sP + warp * kRW * kPS;
   float* cw = sC + warp * kRW;
 
   for (int it = 0; it < ntiles; ++it) {
     const int t0 = kv_lo + it * kBK;
     const float* sKt = sK + (it & 1) * kBK * RS;
-    const float* sVt = sV + (it & 1) * kBK * RS;
+    const float* sVt = sV + (it & 1) * kBK * RSV;
     mma::cp_async_wait<0>();
     __syncthreads();   // tile it is in; every warp is done with tile it - 1
     if (it + 1 < ntiles) {
-      const int nxt = ((it + 1) & 1) * kBK * RS;
-      load_tile<D>(sK + nxt, kb, ks.s, t0 + kBK, skv, vec, tid);
-      load_tile<D>(sV + nxt, vb, vs.s, t0 + kBK, skv, vec, tid);
+      const int nxt = ((it + 1) & 1) * kBK;
+      load_tile<DK>(sK + nxt * RS, kb, ks.s, t0 + kBK, skv, vec, tid);
+      load_tile<DV>(sV + nxt * RSV, vb, vs.s, t0 + kBK, skv, vec, tid);
     }
     mma::cp_async_commit();   // (possibly empty) next tile
 
@@ -369,7 +383,7 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
     for (int r = 0; r < kRW; ++r) {
       const float cr = part(r < 4 ? c03 : c47, r & 3);
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[r][c] *= cr;
+      for (int c = 0; c < CPLV; ++c) acc[r][c] *= cr;
     }
 #pragma unroll 2
     for (int c0 = 0; c0 < kBK; c0 += 4) {
@@ -379,16 +393,16 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
         p4[r] = *reinterpret_cast<const float4*>(pw + r * kPS + c0);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = sVt + (c0 + u) * RS + lane * VW;
-        float vv[CPL];
+        const float* vrow = sVt + (c0 + u) * RSV + lane * VWV;
+        float vv[CPLV];
 #pragma unroll
-        for (int n = 0; n < NVEC; ++n)
-          load_vec<VW>(&vv[n * VW], vrow + 32 * VW * n);
+        for (int n = 0; n < NVECV; ++n)
+          load_vec<VWV>(&vv[n * VWV], vrow + 32 * VWV * n);
 #pragma unroll
         for (int r = 0; r < kRW; ++r) {
           const float pr = part(p4[r], u);
 #pragma unroll
-          for (int c = 0; c < CPL; ++c) acc[r][c] += pr * vv[c];
+          for (int c = 0; c < CPLV; ++c) acc[r][c] += pr * vv[c];
         }
       }
     }
@@ -405,16 +419,18 @@ flash_prefill_kernel(T* __restrict__ out, const T* __restrict__ q,
     // the row's log-sum-exp of the scaled scores (m is in natural units)
     if (lse != nullptr && lane == 0) lse[size_t(bh) * sq + qi] = mr + logf(den);
     float* orow = reinterpret_cast<float*>(out) +
-                  ((size_t(b) * sq + qi) * H + h) * D + lane * VW;
+                  ((size_t(b) * sq + qi) * H + h) * DV + lane * VWV;
 #pragma unroll
-    for (int n = 0; n < NVEC; ++n) {
-      if (VW == 4) {
-        *reinterpret_cast<float4*>(orow + 128 * n) = make_float4(
-            acc[r][4 * n] / den, acc[r][4 * n + 1] / den,
-            acc[r][4 * n + 2] / den, acc[r][4 * n + 3] / den);
+    for (int n = 0; n < NVECV; ++n) {
+      const float* a = &acc[r][n * VWV];
+      float* o = orow + 32 * VWV * n;
+      if (VWV == 4) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(a[0] / den, a[1] / den, a[2] / den, a[3] / den);
+      } else if (VWV == 2) {
+        *reinterpret_cast<float2*>(o) = make_float2(a[0] / den, a[1] / den);
       } else {
-        *reinterpret_cast<float2*>(orow) =
-            make_float2(acc[r][0] / den, acc[r][1] / den);
+        *o = a[0] / den;
       }
     }
   }
@@ -427,23 +443,23 @@ __host__ inline bool rows_aligned16(const void* p, const Strides& s) {
          s.s % 4 == 0 && s.h % 4 == 0;
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch_prefill(void* out, const void* q, const void* k,
                            const void* v, Strides qs, Strides ks, Strides vs,
                            int B, int H, int g, int sq, int skv, int causal,
                            int window, int q_off, float scale, float* lse,
                            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DK, DV>();
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
   // the attribute belongs to the current device)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_prefill_kernel<T, DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int vec = rows_aligned16(q, qs) && rows_aligned16(k, ks) &&
                   rows_aligned16(v, vs);
   const dim3 grid(B * H, (sq + kBQ - 1) / kBQ, 1);
-  flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_prefill_kernel<T, DK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), qs, ks, vs, H, g,
       sq, skv, causal, window, q_off, scale, vec, lse);
@@ -812,10 +828,11 @@ cudaError_t launch_decode_any_g(void* out, float* ws, const void* q,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  D: 64, 128 or 256.  window 0 = none.
-// q_off: query row i sits at key position i + q_off for the causal and
-// window masks (0: row i aligns with key i).
-// Strides are in elements, (b, s, h) for each of q, k, v.
+// dtype: 0 float32, 1 bfloat16.  window 0 = none.  q_off: query row i
+// sits at key position i + q_off for the causal and window masks (0: row i
+// aligns with key i).  Strides are in elements, (b, s, h) for each of q,
+// k, v.  The decode form takes one head dim D of 64, 128 or 256
+// (K4_DISPATCH_D).
 #define K4_DISPATCH_D(CALL, T)                                             \
   do {                                                                     \
     if (D == 64) return int(CALL(T, 64));                                  \
@@ -824,13 +841,16 @@ cudaError_t launch_decode_any_g(void* out, float* ws, const void* q,
     return int(cudaErrorInvalidValue);                                     \
   } while (0)
 
-// bf16 prefill takes the tensor-core form and f32 the SIMT form; the SIMT
-// form has no bf16 instantiation.  lse: null, or f32 (B, H, sq) for each
-// row's log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30))
-// (what the attention backward reads).
+// bf16 prefill takes a tensor-core form and f32 the SIMT form; the SIMT
+// form has no bf16 instantiation.  Dk, Dv: q and k's head dim and v's, one
+// of the pairs (64, 64), (128, 128), (192, 128), (256, 256).  bf16 at D 256
+// takes flash_mma_kernel, every other pair the Q-register form, whose scale
+// must be positive.  lse: null, or f32 (B, H, sq) for each row's
+// log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30)) (what
+// the attention backward reads).
 extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  const void* v, int dtype, int B, int H,
-                                 int Hkv, int D, int sq, int skv,
+                                 int Hkv, int Dk, int Dv, int sq, int skv,
                                  long long qsb, long long qss, long long qsh,
                                  long long ksb, long long kss, long long ksh,
                                  long long vsb, long long vss, long long vsh,
@@ -838,17 +858,32 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  float scale, float* lse, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_PREFILL_SIMT(T, DD)                                             \
-  simt::launch_prefill<T, DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq,  \
-                              skv, causal, window, q_off, scale, lse, st)
-#define K4_PREFILL_MMA(T, DD)                                              \
-  launch_mma<DD>(out, q, k, v, qs, ks, vs, B, H, H / Hkv, sq, skv, causal, \
-                 window, q_off, scale, lse, st)
-  if (dtype == 0) K4_DISPATCH_D(K4_PREFILL_SIMT, float);
-  if (dtype == 1) K4_DISPATCH_D(K4_PREFILL_MMA, __nv_bfloat16);
+#define K4_ARGS out, q, k, v, qs, ks, vs, B, H
+#define K4_BAND sq, skv, causal, window, q_off, scale, lse, st
+  if (dtype == 0) {
+    const int g = H / Hkv;
+    if (Dk == 64 && Dv == 64)
+      return int(simt::launch_prefill<float, 64, 64>(K4_ARGS, g, K4_BAND));
+    if (Dk == 128 && Dv == 128)
+      return int(simt::launch_prefill<float, 128, 128>(K4_ARGS, g, K4_BAND));
+    if (Dk == 192 && Dv == 128)
+      return int(simt::launch_prefill<float, 192, 128>(K4_ARGS, g, K4_BAND));
+    if (Dk == 256 && Dv == 256)
+      return int(simt::launch_prefill<float, 256, 256>(K4_ARGS, g, K4_BAND));
+  }
+  if (dtype == 1) {
+    if (Dk == 64 && Dv == 64)
+      return int(launch_mma_qreg_any_g<64, 64>(K4_ARGS, Hkv, K4_BAND));
+    if (Dk == 128 && Dv == 128)
+      return int(launch_mma_qreg_any_g<128, 128>(K4_ARGS, Hkv, K4_BAND));
+    if (Dk == 192 && Dv == 128)
+      return int(launch_mma_qreg_any_g<192, 128>(K4_ARGS, Hkv, K4_BAND));
+    if (Dk == 256 && Dv == 256)
+      return int(launch_mma(K4_ARGS, H / Hkv, K4_BAND));
+  }
   return int(cudaErrorInvalidValue);
-#undef K4_PREFILL_SIMT
-#undef K4_PREFILL_MMA
+#undef K4_ARGS
+#undef K4_BAND
 }
 
 // The decode form: the split kernel, then (with more than one split) the
@@ -878,35 +913,43 @@ extern "C" int flash_decode_launch(void* out, void* ws, const void* q,
 #undef K4_DECODE
 }
 
-// The tensor-core form's raw scores q . k^T (f32, unscaled, unmasked) into
-// out (B*H, sq, skv): a card test of its QK^T fragments alone.  q, k bf16.
+// flash_mma_kernel's raw scores q . k^T (f32, unscaled, unmasked) into out
+// (B*H, sq, skv): a card test of its QK^T fragments alone.  q, k bf16 at
+// D 256.
 extern "C" int flash_mma_scores_launch(float* out, const void* q,
                                        const void* k, int B, int H, int Hkv,
                                        int D, int sq, int skv, long long qsb,
                                        long long qss, long long qsh,
                                        long long ksb, long long kss,
                                        long long ksh, void* stream) {
+  if (D != mma::kD) return int(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_SCORES(T, DD)                                                   \
-  launch_mma_scores<DD>(out, q, k, qs, ks, B, H, H / Hkv, sq, skv, st)
-  K4_DISPATCH_D(K4_SCORES, __nv_bfloat16);
-#undef K4_SCORES
+  return int(launch_mma_scores(out, q, k, qs, ks, B, H, H / Hkv, sq, skv,
+                               static_cast<cudaStream_t>(stream)));
 }
 
-// The tensor-core form's dynamic shared memory per block at head dim D
-// (Q and the K/V ring, padded rows), or 0 for a D it is not built for.
-extern "C" int flash_mma_smem_bytes(int D) {
-  if (D == 64) return int(mma::smem_bytes<64>());
-  if (D == 128) return int(mma::smem_bytes<128>());
-  if (D == 256) return int(mma::smem_bytes<256>());
+// The tensor-core forms' dynamic shared memory per block, or 0 for a
+// kernel that is not built: flash_mma_kernel at D 256 (GH 0: Q and the K/V
+// ring, padded rows), the Q-register form at (Dk, Dv) with GH heads a block
+// (Q's staging and the ring).
+extern "C" int flash_mma_smem_bytes(int Dk, int Dv, int GH) {
+  if (GH == 0) return Dk == 256 && Dv == 256 ? int(mma::kSmemBytes) : 0;
+  if (Dk == 64 && Dv == 64 && GH <= 3)
+    return int(GH == 1 ? mma::qreg_smem_bytes<64, 64, 1>()
+               : GH == 2 ? mma::qreg_smem_bytes<64, 64, 2>()
+                         : mma::qreg_smem_bytes<64, 64, 3>());
+  if (Dk == 128 && Dv == 128 && GH == 1)
+    return int(mma::qreg_smem_bytes<128, 128, 1>());
+  if (Dk == 192 && Dv == 128 && GH == 1)
+    return int(mma::qreg_smem_bytes<192, 128, 1>());
   return 0;
 }
 
-// The same for the SIMT form (Q, the K/V ring, the warps' p tiles).
-extern "C" int flash_simt_smem_bytes(int D) {
-  if (D == 64) return int(simt::smem_bytes<64>());
-  if (D == 128) return int(simt::smem_bytes<128>());
-  if (D == 256) return int(simt::smem_bytes<256>());
+// The same for the SIMT form (the K/V ring, the warps' p tiles).
+extern "C" int flash_simt_smem_bytes(int Dk, int Dv) {
+  if (Dk == 64 && Dv == 64) return int(simt::smem_bytes<64, 64>());
+  if (Dk == 128 && Dv == 128) return int(simt::smem_bytes<128, 128>());
+  if (Dk == 192 && Dv == 128) return int(simt::smem_bytes<192, 128>());
+  if (Dk == 256 && Dv == 256) return int(simt::smem_bytes<256, 256>());
   return 0;
 }

@@ -1,8 +1,15 @@
-// K4's bf16 prefill form on the tensor cores: mma.sync m16n8k16 (bf16 in,
-// f32 accumulate), operands from shared memory through ldmatrix, tiles
+// K4's bf16 prefill forms on the tensor cores: mma.sync m16n8k16 (bf16
+// in, f32 accumulate), operands from shared memory through ldmatrix, tiles
 // brought in by cp.async into a two-stage ring.  Included by flash_attn.cu,
 // whose launcher sends every bf16 prefill here; f32 prefill stays on the
-// SIMT form there.
+// SIMT form there.  Two kernels share the fragments and copies:
+//
+//   flash_mma_kernel               D 256 (gemma3-1b): Q in shared memory,
+//                                  32-key tiles, one query head a block;
+//   flash_mma_qreg_kernel<DK, DV, GH>  (Dk, Dv) of (64, 64), (128, 128) and
+//                                  (192, 128) (DeepSeek-V2's MLA, unpadded):
+//                                  Q in registers, 64-key tiles, GH query
+//                                  heads of one kv head a block.
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // for bf16 operands, with the function written at the top of flash_attn.cu
@@ -15,27 +22,27 @@
 // bf16 tensor-core rate, against 6.3 us for the 21 MB of q, k, v and out:
 // bound by operations.  mma.sync reaches only part of that rate (wgmma,
 // whose B operand four warps read from shared memory once, is the way to
-// all of it).  What bounds this form instead is shared memory: every warp
-// reads the whole K and V tile through ldmatrix, and its Q rows again for
-// every key tile, 40 KB per warp per 32-key tile at D 256.
+// all of it).  What bounds these forms instead is shared memory and the
+// softmax's per-element work: every warp reads the whole K and V tile
+// through ldmatrix, at D 256 its Q rows again for every key tile (40 KB
+// per warp per 32-key tile).
 //
-// Tiles.  One block of 4 warps per (b*H + h, 64-row q tile); warp w owns
-// query rows 16w .. 16w+15 for the whole softmax, so m and l live in
-// registers and no block-wide reduction is needed.  At D 256 a thread
-// holds the 16 x 256 f32 O accumulator of its warp as 128 registers, so Q
-// is not held in registers: it stays in shared memory and is re-read
-// through ldmatrix for every key tile.  Key tiles hold 64 keys, but 32 at
-// D 256 (key_tile): with a 64-key score tile beside the accumulator ptxas
-// spilled 72 bytes at 255 registers and the form ran much slower;
-// with 32 it holds 255 registers, no spill, and two blocks fit an SM.
+// Tiles (flash_mma_kernel).  One block of 4 warps per (b*H + h, 64-row q
+// tile); warp w owns query rows 16w .. 16w+15 for the whole softmax, so m
+// and l live in registers and no block-wide reduction is needed.  At D 256
+// a thread holds the 16 x 256 f32 O accumulator of its warp as 128
+// registers, so Q is not held in registers: it stays in shared memory and
+// is re-read through ldmatrix for every key tile.  Key tiles hold 32 keys
+// (kBK): with a 64-key score tile beside the accumulator ptxas
+// spilled 72 bytes at 255 registers and the form ran much slower; with 32
+// it holds 255 registers, no spill, and two blocks fit an SM.
 //
 // Shared memory: Q (64 x D) and a two-stage ring of K and V tiles
 // (2 x 2 x BK x D), all bf16, each row padded by 8 elements (16 bytes).
 // The padding makes consecutive rows start 16 bytes apart modulo 128, so
 // the 8 row addresses of each 8x8 ldmatrix fall in 8 different bank groups
 // (no conflicts) without an XOR swizzle's address arithmetic.  101,376
-// bytes at D 256 (BK 32), 87,040 at D 128 and 46,080 at D 64 (BK 64); the
-// launcher opts in above 48 KB on every launch.
+// bytes at D 256; the launcher opts in above 48 KB on every launch.
 //
 // Fragments (PTX ISA, mma.m16n8k16 .bf16): S = Q K^T takes A from Q with
 // ldmatrix.x4 (16 rows x 16 d) and B from K's rows with ldmatrix.x4 (two
@@ -64,6 +71,47 @@
 // from its fragments; staging them through shared memory for 16-byte rows
 // measured slower.  With an lse pointer, one thread of each quad writes
 // its row's m + log(max(l, 1e-30)) in f32.
+//
+// The Q-register form (flash_mma_qreg_kernel) differs where D 256's
+// registers forced the choices above.  Its layout is fixed
+// (qreg_rows, qreg_max_heads, kQKeys, kQStages), the fastest of the
+// layouts measured on an H100:
+//
+// - Q in registers.  With Dv at most 128 the O accumulator is at most 64
+//   registers a thread, so each warp loads its 16 x Dk Q fragments once
+//   (Dk / 16 A fragments: 48 registers at Dk 192) and never re-reads them.
+//   Per warp and 64-key tile the shared-memory reads are K's and V's
+//   alone: 24 + 16 KB at (192, 128), where zero-padding both to 256 read
+//   about 80 KB (Q's included) and did 60 % more products.
+// - Rows a block.  Each K and V tile copied into shared memory serves
+//   every query row of its block, so the copies per product fall with the
+//   rows a block holds.  At (192, 128) and (128, 128) a block holds 128
+//   rows of one head (8 warps; 64 rows ran MLA 30 % slower) and a ring of
+//   two stages (three measured within 1 %): 137,216 bytes at (192, 128),
+//   one block an SM.  At D 64 a block owns one (batch, kv head, 64-row q
+//   tile) and GH of the kv head's g query heads, 4 warps each (granite's
+//   g 3: 12 warps, K and V copied once where one head a block copied them
+//   three times); a larger group is split over ceil(g / GH_max) blocks of
+//   equal GH (GH_max 3 at D 64, 1 at D 128 and 192, where more warps would
+//   spill), a block's heads past g loading zeros and writing nothing.
+//   Two m16 row tiles a warp, 32- or 128-key tiles, 3 stages and a launch
+//   bound of two blocks an SM measured no faster at D 64, nor did 128
+//   rows a block there.
+// - Copies: 8 threads a row, 16 bytes each per 64 columns, so a thread's
+//   column is fixed and only its row steps (an unrolled table of copy
+//   addresses held 60 registers and spilled at (192, 128)); one barrier a
+//   key tile (see the kernel).
+// - The scale folded into the exponent: the row max is kept on the raw
+//   scores and p = 2^(s * c - m * c) with c = scale * log2(e), one FMA a
+//   score, by ex2.approx.ftz (exp2f's range fix-up cost 5 % at D 64); the
+//   scale must be positive, which the wrapper checks.  A dropped key's raw
+//   score is -2^k with 2^k * c in [2^100, 2^101), so m * c is exact for a
+//   row that has seen only dropped keys and its keys average uniformly (p
+//   = 1), as at -1e30; such a row's lse is written as -1e30 + log(l), the
+//   plain version's value.
+// - q tiles longest first: blockIdx.y counts from the last q tile, and the
+//   grid's x runs over (batch, kv head, head block), so the causal tiles
+//   with the most keys start in the first wave.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,17 +136,13 @@ constexpr int kPad = 8;                 // bf16 elements of padding per row
 constexpr float kMaskAdd = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// keys per tile: 64, but 32 at D 256, where a 64-key score tile beside
-// the 128-register accumulator made ptxas spill
-template <int D> __host__ __device__ constexpr int key_tile() {
-  return D == 256 ? 32 : 64;
-}
-template <int D> __host__ __device__ constexpr int row_stride() {
-  return D + kPad;
-}
-template <int D> __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(bf16) * size_t(row_stride<D>()) * (kBQ + 2 * 2 * key_tile<D>());
-}
+// flash_mma_kernel's one head dim (gemma3-1b's) and its keys per tile:
+// 32, where a 64-key score tile beside the 128-register accumulator made
+// ptxas spill
+constexpr int kD = 256;
+constexpr int kBK = 32;
+constexpr int kRS = kD + kPad;          // its padded row stride
+constexpr size_t kSmemBytes = sizeof(bf16) * size_t(kRS) * (kBQ + 2 * 2 * kBK);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -146,20 +190,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ROWS rows of D elements from g (row r0 + r at g + (r0 + r) * stride)
+// ROWS rows of kD elements from g (row r0 + r at g + (r0 + r) * stride)
 // into a padded shared tile; rows at or past `limit` are zero-filled
-template <int D, int ROWS>
+template <int ROWS>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
                                           long long stride, int r0, int limit,
                                           int tid) {
-  constexpr int CH = D / 8;              // 16-byte chunks per row
+  constexpr int CH = kD / 8;             // 16-byte chunks per row
   static_assert((ROWS * CH) % kThreads == 0, "tile chunks per thread");
 #pragma unroll
   for (int j = 0; j < ROWS * CH / kThreads; ++j) {
     const int i = tid + j * kThreads, r = i / CH, c = i % CH;
     const bool in = r0 + r < limit;
     const bf16* src = in ? g + (r0 + r) * stride + c * 8 : g;
-    cp_async16(smem_u32(s + r * row_stride<D>() + c * 8), src, in);
+    cp_async16(smem_u32(s + r * kRS + c * 8), src, in);
   }
 }
 
@@ -179,12 +223,11 @@ __device__ __forceinline__ int b_col(int lane) {
   return ((lane >> 3) & 1) * 8;
 }
 
-// s = q . k^T for a warp's 16 query rows (sQw) against a BK-key tile (sKt)
-template <int D, int BK = key_tile<D>()>
-__device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4],
+// s = q . k^T for a warp's 16 query rows (sQw) against a key tile (sKt)
+__device__ __forceinline__ void tile_scores(float (&s)[kBK / 8][4],
                                             const bf16* sQw, const bf16* sKt,
                                             int lane) {
-  constexpr int RS = row_stride<D>();
+  constexpr int D = kD, RS = kRS, BK = kBK;
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
@@ -205,14 +248,13 @@ __device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4],
   }
 }
 
-template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
                  const bf16* __restrict__ k, const bf16* __restrict__ v,
                  Strides qs, Strides ks, Strides vs, int H, int g, int sq,
                  int skv, int causal, int window, int q_off, float scale,
                  float* __restrict__ lse) {
-  constexpr int RS = row_stride<D>(), BK = key_tile<D>();
+  constexpr int D = kD, RS = kRS, BK = kBK;
   constexpr int NO = D / 8;              // n8 blocks of the O accumulator
   static_assert(BK % 16 == 0 && BK >= 16, "key tile: a multiple of 16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -239,10 +281,10 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
     else kv_lo = max(0, p0 - window + 1);
   }
 
-  load_tile<D, kBQ>(sQ, qb, qs.s, q0, sq, tid);
+  load_tile<kBQ>(sQ, qb, qs.s, q0, sq, tid);
   if (kv_lo < kv_hi) {
-    load_tile<D, BK>(sK, kb, ks.s, kv_lo, skv, tid);
-    load_tile<D, BK>(sV, vb, vs.s, kv_lo, skv, tid);
+    load_tile<BK>(sK, kb, ks.s, kv_lo, skv, tid);
+    load_tile<BK>(sV, vb, vs.s, kv_lo, skv, tid);
   }
   cp_async_commit();
 
@@ -258,9 +300,9 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
   int stage = 0;
   for (int t0 = kv_lo; t0 < kv_hi; t0 += BK, stage ^= 1) {
     if (t0 + BK < kv_hi) {              // tile j+1 into the other stage
-      load_tile<D, BK>(sK + (stage ^ 1) * BK * RS, kb, ks.s, t0 + BK, skv,
+      load_tile<BK>(sK + (stage ^ 1) * BK * RS, kb, ks.s, t0 + BK, skv,
                         tid);
-      load_tile<D, BK>(sV + (stage ^ 1) * BK * RS, vb, vs.s, t0 + BK, skv,
+      load_tile<BK>(sV + (stage ^ 1) * BK * RS, vb, vs.s, t0 + BK, skv,
                         tid);
     }
     cp_async_commit();                   // (possibly empty) group of j+1
@@ -268,7 +310,7 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
     __syncthreads();
 
     float s[BK / 8][4];
-    tile_scores<D>(s, sQw, sK + stage * BK * RS, lane);
+    tile_scores(s, sQw, sK + stage * BK * RS, lane);
 
     // scale and mask; a tile inside every row's band of this warp skips
     // the per-element test
@@ -366,12 +408,11 @@ flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
 // The raw scores q . k^T (f32, unscaled, unmasked) of one (q tile, key
 // tile) per block, through the same copies and fragments as the prefill
 // form: the card test of the QK^T fragments alone.  out: (B*H, sq, skv).
-template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_mma_scores_kernel(float* __restrict__ out, const bf16* __restrict__ q,
                         const bf16* __restrict__ k, Strides qs, Strides ks,
                         int H, int g, int sq, int skv) {
-  constexpr int RS = row_stride<D>(), BK = key_tile<D>();
+  constexpr int RS = kRS, BK = kBK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sK = sQ + kBQ * RS;
@@ -379,14 +420,14 @@ flash_mma_scores_kernel(float* __restrict__ out, const bf16* __restrict__ q,
   const int gr = lane >> 2, tig = lane & 3;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / g;
   const int w0 = blockIdx.x * kBQ + warp * 16, t0 = blockIdx.z * BK;
-  load_tile<D, kBQ>(sQ, q + b * qs.b + h * qs.h, qs.s, blockIdx.x * kBQ, sq,
+  load_tile<kBQ>(sQ, q + b * qs.b + h * qs.h, qs.s, blockIdx.x * kBQ, sq,
                     tid);
-  load_tile<D, BK>(sK, k + b * ks.b + hk * ks.h, ks.s, t0, skv, tid);
+  load_tile<BK>(sK, k + b * ks.b + hk * ks.h, ks.s, t0, skv, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   float s[BK / 8][4];
-  tile_scores<D>(s, sQ + warp * 16 * RS, sK, lane);
+  tile_scores(s, sQ + warp * 16 * RS, sK, lane);
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
@@ -398,43 +439,364 @@ flash_mma_scores_kernel(float* __restrict__ out, const bf16* __restrict__ q,
     }
 }
 
+// ---- the Q-register form ------------------------------------------------
+
+// The Q-register form's layout (the header's note): the query rows of a
+// head a block (QT), 64 at D 64 and 128 at the wider pairs; the most query
+// heads a block, 3 at D 64 and 1 at the wider pairs; 64-key tiles in a
+// two-stage ring; 16 rows a warp.
+constexpr int kQKeys = 64;
+constexpr int kQStages = 2;
+template <int DK> __host__ __device__ constexpr int qreg_rows() {
+  return DK == 64 ? 64 : 128;
+}
+template <int DK> __host__ __device__ constexpr int qreg_max_heads() {
+  return DK == 64 ? 3 : 1;
+}
+template <int DK, int GH> __host__ __device__ constexpr int qreg_threads() {
+  return 32 * GH * qreg_rows<DK>() / 16;
+}
+
+// Q's staging (GH heads x QT rows x Dk) and the ring of K (Dk) and V (Dv)
+// tiles, every row padded by kPad
+template <int DK, int DV, int GH>
+__host__ __device__ constexpr size_t qreg_smem_bytes() {
+  return sizeof(bf16) * (size_t(GH) * qreg_rows<DK>() * (DK + kPad) +
+                         size_t(kQStages) * kQKeys * (DK + kPad + DV + kPad));
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: relative error about 2^-22,
+// results below 2^-126 flushed to 0), where exp2f adds a range fix-up of
+// three instructions a call
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ROWS rows of DW elements from g (row r0 + r at g + (r0 + r) * stride)
+// into a shared tile of row stride RS, by NT threads: 8 threads a row, 16
+// bytes each per 64 columns, so a thread's column is fixed and only its
+// row steps (no per-copy address table held in registers); rows at or
+// past `limit` are zero-filled
+template <int DW, int RS, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(bf16* s, const bf16* g,
+                                          long long stride, int r0, int limit,
+                                          int tid) {
+  constexpr int RPP = NT / 8;             // rows a pass
+  static_assert(DW % 64 == 0 && NT % 8 == 0, "64-column segments");
+  const int c = (tid & 7) * 8, rt = tid >> 3;
+#pragma unroll
+  for (int p = 0; p < (ROWS + RPP - 1) / RPP; ++p) {
+    const int r = rt + p * RPP;
+    if (ROWS % RPP == 0 || r < ROWS) {
+      const bool in = r0 + r < limit;
+      const bf16* src = in ? g + (r0 + r) * stride + c : g;
+      const uint32_t dst = smem_u32(s + r * RS + c);
+#pragma unroll
+      for (int seg = 0; seg < DW / 64; ++seg)
+        cp_async16(dst + seg * 128, src + (in ? seg * 64 : 0), in);
+    }
+  }
+}
+
+// Block (x: (b * Hkv + hk) * nhb + hb, y: q tile from the last): query
+// heads hk * g + hb * GH + i (i < GH, those below g) against kv head hk;
+// warp w serves head w / WPH, rows 16 (w % WPH) .. of the QT-row q tile.
+// One barrier a key tile: tile j's copies are waited for, the barrier
+// makes them visible and frees the stage tile j - 1 used, and tile j + 1
+// goes into that stage while tile j is computed.  A warp whose rows all
+// sit before a causal tile's first key skips it (exactly: their bands lie
+// in tiles already seen, so it would add p = 0).  The header's note gives
+// the design.
+template <int DK, int DV, int GH>
+__global__ void __launch_bounds__(qreg_threads<DK, GH>(), 1)
+flash_mma_qreg_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
+                      const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      Strides qs, Strides ks, Strides vs, int H, int Hkv,
+                      int g, int nhb, int sq, int skv, int causal,
+                      int window, int q_off, float scale,
+                      float* __restrict__ lse) {
+  constexpr int NS = kQStages, BK = kQKeys;
+  constexpr int QT = qreg_rows<DK>(), NT = qreg_threads<DK, GH>();
+  constexpr int WPH = QT / 16;             // warps a head
+  constexpr int RSK = DK + kPad, RSV = DV + kPad;
+  constexpr int NQ = DK / 16;              // Q's A fragments
+  constexpr int NO = DV / 8;               // n8 blocks of the O accumulator
+  static_assert(DK % 64 == 0 && DV % 64 == 0, "64-column segments");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [GH][QT][RSK]
+  bf16* sK = sQ + GH * QT * RSK;                  // [NS][BK][RSK]
+  bf16* sV = sK + NS * BK * RSK;                  // [NS][BK][RSV]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tig = lane & 3;       // fragment row, column pair
+  const int hb = blockIdx.x % nhb, bkv = blockIdx.x / nhb;
+  const int b = bkv / Hkv, hk = bkv % Hkv;
+  const int hw = warp / WPH;                      // the warp's head: in the
+  const int hg = hb * GH + hw;                    // block, in hk's group
+  const int h = hk * g + hg;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT, q1 = min(q0 + QT, sq);
+  const int w0 = q0 + (warp % WPH) * 16;          // the warp's first row
+  const bool busy = hg < g && w0 < sq;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  // the keys this tile's band meets (row i sits at position i + q_off); a
+  // row with no key in its band (only with a window and sq + q_off > skv)
+  // needs every key, at the mask value
+  const int p0 = q0 + q_off, p1 = q1 + q_off, pw0 = w0 + q_off;
+  int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
+  if (window > 0) {
+    if (p1 - window >= skv) kv_hi = skv;
+    else kv_lo = max(0, p0 - window + 1);
+  }
+
+  // Q, then tiles 0 .. NS-2, one copy group each
+#pragma unroll
+  for (int i = 0; i < GH; ++i) {
+    const bool live = hb * GH + i < g;
+    load_rows<DK, RSK, QT, NT>(
+        sQ + i * QT * RSK,
+        live ? q + b * qs.b + (hk * g + hb * GH + i) * qs.h : q, qs.s, q0,
+        live ? sq : 0, tid);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (kv_lo + i * BK < kv_hi) {
+      load_rows<DK, RSK, BK, NT>(sK + i * BK * RSK, kb, ks.s,
+                                 kv_lo + i * BK, skv, tid);
+      load_rows<DV, RSV, BK, NT>(sV + i * BK * RSV, vb, vs.s,
+                                 kv_lo + i * BK, skv, tid);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();               // Q has landed
+  __syncthreads();
+  uint32_t qf[NQ][4];
+  {
+    const uint32_t qa = smem_u32(
+        sQ + (hw * QT + (warp % WPH) * 16 + a_row(lane)) * RSK + a_col(lane));
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) ldsm_x4(qf[kk], qa + kk * 32);
+  }
+
+  // raw scores to log2 units, and a dropped key's raw score (see the note)
+  const float c = scale * kLog2e;
+  const float mask_raw = -ldexpf(1.f, min(127, 100 - ilogbf(c)));
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {mask_raw, mask_raw}, l_r[2] = {0.f, 0.f};
+  const uint32_t kfrag = smem_u32(sK + b_row(lane) * RSK + b_col(lane));
+  const uint32_t vfrag = smem_u32(sV + a_row(lane) * RSV + a_col(lane));
+
+  int st = 0;                            // tile j's stage, j % NS
+  for (int t0 = kv_lo; t0 < kv_hi; t0 += BK, st = st + 1 == NS ? 0 : st + 1) {
+    cp_async_wait<NS - 2>();             // tile j has landed
+    __syncthreads();                     // ... for every thread; j-1 done
+    {
+      const int tn = t0 + (NS - 1) * BK;   // tile j+NS-1 into j-1's stage
+      const int sn = st == 0 ? NS - 1 : st - 1;
+      if (tn < kv_hi) {
+        load_rows<DK, RSK, BK, NT>(sK + sn * BK * RSK, kb, ks.s, tn, skv,
+                                   tid);
+        load_rows<DV, RSV, BK, NT>(sV + sn * BK * RSV, vb, vs.s, tn, skv,
+                                   tid);
+      }
+      cp_async_commit();                 // (possibly empty) group
+    }
+    if (!busy || (causal && t0 > pw0 + 15)) continue;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    const uint32_t kt = kfrag + st * BK * RSK * 2;
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kt + nb * 16 * RSK * 2 + kk * 32);
+        mma_bf16(s[2 * nb], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * nb + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    // mask the raw scores; a tile inside every row's band of this warp
+    // skips the per-element test
+    const bool inside = t0 + BK <= skv &&
+                        (!causal || t0 + BK - 1 <= pw0) &&
+                        (window <= 0 || t0 > pw0 + 15 - window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e];
+        if (!inside) {
+          const int row = pw0 + gr + (e >> 1) * 8;
+          const int key = t0 + n * 8 + tig * 2 + (e & 1);
+          bool keep = !causal || key <= row;
+          if (window > 0) keep = keep && key > row - window;
+          x = key < skv ? (keep ? x : mask_raw) : -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2_approx((m_r[r] - mx[r]) * c);
+      m_r[r] = mx[r];
+      mc[r] = mx[r] * c;
+      l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(fmaf(s[n][e], c, -mc[e >> 1]));
+        l_r[e >> 1] += p;                // the unrounded p, as the reference
+        s[n][e] = p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += round_to_bf16(P) . V: S's C fragments are P's A fragments
+    const uint32_t vt = vfrag + st * BK * RSV * 2;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int nb = 0; nb < DV / 16; ++nb) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vt + kk * 16 * RSV * 2 + nb * 32);
+        mma_bf16(o[2 * nb], a, bv[0], bv[1]);
+        mma_bf16(o[2 * nb + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!busy) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float den = fmaxf(l, 1e-30f);
+    const int row = w0 + gr + r * 8;
+    if (row >= sq) continue;
+    // the row's log-sum-exp of the scaled scores, in natural units; a row
+    // that saw only dropped keys sits at -1e30, as in the plain version
+    if (lse != nullptr && tig == 0)
+      lse[(size_t(b) * H + h) * sq + row] =
+          (m_r[r] == mask_raw ? kMaskAdd : m_r[r] * scale) + logf(den);
+    bf16* orow = out + ((size_t(b) * sq + row) * H + h) * DV;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + tig * 2) =
+          pack_bf16(o[n][2 * r] / den, o[n][2 * r + 1] / den);
+  }
+}
+
 }  // namespace mma
 
-template <int D>
 cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
                        Strides qs, Strides ks, Strides vs, int B, int H,
                        int g, int sq, int skv, int causal, int window,
                        int q_off, float scale, float* lse,
                        cudaStream_t stream) {
-  constexpr size_t smem = mma::smem_bytes<D>();
+  constexpr size_t smem = mma::kSmemBytes;
   // dynamic shared memory above 48 KB needs the opt-in (on every launch:
   // the attribute belongs to the current device)
   const cudaError_t err = cudaFuncSetAttribute(
-      mma::flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mma::flash_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + mma::kBQ - 1) / mma::kBQ, B * H, 1);
-  mma::flash_mma_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+  mma::flash_mma_kernel<<<grid, mma::kThreads, smem, stream>>>(
       static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
       static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v), qs,
       ks, vs, H, g, sq, skv, causal, window, q_off, scale, lse);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV, int GH>
+cudaError_t launch_mma_qreg(void* out, const void* q, const void* k,
+                            const void* v, Strides qs, Strides ks, Strides vs,
+                            int B, int H, int Hkv, int nhb, int sq, int skv,
+                            int causal, int window, int q_off, float scale,
+                            float* lse, cudaStream_t stream) {
+  constexpr size_t smem = mma::qreg_smem_bytes<DK, DV, GH>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      mma::flash_mma_qreg_kernel<DK, DV, GH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  constexpr int QT = mma::qreg_rows<DK>();
+  const dim3 grid(B * Hkv * nhb, (sq + QT - 1) / QT, 1);
+  mma::flash_mma_qreg_kernel<DK, DV, GH>
+      <<<grid, mma::qreg_threads<DK, GH>(), smem, stream>>>(
+          static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
+          static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v),
+          qs, ks, vs, H, Hkv, H / Hkv, nhb, sq, skv, causal, window, q_off,
+          scale, lse);
+  return cudaGetLastError();
+}
+
+// the Q-register form for any g: ceil(g / GH_max) head blocks a kv head,
+// each of GH = ceil(g / blocks) heads (GH_max: qreg_max_heads)
+template <int DK, int DV>
+cudaError_t launch_mma_qreg_any_g(void* out, const void* q, const void* k,
+                                  const void* v, Strides qs, Strides ks,
+                                  Strides vs, int B, int H, int Hkv, int sq,
+                                  int skv, int causal, int window, int q_off,
+                                  float scale, float* lse,
+                                  cudaStream_t stream) {
+  constexpr int GHMAX = mma::qreg_max_heads<DK>();
+  const int g = H / Hkv;
+  const int nhb = (g + GHMAX - 1) / GHMAX, gh = (g + nhb - 1) / nhb;
+#define K4_QREG(GH)                                                        \
+  launch_mma_qreg<DK, DV, GH>(out, q, k, v, qs, ks, vs, B, H, Hkv, nhb, sq, \
+                              skv, causal, window, q_off, scale, lse, stream)
+  if (gh == 1) return K4_QREG(1);
+  if constexpr (GHMAX >= 2) if (gh == 2) return K4_QREG(2);
+  if constexpr (GHMAX >= 3) if (gh == 3) return K4_QREG(3);
+#undef K4_QREG
+  return cudaErrorInvalidValue;
+}
+
+// the raw scores of flash_mma_kernel's fragments (D 256)
 cudaError_t launch_mma_scores(float* out, const void* q, const void* k,
                               Strides qs, Strides ks, int B, int H, int g,
                               int sq, int skv, cudaStream_t stream) {
   constexpr size_t smem =
-      sizeof(mma::bf16) * mma::row_stride<D>() *
-      (mma::kBQ + mma::key_tile<D>());
+      sizeof(mma::bf16) * mma::kRS * (mma::kBQ + mma::kBK);
   const cudaError_t err = cudaFuncSetAttribute(
-      mma::flash_mma_scores_kernel<D>,
+      mma::flash_mma_scores_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + mma::kBQ - 1) / mma::kBQ, B * H,
-                  (skv + mma::key_tile<D>() - 1) / mma::key_tile<D>());
-  mma::flash_mma_scores_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
+                  (skv + mma::kBK - 1) / mma::kBK);
+  mma::flash_mma_scores_kernel<<<grid, mma::kThreads, smem, stream>>>(
       out, static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
       qs, ks, H, g, sq, skv);
   return cudaGetLastError();

@@ -44,23 +44,28 @@ def route(kernel: str, *tensors: torch.Tensor) -> str:
     return dev
 
 
-# K4 (csrc/flash_attn.cu) instantiates these
+# K4 (csrc/flash_attn.cu) instantiates these: the prefill forms at the
+# (Dk, Dv) pairs of ATTENTION_HEAD_DIMS (DeepSeek-V2's MLA at (192, 128)),
+# the decode form at one head dim of DECODE_HEAD_DIMS
 ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
-ATTENTION_HEAD_DIMS = (64, 128, 256)
+ATTENTION_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
+DECODE_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 
 
 def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> str:
-    """Shapes of q (B, Sq, H, D) and k, v (B, Skv, Hkv, D), then the
-    route.  Unlike ``route``'s kernels, K4 reads through strides: a CUDA
+              v: torch.Tensor, head_dims=ATTENTION_HEAD_DIMS) -> str:
+    """Shapes of q (B, Sq, H, Dk), k (B, Skv, Hkv, Dk) and v (B, Skv, Hkv,
+    Dv), then the route: v has its own head dim and agrees with k in the
+    rest.  Unlike ``route``'s kernels, K4 reads through strides: a CUDA
     operand needs only its last dim contiguous, a type of
-    ``ATTENTION_DTYPES`` and a D of ``ATTENTION_HEAD_DIMS``."""
+    ``ATTENTION_DTYPES`` and a (Dk, Dv) of ``head_dims``; any other pair
+    raises (the plain version on the CPU takes every pair)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{kernel}: {name} must be a 4-d tensor "
                              f"(B, S, heads, D)")
     B, _, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{kernel}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if k.shape[1] < 1 or k.shape[2] < 1 or H % k.shape[2]:
@@ -74,9 +79,9 @@ def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
         if q.dtype not in ATTENTION_DTYPES:
             raise TypeError(f"{kernel}: the kernel takes float32 or "
                             f"bfloat16, got {q.dtype}")
-        if D not in ATTENTION_HEAD_DIMS:
-            raise ValueError(f"{kernel}: the kernel is built for head dims "
-                             f"{ATTENTION_HEAD_DIMS}, got {D}")
+        if (D, v.shape[3]) not in head_dims:
+            raise ValueError(f"{kernel}: the kernel is built for (Dk, Dv) "
+                             f"{head_dims}, got {(D, v.shape[3])}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(3) != 1:
                 raise ValueError(f"{kernel}: {name}'s last dim must be "

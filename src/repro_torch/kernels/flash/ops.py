@@ -6,12 +6,14 @@ A CUDA tensor launches ``csrc/flash_attn.cu`` (or raises); a CPU tensor
 takes the plain version in ref.py; any other device raises.  Operands may
 be strided views (a slice of a KV cache, a head split of a projection):
 only the last dim must be contiguous.  A bf16 prefill goes to the
-tensor-core form (``csrc/flash_attn_mma.cuh``), an f32 prefill to the SIMT
-form.  The decode form splits the keys over blocks (``decode_split``) and
-merges the splits in a second kernel, both behind one launcher.  The
-tensor-core and decode forms copy 16-byte rows: their operands must also
-meet ``_checks.row_misalignment``'s rule, or the wrapper raises (there is
-no other form to fall back to).
+tensor-core form (``csrc/flash_attn_mma.cuh``: one kernel at D 256, the
+Q-register kernel at (64, 64), (128, 128) and MLA's unpadded (192, 128),
+a kv head's query heads in one block), an f32 prefill to the SIMT form.
+The decode form splits the keys over blocks (``decode_split``) and merges
+the splits in a second kernel, both behind one launcher.  The tensor-core
+and decode forms copy 16-byte rows: their operands must also meet
+``_checks.row_misalignment``'s rule, or the wrapper raises (there is no
+other form to fall back to).
 
 Every launch counts under ``flash_attention`` and under its form,
 ``flash_attention:<form>`` for the forms of ``FORMS``; ``form_launches``
@@ -41,7 +43,7 @@ from .ref import attention_ref
 KERNEL = "flash_attention"
 FORMS = ("prefill_mma", "prefill_simt", "decode")
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-_PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 7 + (_LL,) * 9
+_PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 8 + (_LL,) * 9
                      + (_I, _I, _I, ctypes.c_float, _P, _P))
 _DECODE_ARGTYPES = ((_P,) * 5 + (_I,) * 8 + (_LL,) * 8
                     + (ctypes.c_float, _P))
@@ -52,41 +54,80 @@ _SCORES_ARGTYPES = (_P,) * 3 + (_I,) * 6 + (_LL,) * 6 + (_P,)
 SMS = 132
 MIN_CHUNK = 16
 
-# a kernel of the library by its mangled name: kernel, type, head dim and
-# the decode split kernel's head-group width
-_ENTRY = re.compile(r"(flash_(?:mma|prefill|decode_split|decode_merge)"
-                    r"_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?"
-                    r"(?:Li(\d+)E)?")
+# a kernel of the library by its name, mangled (ptxas) or demangled (the
+# profiler): kernel, then its type and integer template arguments (mangled
+# only); the integers are (Dk, Dv, heads a block) for the Q-register form,
+# (Dk, Dv) for the SIMT form, (D, head group) for the decode split kernel;
+# flash_mma_kernel has none (it is D 256's alone)
+_ENTRY = re.compile(r"(flash_(?:mma_qreg|mma|prefill|decode_split"
+                    r"|decode_merge)_kernel)(?:I(f|13__nv_bfloat16)?"
+                    r"((?:Li\d+E)*))?")
 _FORM_OF = {"flash_mma_kernel": "prefill_mma",
+            "flash_mma_qreg_kernel": "prefill_mma",
             "flash_prefill_kernel": "prefill_simt",
             "flash_decode_split_kernel": "decode_split",
             "flash_decode_merge_kernel": "decode_merge"}
 
 
+def _entry(name: str):
+    """(kernel, "f32" or "bf16", integer template arguments) of a K4
+    kernel's name (the arguments only from a mangled name), or None."""
+    m = _ENTRY.search(name)
+    if m is None:
+        return None
+    return (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+            [int(i) for i in re.findall(r"Li(\d+)E", m.group(3) or "")])
+
+
+def kernel_form(name: str) -> Optional[str]:
+    """The form of ``_FORM_OF`` whose kernel a (mangled or demangled)
+    kernel name is, or None for a kernel that is not K4's."""
+    e = _entry(name)
+    return _FORM_OF[e[0]] if e else None
+
+
+def _resource_key(kernel: str, dtype: str, ints) -> str:
+    """"bf16_d256", "bf16_d192_128_g1", "f32_d64", "bf16_d64_g4", "bf16":
+    the type, the head dims (Dv when it differs from Dk) and the heads a
+    block of a Q-register or decode split kernel."""
+    if kernel == "flash_mma_kernel":
+        return f"{dtype}_d256"
+    if kernel == "flash_mma_qreg_kernel":
+        dk, dv, heads = ints
+        return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "") \
+            + f"_g{heads}"
+    if kernel == "flash_prefill_kernel":
+        dk, dv = ints
+        return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "")
+    return dtype + "".join(f"_{p}{i}" for p, i in zip("dg", ints))
+
+
 def resources(built: _build.Built) -> dict:
     """Per kernel (the two prefill forms, the decode form's split and
-    merge kernels), then per type, head dim and head group ("bf16_d256",
-    "bf16_d256_g4", "bf16"): ptxas's registers, stack and spill bytes for
-    each kernel of a built ``flash_attn`` library, and each prefill
-    form's shared bytes per block."""
-    smem = {}
-    for form, symbol in (("prefill_mma", "flash_mma_smem_bytes"),
-                         ("prefill_simt", "flash_simt_smem_bytes")):
-        fn = getattr(built.lib, symbol)
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        smem[form] = fn
+    merge kernels), then per ``_resource_key`` ("bf16_d256",
+    "bf16_d192_128_g1", "bf16_d256_g4", "bf16"): ptxas's registers, stack
+    and spill bytes for each kernel of a built ``flash_attn`` library, and
+    each prefill kernel's shared bytes per block."""
+    lib = built.lib
+    lib.flash_mma_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_simt_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_mma_smem_bytes.restype = ctypes.c_int
+    lib.flash_simt_smem_bytes.restype = ctypes.c_int
     out = {}
     for name, use in _build.ptxas_usage(built.log).items():
-        m = _ENTRY.search(name)
-        if not m:
+        e = _entry(name)
+        if e is None:
             continue
-        form, D, G = _FORM_OF[m.group(1)], m.group(3), m.group(4)
-        key = ("f32" if m.group(2) == "f" else "bf16") + (
-            f"_d{D}" if D else "") + (f"_g{G}" if G else "")
+        kernel, dtype, ints = e
         entry = dict(use)
-        if form in smem:
-            entry["smem_bytes"] = smem[form](int(D))
-        out.setdefault(form, {})[key] = entry
+        if kernel == "flash_mma_kernel":
+            entry["smem_bytes"] = lib.flash_mma_smem_bytes(256, 256, 0)
+        elif kernel == "flash_mma_qreg_kernel":
+            entry["smem_bytes"] = lib.flash_mma_smem_bytes(*ints)
+        elif kernel == "flash_prefill_kernel":
+            entry["smem_bytes"] = lib.flash_simt_smem_bytes(*ints)
+        out.setdefault(_FORM_OF[kernel], {})[
+            _resource_key(kernel, dtype, ints)] = entry
     return out
 
 
@@ -173,12 +214,16 @@ def _(q_shape, k_shape, v_shape, causal, window, scale, q_offset,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, scale=None,
                     return_lse: bool = False, q_offset: int = 0):
-    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), GQA with g = H // Hkv.
-    Query i, at position p = i + ``q_offset``, sees key j when j <= p
-    (``causal``) and j > p - window (``window``); the scores are scaled by
-    ``scale``, 1/sqrt(D) unless given.  Returns (B, Sq, H, D) in q's dtype,
-    and with ``return_lse`` also each row's log-sum-exp of the scaled,
-    masked scores, f32 (B, H, Sq), which the kernel writes beside out."""
+    """q: (B, Sq, H, Dk); k: (B, Skv, Hkv, Dk); v: (B, Skv, Hkv, Dv), GQA
+    with g = H // Hkv.  Query i, at position p = i + ``q_offset``, sees
+    key j when j <= p (``causal``) and j > p - window (``window``); the
+    scores are scaled by ``scale``, 1/sqrt(Dk) unless given.  Returns (B,
+    Sq, H, Dv) in q's dtype, and with ``return_lse`` also each row's
+    log-sum-exp of the scaled, masked scores, f32 (B, H, Sq), which the
+    kernel writes beside out.  On the card (Dk, Dv) must be a pair of
+    ``_checks.ATTENTION_HEAD_DIMS``, and a bf16 call's scale positive at
+    every pair but (256, 256): the Q-register form keeps its row max on
+    the raw scores."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
     if q_offset < 0:
@@ -187,12 +232,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out, lse = torch.ops.repro_torch.flash_attention(
             q, k, v, causal, window, scale, q_offset, return_lse)
         return (out, lse) if return_lse else out
+    B, Sq, H, Dk = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    scale = 1.0 / math.sqrt(Dk) if scale is None else scale
     form = prefill_form(q.dtype)
     if form == "prefill_mma":
         _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
-    B, Sq, H, D = q.shape
-    _, Skv, Hkv, _ = k.shape
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        if (Dk, Dv) != (256, 256) and not scale > 0:
+            raise ValueError(f"{KERNEL}: the Q-register form takes a "
+                             f"positive scale, got {scale}")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if Sq == 0:
@@ -203,9 +252,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(KERNEL, fn, out.data_ptr(), q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), _dtype_code(q), B, H, Hkv,
-                      D, Sq, Skv, *_strides(q), *_strides(k), *_strides(v),
-                      int(causal), window or 0, q_offset,
-                      1.0 / math.sqrt(D) if scale is None else scale,
+                      Dk, Dv, Sq, Skv, *_strides(q), *_strides(k),
+                      *_strides(v), int(causal), window or 0, q_offset, scale,
                       None if lse is None else lse.data_ptr(), stream,
                       form=form)
     return (out, lse) if return_lse else out
@@ -223,7 +271,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{KERNEL}: decode takes q of shape (B, 1, H, D), "
                          f"got {tuple(q.shape)}")
-    if _checks.attention(KERNEL, q, k_cache, v_cache) == "cpu":
+    if _checks.attention(KERNEL, q, k_cache, v_cache,
+                         _checks.DECODE_HEAD_DIMS) == "cpu":
         return attention_ref(q, k_cache, v_cache,
                              causal=False).to(q.dtype)
     _checks.rows_aligned(KERNEL, "decode", q=q, k=k_cache, v=v_cache)
@@ -247,13 +296,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def mma_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The tensor-core form's raw scores q . k^T, unscaled and unmasked,
-    as f32 (B, H, Sq, Skv): its QK^T fragments alone, for a card test.
-    bf16 CUDA operands only; counted under ``flash_mma_scores``, not as a
-    launch of K4."""
+    """The D 256 tensor-core form's raw scores q . k^T, unscaled and
+    unmasked, as f32 (B, H, Sq, Skv): its QK^T fragments alone, for a card
+    test.  bf16 CUDA operands at D 256 only; counted under
+    ``flash_mma_scores``, not as a launch of K4."""
     if q.dtype != torch.bfloat16 or q.device.type != "cuda":
         raise ValueError("mma_scores takes bf16 CUDA operands")
-    _checks.attention(KERNEL, q, k, k)
+    _checks.attention(KERNEL, q, k, k, ((256, 256),))
     _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape

@@ -572,23 +572,25 @@ def _is_dtensor(t) -> bool:
     return dt is not None and isinstance(t, dt.DTensor)
 
 
-def padded_head_dim(d: int) -> int:
-    """The smallest head dim of K4's (ATTENTION_HEAD_DIMS) at or above d."""
-    for h in ATTENTION_HEAD_DIMS:
-        if h >= d:
-            return h
-    raise ValueError(f"head dim {d} is above K4's largest, "
-                     f"{ATTENTION_HEAD_DIMS[-1]}")
+def k4_head_dims(dk: int, dv: int) -> Tuple[int, int]:
+    """The smallest (Dk, Dv) pair K4 is built for
+    (``ATTENTION_HEAD_DIMS``) at or above (dk, dv) in both: (dk, dv)
+    itself at DeepSeek-V2's full width (192, 128), (64, 64) for a reduced
+    config's (32, 16)."""
+    for pk, pv in ATTENTION_HEAD_DIMS:           # in increasing order
+        if pk >= dk and pv >= dv:
+            return pk, pv
+    raise ValueError(f"head dims {(dk, dv)} are above every pair K4 is "
+                     f"built for, {ATTENTION_HEAD_DIMS}")
 
 
 def mla_block(x, p, cfg, *, positions, cache=None,
               cache_pos: Optional[int] = None, shard: Shard = _noshard):
     """Prefill (``cache`` None) builds q and k at dn + dr and v at dv and
-    runs K4 (``attn_impl="blocked"``) or the naive oracle.  K4 takes one
-    head dim of ATTENTION_HEAD_DIMS for q, k and v, so they are written
-    into zero buffers of the smallest at or above max(dn + dr, dv): the
-    zero columns add exactly 0 to every q . k and give zero output columns
-    past dv, which are sliced off; the scale stays 1/sqrt(dn + dr).
+    runs K4 (``attn_impl="blocked"``) or the naive oracle.  At full width
+    K4 takes them as they are, (192, 128); a reduced config's dims that
+    are no pair K4 is built for go into zero buffers of the smallest pair
+    above them (``k4_head_dims``), as ``_mla_attend`` says.
 
     Decode writes this step's latent and rope key into ``cache`` in place
     at ``cache_pos`` modulo the cache length and attends in latent space
@@ -654,16 +656,22 @@ def _latent_attend(q_abs, q_rope, ckv_c, kr_c, dk: int, lse: bool = False):
 
 def _mla_attend(q, k, v, cfg, q_offset: int = 0):
     """MLA's prefill attention on q, k at dn + dr and v at dv, query i at
-    position i + ``q_offset``: the naive oracle, or K4 on operands
-    zero-padded to its head dim (as mla_block's docstring says)."""
+    position i + ``q_offset``: the naive oracle, or K4.  K4 takes (dk, dv)
+    as they are when it is built for them (full width); otherwise q and k
+    go into zero buffers of ``k4_head_dims``' Dk and v of its Dv: the zero
+    columns add exactly 0 to every q . k and give zero output columns past
+    dv, which are sliced off.  The scale is 1/sqrt(dk) either way."""
     dk, dv = q.shape[-1], v.shape[-1]
     if cfg.attn_impl == "naive":
         return naive_attention(q, k, v, causal=True, q_offset=q_offset)
-    dp = padded_head_dim(max(dk, dv))
-    o = prefill_attention(F.pad(q, (0, dp - dk)), F.pad(k, (0, dp - dk)),
-                          F.pad(v, (0, dp - dv)), cfg,
-                          scale=1.0 / math.sqrt(dk), q_offset=q_offset)
-    return o[..., :dv]
+    pk, pv = k4_head_dims(dk, dv)
+    if pk != dk:
+        q, k = F.pad(q, (0, pk - dk)), F.pad(k, (0, pk - dk))
+    if pv != dv:
+        v = F.pad(v, (0, pv - dv))
+    o = prefill_attention(q, k, v, cfg, scale=1.0 / math.sqrt(dk),
+                          q_offset=q_offset)
+    return o if pv == dv else o[..., :dv]
 
 
 # --------------------------------------------------------------------------

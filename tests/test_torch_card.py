@@ -283,12 +283,137 @@ def test_flash_padded_mla_prefill_matches_plain(card, dtype, atol):
     assert form_launches()[prefill_form(dtype)] == 1
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+# (Dk, Dv) = (192, 128): DeepSeek-V2's MLA unpadded, in both prefill forms.
+# (B, Sq, Skv, H, Hkv, causal, q_offset, window, lse): a ragged Sq, Skv
+# past Sq with the rows at its end, a window, GQA over a ragged Skv
+# without a mask
+DKDV_CASES = [(2, 200, 200, 4, 4, True, 0, None, False),
+              (1, 100, 333, 4, 4, True, 233, None, True),
+              (2, 150, 150, 8, 8, True, 0, 40, True),
+              (2, 77, 130, 4, 2, False, 0, None, False)]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2),
+                                        (torch.float32, 2e-5)])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,causal,q_offset,window,lse",
+                         DKDV_CASES)
+def test_flash_dk_dv_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, causal,
+                                          q_offset, window, lse, dtype,
+                                          atol):
+    """K4 at Dk 192 and Dv 128 without zero padding: out (B, Sq, H, 128)
+    within atol of the plain version (3e-2 bf16, 2e-5 f32), the row
+    log-sum-exp within 1e-4, one launch of the dtype's form."""
+    rng = np.random.RandomState(Sq + Skv + q_offset)
+    q = _randn(rng, (B, Sq, H, 192), dtype, card)
+    k = _randn(rng, (B, Skv, Hkv, 192), dtype, card)
+    v = _randn(rng, (B, Skv, Hkv, 128), dtype, card)
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, return_lse=lse)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, return_lse=lse)
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        assert got_lse.shape == (B, H, Sq)
+        assert (got_lse - want_lse).abs().max().item() <= 1e-4
+    assert got.shape == (B, Sq, H, 128) and got.dtype == dtype
+    assert (got.float() - want).abs().max().item() <= atol
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": 0, prefill_form(dtype): 1}
+
+
+# the tensor-core form's grouped heads: (D, g) with g query heads a kv
+# head.  A block holds at most 3 query heads at D 64 and 1 at D 128: at D
+# 64 g 2 and 3 share one block, g 4 splits into two blocks of 2, g 5 into
+# two of 3 (one head slot idle) and g 8 into three of 3; at D 128 every
+# group runs one head a block
+GROUP_CASES = [(64, 2), (64, 3), (64, 4), (64, 5), (64, 8), (128, 3),
+               (128, 4)]
+
+
+@pytest.mark.parametrize("D,g", GROUP_CASES)
+def test_flash_grouped_heads_match_plain(card, D, g):
+    """bf16 prefill with g query heads on each of 2 kv heads: a ragged Sq
+    200 with window 70; rows at q_offset 100 against 300 keys with the
+    lse; q, k, v as head views of one wider projection, equal to their
+    contiguous copies.  3e-2 on out, 1e-4 on the lse."""
+    rng = np.random.RandomState(D + g)
+    Hkv = 2
+    H = g * Hkv
+    bf16 = torch.bfloat16
+    q = _randn(rng, (2, 200, H, D), bf16, card)
+    k = _randn(rng, (2, 200, Hkv, D), bf16, card)
+    v = _randn(rng, (2, 200, Hkv, D), bf16, card)
+    out = flash_attention(q, k, v, causal=True, window=70)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=70)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+    k = _randn(rng, (2, 300, Hkv, D), bf16, card)
+    v = _randn(rng, (2, 300, Hkv, D), bf16, card)
+    out, lse = flash_attention(q, k, v, causal=True, q_offset=100,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = attention_ref(q, k, v, causal=True, q_offset=100,
+                                   return_lse=True)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    qkv = _randn(rng, (2, 150, H + 2 * Hkv, D), bf16, card)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    out = flash_attention(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=40)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+    assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=True,
+                                            window=40))
+    assert form_launches() == {"prefill_mma": 4, "prefill_simt": 0,
+                               "decode": 0}
+
+
+def test_flash_qreg_form_takes_only_a_positive_scale(card):
+    """The Q-register form keeps its row max on the raw scores, so a bf16
+    call at (64, 64) with a scale that is not positive raises before any
+    launch; D 256's form scales each score first and takes it, against
+    the plain version at 3e-2."""
+    rng = np.random.RandomState(11)
+    bf16 = torch.bfloat16
+    q, k, v = (_randn(rng, (1, 40, 2, 64), bf16, card) for _ in range(3))
+    with pytest.raises(ValueError, match="positive scale"):
+        flash_attention(q, k, v, scale=-0.125)
+    assert registry.get_kernel("flash_attention").launches() == 0
+    q, k, v = (_randn(rng, (1, 40, 2, 256), bf16, card) for _ in range(3))
+    out = flash_attention(q, k, v, scale=-0.0625)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, scale=-0.0625)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+
+
+def test_flash_unbuilt_head_dims_raise(card):
+    """A (Dk, Dv) pair K4 is not built for raises on the card, in either
+    dtype, before any launch: no pad, no other form in its place; the
+    decode form takes no (192, 128)."""
+    rng = np.random.RandomState(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        for dk, dv in ((96, 64), (192, 192), (128, 192), (256, 128)):
+            q = _randn(rng, (1, 16, 2, dk), dtype, card)
+            k = _randn(rng, (1, 16, 2, dk), dtype, card)
+            v = _randn(rng, (1, 16, 2, dv), dtype, card)
+            with pytest.raises(ValueError, match="built for"):
+                flash_attention(q, k, v)
+    q = _randn(rng, (1, 1, 2, 192), torch.bfloat16, card)
+    k = _randn(rng, (1, 16, 2, 192), torch.bfloat16, card)
+    v = _randn(rng, (1, 16, 2, 128), torch.bfloat16, card)
+    with pytest.raises(ValueError, match="built for"):
+        flash_decode(q, k, v)
+    assert registry.get_kernel("flash_attention").launches() == 0
+
+
+@pytest.mark.parametrize("D", [256])
 def test_mma_scores_match_qk(card, D):
-    """The tensor-core form's QK^T fragments alone: its raw scores against
-    q . k^T in f32 (bf16 products are exact in f32; only the order of the
-    sum differs), GQA and a q tile and key tile that Sq 77 and Skv 100 cut
-    short."""
+    """The D 256 tensor-core form's QK^T fragments alone: its raw scores
+    against q . k^T in f32 (bf16 products are exact in f32; only the order
+    of the sum differs), GQA and a q tile and key tile that Sq 77 and Skv
+    100 cut short.  The scores kernel is built at D 256 alone."""
     rng = np.random.RandomState(D)
     q = _randn(rng, (2, 77, 4, D), torch.bfloat16, card)
     k = _randn(rng, (2, 100, 2, D), torch.bfloat16, card)
@@ -298,6 +423,8 @@ def test_mma_scores_match_qk(card, D):
                         q.float().reshape(2, 77, 2, 2, D),
                         k.float()).reshape(2, 4, 77, 100)
     assert (got - want).abs().max().item() <= 1e-3
+    with pytest.raises(ValueError, match="built for"):
+        mma_scores(q[..., :64], k[..., :64])
 
 
 def test_flash_bf16_strided_head_views(card):

@@ -190,7 +190,7 @@ def test_operands_are_checked():
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, kv, kv, window=0)
     with pytest.raises(ValueError, match="do not fit"):
-        flash_attention(q, kv, torch.zeros(1, 4, 2, 32))
+        flash_attention(q, kv, torch.zeros(1, 5, 2, 64))
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention(q, torch.zeros(1, 4, 3, 64), torch.zeros(1, 4, 3, 64))
     with pytest.raises(TypeError, match="types"):
@@ -338,3 +338,126 @@ def test_form_counts_sit_beside_the_registry_count():
     with pytest.raises(RuntimeError, match="prefill_mma"):
         _build.launch(KERNEL, lambda: 2, form="prefill_mma")
     assert entry.launches() == 0
+
+
+# ---- (Dk, Dv) with Dv != Dk: DeepSeek-V2's MLA at (192, 128), unpadded ----
+
+# (Sq, Skv, q_offset, window, causal)
+DKDV_MASKS = [(24, 24, 0, None, True), (16, 40, 24, None, True),
+              (16, 40, 10, 7, True), (24, 37, 0, None, False)]
+
+
+@pytest.mark.parametrize("dk,dv", [(48, 32), (192, 128)])
+@pytest.mark.parametrize("Sq,Skv,q_offset,window,causal", DKDV_MASKS)
+def test_flash_attention_dk_dv_matches_blocked_attention(dk, dv, Sq, Skv,
+                                                         q_offset, window,
+                                                         causal):
+    """The plain route at a v head dim of its own: out (B, Sq, H, Dv) and
+    the row log-sum-exp against the reference's ``blocked_attention``
+    (``repro.models.layers``, which scales by 1/sqrt(Dk)) on the same
+    numpy-seeded f32 operands, within 1e-5: causal, rows at an offset, a
+    window, and no mask over a ragged Skv."""
+    from repro.models.layers import blocked_attention
+    rng = np.random.RandomState(dk + Sq + q_offset)
+    B, H, Hkv = 2, 4, 2
+    q = rng.randn(B, Sq, H, dk).astype(np.float32)
+    k = rng.randn(B, Skv, Hkv, dk).astype(np.float32)
+    v = rng.randn(B, Skv, Hkv, dv).astype(np.float32)
+    out, lse = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal, window=window,
+                               q_offset=q_offset, return_lse=True)
+    want, want_lse = blocked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_kv=16, q_offset=q_offset)
+    assert out.shape == (B, Sq, H, dv) and lse.shape == (B, H, Sq)
+    assert np.allclose(_f32(out), _f32(want), atol=1e-5, rtol=0)
+    assert np.allclose(_f32(lse), np.asarray(want_lse).reshape(B, H, Sq),
+                       atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("H,Hkv,window", [(4, 4, None), (6, 2, 5)])
+def test_attention_function_dk_dv_grads_match_reference_vjp(H, Hkv, window):
+    """``FlashAttention`` (K4's plain version with its lse, the plain
+    block-recompute backward) at Dk 24, Dv 16, unpadded: dq, dk, dv
+    against ``jax.vjp`` of the reference's ``flash_attention`` within 2e-5
+    of each tensor's largest (tests/test_torch_train_models.py's
+    tolerance)."""
+    import jax
+    from repro.models import layers as RL
+    from repro_torch.models.layers import FlashAttention
+    rng = np.random.RandomState(H + Hkv)
+    B, S, dk, dv = 2, 20, 24, 16
+    q = rng.randn(B, S, H, dk).astype(np.float32)
+    k = rng.randn(B, S, Hkv, dk).astype(np.float32)
+    v = rng.randn(B, S, Hkv, dv).astype(np.float32)
+    do = rng.randn(B, S, H, dv).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: RL.flash_attention(
+        a, b, c, True, window, 8, False), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = FlashAttention.apply(*ts, True, window, None, 8)
+    assert out.shape == (B, S, H, dv)
+    out.backward(torch.from_numpy(do))
+    for t, w in zip(ts, want):
+        g, w = _f32(t.grad), _f32(w)
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 2e-5 * np.abs(w).max()
+
+
+def test_checks_take_v_head_dim_and_refuse_k_v_that_disagree():
+    """``_checks.attention`` takes v's own head dim, and k and v must agree
+    in batch, keys and kv heads; the card's pairs are the four K4 is
+    built for, the decode form's three."""
+    from repro_torch.kernels import _checks
+    q = torch.zeros(2, 5, 4, 192)
+    k = torch.zeros(2, 7, 2, 192)
+    assert _checks.attention("k4", q, k, torch.zeros(2, 7, 2, 128)) == "cpu"
+    for bad in [(2, 8, 2, 128), (2, 7, 1, 128), (1, 7, 2, 128)]:
+        with pytest.raises(ValueError, match="do not fit"):
+            _checks.attention("k4", q, k, torch.zeros(*bad))
+    with pytest.raises(ValueError, match="do not fit"):
+        _checks.attention("k4", q, torch.zeros(2, 7, 2, 128),
+                          torch.zeros(2, 7, 2, 128))
+    assert _checks.ATTENTION_HEAD_DIMS == ((64, 64), (128, 128), (192, 128),
+                                           (256, 256))
+    assert (192, 128) not in _checks.DECODE_HEAD_DIMS
+
+
+def test_prefill_flops_count_dk_plus_dv_a_pair():
+    """K4's flop formula at MLA's (192, 128): 2 (192 + 128) = 640 a pair,
+    against 1024 a pair at the padded (256, 256)."""
+    from repro_torch.kernels.flash.ops import attention_pairs, prefill_flops
+    q, k, v = (4, 1024, 128, 192), (4, 1024, 128, 192), (4, 1024, 128, 128)
+    pairs = attention_pairs(1024, 1024, True, None)
+    assert pairs == 1024 * 1025 // 2
+    assert prefill_flops(q, k, v, True, None) == 2 * 320 * 4 * 128 * pairs
+    assert prefill_flops((4, 1024, 128, 256), (4, 1024, 128, 256),
+                         (4, 1024, 128, 256), True, None) == \
+        2 * 512 * 4 * 128 * pairs
+
+
+@pytest.mark.parametrize("name,form,key", [
+    ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi192ELi128ELi1EEEvP13"
+     "__nv_bfloat16", "prefill_mma", "bf16_d192_128_g1"),
+    ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi64ELi64ELi3EEEvP13"
+     "__nv_bfloat16", "prefill_mma", "bf16_d64_g3"),
+    ("_ZN12_GLOBAL__N_13mma16flash_mma_kernelEP13__nv_bfloat16PKS1_",
+     "prefill_mma", "bf16_d256"),
+    ("_ZN12_GLOBAL__N_14simt20flash_prefill_kernelIfLi192ELi128EEEvPT_",
+     "prefill_simt", "f32_d192_128"),
+    ("_ZN12_GLOBAL__N_13dec25flash_decode_split_kernelI13__nv_bfloat16Li64"
+     "ELi4EEEvPT_", "decode_split", "bf16_d64_g4"),
+    ("void (anonymous namespace)::mma::flash_mma_qreg_kernel<64, 64, 3>("
+     "__nv_bfloat16*)", "prefill_mma", None),
+    ("void (anonymous namespace)::mma::flash_mma_scores_kernel(float*)",
+     None, None),
+])
+def test_kernel_names_map_to_forms(name, form, key):
+    """Profiler (demangled) and ptxas (mangled) names of K4's kernels map
+    to their form, the Q-register kernel's to the tensor-core form; a
+    mangled name also gives its ``resources`` key (type, head dims, heads
+    a block); the scores kernel is no form's."""
+    from repro_torch.kernels.flash import ops
+    assert ops.kernel_form(name) == form
+    if key is not None:
+        assert ops._resource_key(*ops._entry(name)) == key

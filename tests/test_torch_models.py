@@ -295,16 +295,32 @@ def test_attention_ref_scale_on_zero_padded_head_dims():
                                         scale=scale), atol=1e-6)
 
 
+def _k4_spy(monkeypatch):
+    """Record the operand shapes and scale of every call that reaches
+    K4's prefill (``flash_attention``) from the model's layers."""
+    calls = []
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                      kw.get("scale")))
+        return flash_attention(q, k, v, **kw)
+    monkeypatch.setattr(TL, "flash_attention", spy)
+    return calls
+
+
 @pytest.mark.parametrize("q_lora", [32, 0])
 @pytest.mark.parametrize("impl", ["naive", "blocked"])
-def test_mla_block_prefill_matches_reference(impl, q_lora):
-    """The naive oracle, and K4's path (its plain version here) at the
-    padded head dim 64 for dn + dr = 32, dv = 16; with and without q's
-    LoRA."""
+def test_mla_block_prefill_matches_reference(impl, q_lora, monkeypatch):
+    """The naive oracle, and K4's path (its plain version here), for
+    dn + dr = 32, dv = 16, which is no pair K4 is built for: K4 receives
+    q, k and v zero-padded to the pair (64, 64) and the scale 1/sqrt(32);
+    with and without q's LoRA."""
     ref_p, p, ref_cfg, cfg = _slot("deepseek-v2-236b", "attn",
                                    attn_impl=impl, q_lora_rank=q_lora)
     assert ("wq_a" in p) == bool(q_lora)
-    assert TL.padded_head_dim(cfg.qk_nope_dim + cfg.qk_rope_dim) == 64
+    dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    assert (dk, dv) == (32, 16) and TL.k4_head_dims(dk, dv) == (64, 64)
+    calls = _k4_spy(monkeypatch)
     rng = np.random.RandomState(8)
     x = rng.randn(2, 11, 64).astype(np.float32)
     pos = np.broadcast_to(np.arange(3, 14)[None], (2, 11))
@@ -314,6 +330,31 @@ def test_mla_block_prefill_matches_reference(impl, q_lora):
                               positions=torch.from_numpy(pos.copy()))
     assert cache is None
     assert np.allclose(_np(got), _np(want), atol=1e-5)
+    H = cfg.n_heads
+    want_calls = [((2, 11, H, 64),) * 3 + (1.0 / math.sqrt(32),)]
+    assert calls == (want_calls if impl == "blocked" else [])
+
+
+def test_mla_block_prefill_at_full_width_head_dims_is_unpadded(monkeypatch):
+    """At DeepSeek-V2's own head dims (dn 128 + dr 64, dv 128; the other
+    widths reduced) K4 receives q and k at 192 and v at 128 as they are:
+    no zero columns, no slice; the block matches the reference's."""
+    ref_p, p, ref_cfg, cfg = _slot("deepseek-v2-236b", "attn",
+                                   attn_impl="blocked", qk_nope_dim=128,
+                                   qk_rope_dim=64, v_head_dim=128)
+    assert TL.k4_head_dims(192, 128) == (192, 128)
+    calls = _k4_spy(monkeypatch)
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 11, 64).astype(np.float32)
+    pos = np.broadcast_to(np.arange(11)[None], (2, 11))
+    want, _ = RL.mla_block(jnp.asarray(x), ref_p, ref_cfg,
+                           positions=jnp.asarray(pos))
+    got, _ = TL.mla_block(_t(x), p, cfg,
+                          positions=torch.from_numpy(pos.copy()))
+    assert np.allclose(_np(got), _np(want), atol=1e-5)
+    H = cfg.n_heads
+    assert calls == [((2, 11, H, 192), (2, 11, H, 192), (2, 11, H, 128),
+                      1.0 / math.sqrt(192))]
 
 
 @pytest.mark.parametrize("cache_len,pos", [(16, 9), (8, 11)])
