@@ -18,10 +18,11 @@ phase prints one JSON line:
            over every streamable op), all built from the checkout in one
            parallel batch, with each segment's tile and shared bytes; K4's
            registers and spills per kernel, type and head dim (and head
-           group for the decode form's split kernel, beside its merge
-           kernel), with each prefill form's shared bytes, and K1's per
-           form; K1, both prefill forms, K2 and every generated segment
-           must not spill
+           group for the decode form's cluster and split kernels: 36
+           builds each, 3 head dims x 2 types x groups of 1, 2, 3, 4, 6
+           and 8, beside its 2 merge kernels), with each prefill form's shared bytes, and
+           K1's per form; K1, every K4 kernel, K2 and every generated
+           segment must not spill
   kernel   per kernel: the CUDA kernel against its plain PyTorch version
            at the main path's shapes and at odd shapes, 3 frames each,
            which must agree exactly (max abs diff 0); K1 also at 1x1,
@@ -57,18 +58,26 @@ phase prints one JSON line:
            g 3, bf16 at 4 x 1024 and f32 at 2 x 128; its decode over
            serving's 4 x 160-slot cache and a 100-slot view of it in bf16
            and over the f32 loop's 2 x 128 keys, and its rows at an
-           offset with the lse; deepseek's MLA prefill with q, k at 192
+           offset with the lse; bf16 decode at B 4 over 160 keys at the
+           widths of archs not yet served (g 8 and g 12 at D 128 and Hkv
+           8, g 7 at D 128 and Hkv 4, g 1 at D 64 and Hkv 24) and g 8 at
+           D 256 and Hkv 1 over 1024 keys; deepseek's MLA prefill with q, k at 192
            and v at 128 as K4 takes them unpadded, the scale
            1/sqrt(192), 128 heads, bf16 at 4 x 1024 and f32 at 2 x 64,
            and once more zero-padded to 256 as before K4 took Dv != Dk
            (the padded time, bounded by the same unpadded work, 2
            (Dk + Dv) flops a pair, the library given the unpadded
            operands)); each case
-           must launch its own form; per case the max abs error, K4's
-           device ms (the profiler's kernel time) and call ms (CUDA events
-           around back-to-back wrapper calls, host work included), plain ms,
-           scaled_dot_product_attention's device and call ms (the library
-           yardstick, never on the path) and the bound (the larger of q,
+           must launch its own form, and a decode case exactly the
+           cluster kernel (up to 8 splits, merged in a cluster) or the
+           split and merge kernels (more) by the profiler's events; per case the
+           max abs error, K4's device ms (the profiler's kernel time),
+           graph ms (CUDA events around replays of a CUDA graph of 20
+           back-to-back calls: every kernel and gap, no host work) and
+           call ms (CUDA events around back-to-back wrapper calls, host
+           work included), plain ms, scaled_dot_product_attention's
+           device, graph and call ms (the library yardstick, never on the
+           path) and the bound (the larger of q,
            k, v and o once over 3.35 TB/s and 2 (Dk + Dv) flops per
            unmasked (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
            67 TFLOP/s f32)
@@ -169,7 +178,9 @@ phase prints one JSON line:
            for its device time, K4's share of it and its top kernels;
            init seconds, prefill ms, decode ms per step, tokens/s, and the
            card's top kernels over a profiled decode step, with K4's share
-           of its device time (split and merge kernels)
+           of its device time and its split and merge kernels' calls (a
+           merge a layer: gemma3-1b's spans take 32 splits; granite's
+           profiled step must run none)
   families granite-moe-3b-a800m (MoE, 32 layers, 48 padded experts
            top-8) and mamba2-1.3b (48 Mamba2 layers) uncut, and
            deepseek-v2-236b (MLA + MoE, 160 experts top-6 and a shared
@@ -296,6 +307,17 @@ FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", ("prefill_mma",
                                                   "prefill_simt", "decode")),
              "deepseek-v2-236b": ("mla", ("prefill_mma", "prefill_simt"))}
 MK_APPS = ("flow", "descriptor", "pyramid")
+# decode cases at the widths of the archs not yet served at width (not on
+# a model path): name -> (Hkv, g, D, keys), batch FAM_BATCH
+DECODE_WIDTHS = {"jamba_qwen2_72b_decode": (8, 8, 128, 160),
+                 "command_r_plus_decode": (8, 12, 128, 160),
+                 "qwen2_vl_decode": (4, 7, 128, 160),
+                 "musicgen_decode": (24, 1, 64, 160),
+                 "gemma_2b_decode": (1, 8, 256, 1024)}
+# the decode form's cluster and split kernels' builds each: 3 head dims x 2
+# types x head groups of 1, 2, 3, 4, 6 and 8 (ops.decode_head_group); the
+# merge kernel's 2 types
+K4_DECODE_BUILDS = 36
 # odd sizes that no tile divides (PYRAMID's strides must divide its frame)
 MK_ODD = {"flow": (37, 13), "descriptor": (45, 19), "pyramid": (36, 20)}
 
@@ -625,7 +647,7 @@ def build_phase(designs, extra):
         # cycle phase's split and latency probes; never on a path
         prof = pool.submit(cycle_profile.profile_library)
         built, gen, prof = csrc.result(), gen.result(), prof.result()
-    k4 = flash_ops.resources(built["flash_attn"])
+    k4 = flash_ops.resources(built["flash_attn"], built["flash_decode"])
     if any(key.startswith("bf16") for key in k4.get("prefill_simt", {})):
         raise AssertionError("the SIMT prefill form has a bf16 build")
     for form, want in K4_PREFILL_BUILDS.items():
@@ -645,11 +667,18 @@ def build_phase(designs, extra):
         for fn, use in _build.ptxas_usage(b.log).items():
             if use.get("spill_stores", 1) or use.get("spill_loads", 1):
                 raise AssertionError(f"{name} spills in {fn}: {use}")
-    if len(k4.get("decode_split", {})) != 24 or \
+    if len(k4.get("decode_cluster", {})) != K4_DECODE_BUILDS or \
+            len(k4.get("decode_split", {})) != K4_DECODE_BUILDS or \
             len(k4.get("decode_merge", {})) != 2:
         raise AssertionError(f"K4's decode kernels built as "
+                             f"{k4.get('decode_cluster')}, "
                              f"{k4.get('decode_split')}, "
                              f"{k4.get('decode_merge')}")
+    for form in ("decode_cluster", "decode_split", "decode_merge"):
+        for key, use in k4[form].items():
+            if use.get("spill_stores", 1) or use.get("spill_loads", 1):
+                raise AssertionError(f"K4's {form} kernel spills at {key}: "
+                                     f"{use}")
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "k1": _build.ptxas_usage(built["conv2d"].log), "k4_forms": k4,
           "cyclesim": _build.ptxas_usage(built["cyclesim"].log),
@@ -1723,8 +1752,9 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
     from repro_torch.kernels.flash.ops import (
-        attention_pairs, decode_split, form_launches, prefill_form)
-    from repro_torch.kernels.timing import device_ms
+        attention_pairs, decode_cluster, decode_split, form_launches,
+        prefill_form)
+    from repro_torch.kernels.timing import device_events, device_ms, graph_ms
     from repro_torch.kernels.flash.ref import attention_ref
 
     form = "decode" if decode else prefill_form(q.dtype)
@@ -1778,8 +1808,10 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         line.update({"lse": True, "lse_max_abs_err": lse_err,
                      "lse_tolerance": LSE_ATOL})
     if decode:
-        line["split"] = dict(zip(("kc", "nsplit"),
-                                 decode_split(skv, B * hkv)))
+        kc, nsplit = decode_split(skv, B * hkv)
+        line["split"] = {"kc": kc, "nsplit": nsplit,
+                         "path": ("cluster" if decode_cluster(nsplit)
+                                  else "split + merge")}
     # the library yardstick: one call of scaled_dot_product_attention on
     # (B, H, S, D) copies made outside the timing (at the real head dims),
     # GQA by enable_gqa, the window as a boolean band mask
@@ -1811,13 +1843,27 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
-    # ms: the kernel's device time (the profiler's events); call_ms: CUDA
+    # ms: the kernel's device time (the profiler's events); graph_ms: CUDA
+    # events around replays of a CUDA graph of 20 back-to-back calls (every
+    # kernel of a call, the gaps between them, no host work); call_ms: CUDA
     # events around back-to-back wrapper calls, which the wrapper's host
-    # work bounds when the kernel is short; the same two for the library
+    # work bounds when the kernel is short; the same three for the library
+    ms, by_name = device_events(run, iters)
+    kernels = sorted(f for f in map(kernel_form, by_name) if f)
+    if decode:
+        # the decode form's kernels: the cluster kernel alone up to 8
+        # splits, the split and merge kernels past a cluster
+        want = (["decode_cluster"] if decode_cluster(nsplit)
+                else ["decode_merge", "decode_split"])
+        if kernels != sorted(want):
+            raise AssertionError(f"flash_attention {name}: the profiler saw "
+                                 f"{kernels}, want {sorted(want)}")
     line.update({
-        "ms": device_ms(run, iters), "call_ms": cuda_ms(run, iters),
+        "ms": ms, "kernels": kernels, "graph_ms": graph_ms(run),
+        "call_ms": cuda_ms(run, iters),
         "plain_ms": cuda_ms(plain_pair, 5, warmup=1),
         "library_ms": device_ms(library, iters),
+        "library_graph_ms": graph_ms(library),
         "library_call_ms": cuda_ms(library, iters),
         "library_max_abs_err": lib_err,
         "bound_ms": max(t_bytes, t_ops),
@@ -1985,6 +2031,17 @@ def flash_phase(torch, np):
         randn((2, FAM_F32_PROMPT, g.n_kv_heads, g.hd), f32), causal=False,
         window=None, decode=True, atol=2e-5)
     del kc, vc, q1
+    # the decode shapes of the archs not yet served at width, at B 4 over
+    # 160 keys: jamba's and qwen2-72b's g 8 at D 128 (Hkv 8),
+    # command-r-plus's g 12 (two head groups of 6), qwen2-vl's g 7 at Hkv
+    # 4 (one group of 8, a slot idle), musicgen's MHA at D 64 (Hkv 24);
+    # and gemma-2b's MQA, g 8 at D 256 over 1024 keys (the merge kernel)
+    for name, (hkv, grp, d, keys) in DECODE_WIDTHS.items():
+        lines[name] = flash_case(
+            torch, np, name, randn((FAM_BATCH, 1, hkv * grp, d), bf16),
+            randn((FAM_BATCH, keys, hkv, d), bf16),
+            randn((FAM_BATCH, keys, hkv, d), bf16), causal=False,
+            window=None, decode=True, atol=3e-2)
     m = ARCHS["deepseek-v2-236b"]
     dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
     for name, (b, s, dtype, atol) in {
@@ -2051,11 +2108,14 @@ def prefill_device(torch, call, wall_ms: float) -> dict:
             "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]}
 
 
-def decode_step_profile(torch, cfg, params, tokens, index: int) -> dict:
+def decode_step_profile(torch, cfg, params, tokens, index: int,
+                        merge_calls: int) -> dict:
     """Where a decode step's time goes: one warm step, then 3 steps at
     ``index`` under the profiler (CPU and CUDA activity): the wall and
-    device ms a step, K4's split and merge kernels' share, the host's aten
-    operators a step and the top device kernels."""
+    device ms a step, K4's split and merge kernels' share and calls a step,
+    the host's aten operators a step and the top device kernels.  A step
+    must run the merge kernel ``merge_calls`` times (once per layer whose
+    span takes more splits than a cluster merges, else never)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_forward
     from repro_torch.models.model import zero_cache
@@ -2083,10 +2143,17 @@ def decode_step_profile(torch, cfg, params, tokens, index: int) -> dict:
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
     k4_ms = sum(e.self_device_time_total for e in events
                 if "flash_decode" in e.key) / 1e3 / 3
+    k4_calls = {f: sum(e.count for e in events if kernel_form(e.key) == f)
+                / 3 for f in ("decode_cluster", "decode_split",
+                              "decode_merge")}
+    if k4_calls["decode_merge"] != merge_calls:
+        raise AssertionError(f"a decode step ran K4's kernels {k4_calls} "
+                             f"times, want {merge_calls} merges")
     host_ops = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.key.startswith("aten::")) / 3
     return {"wall_ms": wall, "device_ms": device_ms, "k4_device_ms": k4_ms,
+            "k4_calls_per_step": k4_calls,
             "device_busy_share": device_ms / wall,
             "aten_ops_per_step": host_ops,
             "top": [{"name": e.key[:80], "calls_per_step": e.count / 3,
@@ -2238,8 +2305,11 @@ def llm_phase(torch, np):
         torch, lambda: prefill_fn(params, {"tokens": toks}), prefill_ms))
 
     # where a decode step's device time goes: 3 steps under the profiler
+    # (every layer's span, 1024 keys or a 512-slot window at 4 (b, kv
+    # head) pairs, takes 32 splits: past a cluster, so the merge kernel)
     line["decode_step_profile"] = decode_step_profile(
-        torch, cfg, params, toks[:, :1], LLM_PROMPT - 1)
+        torch, cfg, params, toks[:, :1], LLM_PROMPT - 1,
+        merge_calls=cfg.n_layers)
     emit(line)
     return line, {"prefill_mma": n_prefill, "prefill_simt": n_simt,
                   "decode": n_decode}
@@ -2515,8 +2585,11 @@ def family(torch, np, arch: str, cut: dict):
                        "tokens_per_s": res.tokens_per_s,
                        "k4_decode_launches": launched["decode"],
                        "sampled_ids": res.tokens[:2, :8].tolist()},
+        # (granite's 128 keys at 32 pairs take 5 splits, merged in a
+        # cluster; mamba2 and MLA run no decode form)
         "decode_step_profile": decode_step_profile(
-            torch, cfg, params, ptoks[:, :1], FAM_PROMPT - 1),
+            torch, cfg, params, ptoks[:, :1], FAM_PROMPT - 1,
+            merge_calls=0),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "arch_s": time.perf_counter() - t_arch})
     del params
@@ -3254,10 +3327,14 @@ def main() -> int:
                                  f"({path[app]['plan']})")
 
     def k4_line(name, k, n_launch):
+        source = {"source": "src/repro_torch/csrc/flash_decode.cu"} \
+            if k["form"] == "decode" else {}
         return dict(line(name, registry.get_kernel("flash_attention"), k,
-                         n_launch),
+                         n_launch), **source,
                     equal=False, tolerance=k["tolerance"], case=k["case"],
-                    share_of_bound=k["share_of_bound"])
+                    share_of_bound=k["share_of_bound"],
+                    graph_ms=k["graph_ms"],
+                    library_graph_ms=k["library_graph_ms"])
 
     def line(name, e, k, n_launch):
         return {"name": name, "route": "cuda", "source": e.source,

@@ -119,11 +119,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_common.cuh"     // Strides, smem_u32, cp_async16, pack_bf16
 
-struct Strides {                 // element strides of (B, S, H, D); D is 1
-  long long b, s, h;
-};
+namespace {
 
 namespace mma {
 
@@ -143,23 +141,6 @@ constexpr int kD = 256;
 constexpr int kBK = 32;
 constexpr int kRS = kD + kPad;          // its padded row stride
 constexpr size_t kSmemBytes = sizeof(bf16) * size_t(kRS) * (kBQ + 2 * 2 * kBK);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src-size 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -182,12 +163,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as a bf16 pair, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ROWS rows of kD elements from g (row r0 + r at g + (r0 + r) * stride)

@@ -93,7 +93,7 @@ def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
 
 
 # K4's bf16 prefill form (csrc/flash_attn_mma.cuh) and its decode form
-# (csrc/flash_attn.cu) move rows 16 bytes at a time
+# (csrc/flash_decode.cu) move rows 16 bytes at a time
 ROW_ALIGN_BYTES = 16
 
 

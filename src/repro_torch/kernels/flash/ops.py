@@ -2,15 +2,19 @@
 and its decode form, with the reference's signatures and semantics
 (``repro.kernels.flash.ops.flash_attention_tpu`` / ``flash_decode_tpu``).
 
-A CUDA tensor launches ``csrc/flash_attn.cu`` (or raises); a CPU tensor
+A CUDA tensor launches ``csrc/flash_attn.cu`` (the prefill forms) or
+``csrc/flash_decode.cu`` (the decode form), or raises; a CPU tensor
 takes the plain version in ref.py; any other device raises.  Operands may
 be strided views (a slice of a KV cache, a head split of a projection):
 only the last dim must be contiguous.  A bf16 prefill goes to the
 tensor-core form (``csrc/flash_attn_mma.cuh``: one kernel at D 256, the
 Q-register kernel at (64, 64), (128, 128) and MLA's unpadded (192, 128),
 a kv head's query heads in one block), an f32 prefill to the SIMT form.
-The decode form splits the keys over blocks (``decode_split``) and merges
-the splits in a second kernel, both behind one launcher.  The tensor-core
+The decode form splits the keys over blocks (``decode_split``) for a
+group of query heads a block (``decode_head_group``); up to MAX_CLUSTER
+splits run as one kernel whose blocks merge in a thread-block cluster
+(``decode_cluster``), more as a split kernel writing a workspace and a
+merge kernel, behind one launcher.  The tensor-core
 and decode forms copy 16-byte rows: their operands must also meet
 ``_checks.row_misalignment``'s rule, or the wrapper raises (there is no
 other form to fall back to).
@@ -50,21 +54,29 @@ _DECODE_ARGTYPES = ((_P,) * 5 + (_I,) * 8 + (_LL,) * 8
 _SCORES_ARGTYPES = (_P,) * 3 + (_I,) * 6 + (_LL,) * 6 + (_P,)
 
 # the decode form's split: about one block per SM over its grid, chunks of
-# at least MIN_CHUNK keys (csrc/flash_attn.cu dec::kMaxSplits = SMS)
+# at least MIN_CHUNK keys (csrc/flash_decode.cu dec::kMaxSplits = SMS), and
+# from CLUSTER_PAIRS (b, kv head) pairs on at most MAX_CLUSTER splits, the
+# portable cluster size (dec::kMaxCluster): the splits of one pair then
+# merge in a thread-block cluster
 SMS = 132
 MIN_CHUNK = 16
+MAX_CLUSTER = 8
+CLUSTER_PAIRS = 16
+_DECODE_GROUPS = (8, 6, 4)
 
 # a kernel of the library by its name, mangled (ptxas) or demangled (the
 # profiler): kernel, then its type and integer template arguments (mangled
 # only); the integers are (Dk, Dv, heads a block) for the Q-register form,
-# (Dk, Dv) for the SIMT form, (D, head group) for the decode split kernel;
-# flash_mma_kernel has none (it is D 256's alone)
-_ENTRY = re.compile(r"(flash_(?:mma_qreg|mma|prefill|decode_split"
-                    r"|decode_merge)_kernel)(?:I(f|13__nv_bfloat16)?"
+# (Dk, Dv) for the SIMT form, (D, head group) for the decode form's cluster
+# and split kernels; flash_mma_kernel has none (it is D 256's alone)
+_ENTRY = re.compile(r"(flash_(?:mma_qreg|mma|prefill|decode_cluster"
+                    r"|decode_split|decode_merge)_kernel)"
+                    r"(?:I(f|13__nv_bfloat16)?"
                     r"((?:Li\d+E)*))?")
 _FORM_OF = {"flash_mma_kernel": "prefill_mma",
             "flash_mma_qreg_kernel": "prefill_mma",
             "flash_prefill_kernel": "prefill_simt",
+            "flash_decode_cluster_kernel": "decode_cluster",
             "flash_decode_split_kernel": "decode_split",
             "flash_decode_merge_kernel": "decode_merge"}
 
@@ -102,32 +114,32 @@ def _resource_key(kernel: str, dtype: str, ints) -> str:
     return dtype + "".join(f"_{p}{i}" for p, i in zip("dg", ints))
 
 
-def resources(built: _build.Built) -> dict:
-    """Per kernel (the two prefill forms, the decode form's split and
-    merge kernels), then per ``_resource_key`` ("bf16_d256",
+def resources(*built: _build.Built) -> dict:
+    """Per kernel (the two prefill forms, the decode form's cluster,
+    split and merge kernels), then per ``_resource_key`` ("bf16_d256",
     "bf16_d192_128_g1", "bf16_d256_g4", "bf16"): ptxas's registers, stack
-    and spill bytes for each kernel of a built ``flash_attn`` library, and
-    each prefill kernel's shared bytes per block."""
-    lib = built.lib
-    lib.flash_mma_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.flash_simt_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.flash_mma_smem_bytes.restype = ctypes.c_int
-    lib.flash_simt_smem_bytes.restype = ctypes.c_int
+    and spill bytes for each kernel of the built ``flash_attn`` and
+    ``flash_decode`` libraries, and each prefill kernel's shared bytes per
+    block."""
     out = {}
-    for name, use in _build.ptxas_usage(built.log).items():
-        e = _entry(name)
-        if e is None:
-            continue
-        kernel, dtype, ints = e
-        entry = dict(use)
-        if kernel == "flash_mma_kernel":
-            entry["smem_bytes"] = lib.flash_mma_smem_bytes(256, 256, 0)
-        elif kernel == "flash_mma_qreg_kernel":
-            entry["smem_bytes"] = lib.flash_mma_smem_bytes(*ints)
-        elif kernel == "flash_prefill_kernel":
-            entry["smem_bytes"] = lib.flash_simt_smem_bytes(*ints)
-        out.setdefault(_FORM_OF[kernel], {})[
-            _resource_key(kernel, dtype, ints)] = entry
+    for b in built:
+        smem = {"flash_mma_kernel": "flash_mma_smem_bytes",
+                "flash_mma_qreg_kernel": "flash_mma_smem_bytes",
+                "flash_prefill_kernel": "flash_simt_smem_bytes"}
+        for name, use in _build.ptxas_usage(b.log).items():
+            e = _entry(name)
+            if e is None:
+                continue
+            kernel, dtype, ints = e
+            entry = dict(use)
+            if kernel in smem:
+                fn = getattr(b.lib, smem[kernel])
+                fn.restype = ctypes.c_int
+                args = (256, 256, 0) if kernel == "flash_mma_kernel" else ints
+                fn.argtypes = [ctypes.c_int] * len(args)
+                entry["smem_bytes"] = fn(*args)
+            out.setdefault(_FORM_OF[kernel], {})[
+                _resource_key(kernel, dtype, ints)] = entry
     return out
 
 
@@ -144,14 +156,41 @@ def decode_split(skv: int, blocks: int):
     chunks of kc keys, chunk c holding keys [c*kc, min((c+1)*kc, skv)),
     for ``blocks`` (b, kv head) pairs.  The split kernel's grid is
     (nsplit, blocks): nsplit aims at one block per SM, but no chunk but
-    the last has fewer than MIN_CHUNK keys, none is empty, and a span
-    shorter than 2 * MIN_CHUNK keys stays one chunk."""
+    the last has fewer than MIN_CHUNK keys, none is empty, a span
+    shorter than 2 * MIN_CHUNK keys stays one chunk, and from
+    CLUSTER_PAIRS pairs on nsplit is at most MAX_CLUSTER (at 16 pairs, 8
+    x 16 = 128 blocks), so every span there merges in a cluster."""
     if skv < 1 or blocks < 1:
         raise ValueError(f"{KERNEL}: cannot split {skv} keys over {blocks} "
                          f"blocks")
     nsplit = max(1, min(-(-SMS // blocks), skv // MIN_CHUNK))
+    if blocks >= CLUSTER_PAIRS:
+        nsplit = min(nsplit, MAX_CLUSTER)
     kc = -(-skv // nsplit)
     return kc, -(-skv // kc)
+
+
+def decode_cluster(nsplit: int) -> bool:
+    """Whether nsplit splits run as the cluster kernel, one launch whose
+    nsplit blocks merge in a thread-block cluster (up to MAX_CLUSTER),
+    rather than as the split kernel, a workspace and the merge kernel
+    (more)."""
+    return 1 <= nsplit <= MAX_CLUSTER
+
+
+def decode_head_group(g: int) -> int:
+    """The decode form's query heads a block (the split kernel's GT; the
+    C++ dispatch ``dec::head_group`` mirrors it) for g query heads a kv
+    head: g itself up to 4, 6 for 5-6, 8 for 7-8; above 8 the largest of
+    8, 6, 4 that divides g, else 8 (ceil(g / 8) groups, the last part
+    empty)."""
+    if g < 1:
+        raise ValueError(f"{KERNEL}: {g} query heads a kv head")
+    if g <= 4:
+        return g
+    if g <= 8:
+        return 6 if g <= 6 else 8
+    return next((gt for gt in _DECODE_GROUPS if g % gt == 0), 8)
 
 
 def prefill_form(dtype: torch.dtype) -> str:
@@ -264,10 +303,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token decode: q (B, 1, H, D) against every key of the
     (B, S, Hkv, D) caches it is given, no mask.  As in the reference, the
     query sits at position 0, so ``window`` drops no key: a caller passes
-    the span of the cache it wants seen.  On the card: the split kernel
-    over ``decode_split``'s chunks, then the merge kernel, one counted
-    launch; the f32 workspace of the splits' (m, l, acc) is allocated
-    here."""
+    the span of the cache it wants seen.  On the card, over
+    ``decode_split``'s chunks, one counted launch: up to MAX_CLUSTER
+    splits the cluster kernel alone (``decode_cluster``), more the split
+    kernel and the merge kernel through an f32 workspace of the splits'
+    (m, l, acc) allocated here."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"{KERNEL}: decode takes q of shape (B, 1, H, D), "
                          f"got {tuple(q.shape)}")
@@ -276,18 +316,31 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         return attention_ref(q, k_cache, v_cache,
                              causal=False).to(q.dtype)
     _checks.rows_aligned(KERNEL, "decode", q=q, k=k_cache, v=v_cache)
+    B, _, H, _ = q.shape
+    _, Skv, Hkv, _ = k_cache.shape
+    return decode_launch(q, k_cache, v_cache,
+                         *decode_split(Skv, B * Hkv))
+
+
+def decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, kc: int, nsplit: int
+                  ) -> torch.Tensor:
+    """``flash_decode``'s launch over nsplit chunks of kc keys, for CUDA
+    operands that ``flash_decode`` has checked: the f32 workspace only
+    past MAX_CLUSTER splits.  ``flash_decode`` passes ``decode_split``'s
+    chunks; a card test passes others to run every cluster size."""
     B, _, H, D = q.shape
     _, Skv, Hkv, _ = k_cache.shape
-    kc, nsplit = decode_split(Skv, B * Hkv)
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    ws = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
-                     device=q.device)
-    fn = _build.function("flash_attn", "flash_decode_launch",
+    ws = None if nsplit <= MAX_CLUSTER else torch.empty(
+        B * H * nsplit * (D + 2), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_decode", "flash_decode_launch",
                          _DECODE_ARGTYPES)
     qsb, _, qsh = _strides(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.launch(KERNEL, fn, out.data_ptr(), ws.data_ptr(),
+        _build.launch(KERNEL, fn, out.data_ptr(),
+                      None if ws is None else ws.data_ptr(),
                       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       _dtype_code(q), B, H, Hkv, D, Skv, kc, nsplit, qsb, qsh,
                       *_strides(k_cache), *_strides(v_cache),

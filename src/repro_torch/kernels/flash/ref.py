@@ -1,5 +1,5 @@
 """Plain PyTorch version of the flash-attention kernel (K4,
-csrc/flash_attn.cu): full-softmax GQA attention with an optional causal
+csrc/flash_attn.cu and csrc/flash_decode.cu): full-softmax GQA attention with an optional causal
 mask and sliding window, f32 math.  The counterpart of
 ``repro.kernels.flash.ref.attention_ref``.
 

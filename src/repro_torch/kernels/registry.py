@@ -75,9 +75,9 @@ def _register_resident() -> None:
         "megakernel", megakernel_segment, megakernel_ref, megakernel_segment,
         source="src/repro_torch/core/lowering/megakernel.py",
         replaces="src/repro/core/lowering/megakernel.py:372"))
-    # K4: prefill and decode forms (flash_attention, flash_decode) of one
-    # source, counted under one name (and each form under
-    # "flash_attention:<form>", flash.ops.form_launches)
+    # K4: prefill and decode forms (flash_attention, flash_decode; the
+    # decode form's source is csrc/flash_decode.cu), counted under one name
+    # (and each form under "flash_attention:<form>", flash.ops.form_launches)
     register_kernel(KernelEntry(
         "flash_attention", flash_attention, attention_ref, None,
         source="src/repro_torch/csrc/flash_attn.cu",

@@ -4,7 +4,10 @@ CUDA events around back-to-back calls time the calls' throughput, which
 a wrapper's host work bounds once a kernel runs for less time than its
 launch takes to enqueue (tens of microseconds of Python per call).
 ``device_ms`` sums instead the device time of every kernel and copy that
-``torch.profiler`` (CUPTI) records over the calls.  Card only.
+``torch.profiler`` (CUPTI) records over the calls.  It leaves out the
+gaps between a call's kernels and any kernel the profiler misses;
+``graph_ms`` counts both: CUDA events around replays of one CUDA graph
+of back-to-back calls, with no host work between them.  Card only.
 """
 from __future__ import annotations
 
@@ -43,3 +46,32 @@ def device_events(fn: Callable, iters: int, warmup: int = 2
 def device_ms(fn: Callable, iters: int, warmup: int = 2) -> float:
     """Device ms per call of ``fn`` (see ``device_events``)."""
     return device_events(fn, iters, warmup)[0]
+
+
+def graph_ms(fn: Callable, calls: int = 20, replays: int = 10,
+             warmup: int = 2) -> float:
+    """Ms per call of ``fn`` from CUDA events around ``replays`` replays
+    of one CUDA graph that captures ``calls`` back-to-back calls (after
+    ``warmup`` calls on the capture's side stream): every kernel of a call
+    and every gap between kernels, and no host work."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)

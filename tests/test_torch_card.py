@@ -12,6 +12,7 @@ This file imports nothing of JAX, so it runs where only the port is
 installed.
 """
 import copy
+import ctypes
 
 import numpy as np
 import pytest
@@ -35,7 +36,10 @@ from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
 from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E402
 from repro_torch.kernels.flash.ops import (  # noqa: E402
-    form_launches, mma_scores, prefill_form)
+    MAX_CLUSTER, decode_cluster, decode_head_group, decode_launch,
+    decode_split, form_launches, kernel_form, mma_scores, prefill_form)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.timing import device_events  # noqa: E402
 from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
 from _torch_cases import conv_case, map_chain  # noqa: E402
 
@@ -490,18 +494,20 @@ def test_flash_bf16_misaligned_raises(card):
 
 
 DECODE_SKV = (1, 7, 32, 33, 100, 512, 1024, 1056)
-DECODE_G = (1, 3, 4, 8, 16)
+DECODE_G = (1, 3, 4, 6, 7, 8, 12, 16)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 3e-2)])
 def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
-    """The split-KV decode form over one chunk and many (skv 1 .. 1056),
-    GQA groups of 1, 4 and 8 query heads per kv head (and 3 and 16, which
-    leave a head group part empty or take two), each on a contiguous
-    cache and on a cache slice (a strided view, as the model passes it);
-    one counted launch per call."""
+    """The split-KV decode form over one chunk and many (skv 1 .. 1056:
+    up to 8 splits merged in a cluster, more by the merge kernel), GQA
+    groups of 1, 3, 4, 6 and 8 query heads per kv head (one head group
+    each), 7 (a group of 8, one slot idle), 12 (two groups of 6) and 16
+    (two of 8), each on a contiguous cache and on a cache slice (a
+    strided view, as the model passes it); one counted launch per
+    call."""
     rng = np.random.RandomState(D)
     calls = 0
     for g in DECODE_G:
@@ -523,6 +529,124 @@ def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
     assert registry.get_kernel("flash_attention").launches() == calls
     assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
                                "decode": calls}
+
+
+def _decode_kernels(fn):
+    """The decode form's kernels (``kernel_form`` names) that the profiler
+    saw over 3 calls of ``fn``."""
+    return sorted(f for f in map(kernel_form, device_events(fn, 3)[1])
+                  if f is not None)
+
+
+def _allocations(fn) -> int:
+    """The caching allocator's allocations in one call of ``fn``."""
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - n0
+
+
+def test_flash_decode_head_group_matches_the_kernels_dispatch(card):
+    """ops.decode_head_group, which the wrapper and tests read, against
+    the split kernel's own choice (dec::head_group) for g 1 .. 96, and
+    the most splits a cluster merges."""
+    lib = _build.build_all(["flash_decode"])["flash_decode"].lib
+    lib.flash_decode_head_group.argtypes = [ctypes.c_int]
+    lib.flash_decode_head_group.restype = ctypes.c_int
+    lib.flash_decode_max_cluster.restype = ctypes.c_int
+    assert [lib.flash_decode_head_group(g) for g in range(1, 97)] == \
+        [decode_head_group(g) for g in range(1, 97)]
+    assert lib.flash_decode_max_cluster() == MAX_CLUSTER
+
+
+@pytest.mark.parametrize("pairs", [16, 32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_decode_cluster_at_every_split(card, pairs, D, dtype, atol):
+    """The cluster path at B*Hkv 16 and 32 (B 4, g 3) and every nsplit
+    from 1 to 8: through flash_decode at 16 * n keys, where decode_split
+    gives n splits of 16 at 16 pairs and caps 32 pairs at 5, then through
+    decode_launch at n splits forced, over short chunks (37 keys: one
+    tile) and long ones (150 keys: several tiles, the last short), on a
+    contiguous cache and on a strided view of a longer one (the cluster
+    kernel at every cluster size); one counted launch a call."""
+    rng = np.random.RandomState(pairs + D)
+    B, Hkv, g = 4, pairs // 4, 3
+    q = _randn(rng, (B, 1, g * Hkv, D), dtype, card)
+    calls = 0
+    for n in range(1, MAX_CLUSTER + 1):
+        splits = [(16 * n, None), (37 * n - 3, -(-(37 * n - 3) // n)),
+                  (150 * n - 7, -(-(150 * n - 7) // n))]
+        for skv, kc in splits:
+            cache = _randn(rng, (B, skv + 9, Hkv, D), dtype, card)
+            vcache = _randn(rng, (B, skv + 9, Hkv, D), dtype, card)
+            for k, v in ((cache[:, :skv].contiguous(),
+                          vcache[:, :skv].contiguous()),
+                         (cache[:, 9:], vcache[:, 9:])):
+                if kc is None:
+                    assert decode_split(skv, B * Hkv)[1] == \
+                        min(n, 5 if pairs == 32 else 8)
+                    out = flash_decode(q, k, v)
+                else:
+                    out = decode_launch(q, k, v, kc, n)
+                torch.cuda.synchronize()
+                calls += 1
+                want = attention_ref(q, k, v, causal=False)
+                assert out.dtype == dtype and out.shape == q.shape
+                err = (out.float() - want).abs().max().item()
+                assert err <= atol, (n, skv, err)
+    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
+                               "decode": calls}
+
+
+@pytest.mark.parametrize("keys", [160, 100])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_decode_granite_is_one_kernel(card, keys, dtype, atol):
+    """granite-moe-3b-a800m's serving decode (B 4, Hkv 8, g 3, D 64) over
+    160 and 100 keys, on a contiguous cache and on a strided view of a
+    longer one (the serving cache's first slots): 5 splits merged in a
+    cluster, one kernel a call (the cluster kernel, no merge kernel), one
+    allocation (out, no workspace)."""
+    rng = np.random.RandomState(keys)
+    B, Hkv, g, D = 4, 8, 3, 64
+    q = _randn(rng, (B, 1, g * Hkv, D), dtype, card)
+    cache = _randn(rng, (B, 176, Hkv, D), dtype, card)
+    vcache = _randn(rng, (B, 176, Hkv, D), dtype, card)
+    kc, nsplit = decode_split(keys, B * Hkv)
+    assert nsplit == 5 and decode_cluster(nsplit)
+    for k, v in ((cache[:, :keys].contiguous(),
+                  vcache[:, :keys].contiguous()),
+                 (cache[:, :keys], vcache[:, :keys])):
+        err = (flash_decode(q, k, v).float()
+               - attention_ref(q, k, v, causal=False)).abs().max().item()
+        assert err <= atol
+        assert _allocations(lambda: flash_decode(q, k, v)) == 1
+        assert _decode_kernels(lambda: flash_decode(q, k, v)) == \
+            ["decode_cluster"]
+
+
+def test_flash_decode_long_span_keeps_the_merge_kernel(card):
+    """gemma3-1b's decode over its prompt's 1024 keys (B 4, H 4, Hkv 1,
+    D 256, bf16): 32 splits, past a cluster, so the split kernel writes
+    the workspace and the merge kernel follows (two allocations: out and
+    the workspace; no cluster kernel), still one counted launch."""
+    rng = np.random.RandomState(1024)
+    q = _randn(rng, (4, 1, 4, 256), torch.bfloat16, card)
+    k = _randn(rng, (4, 1024, 1, 256), torch.bfloat16, card)
+    v = _randn(rng, (4, 1024, 1, 256), torch.bfloat16, card)
+    assert decode_split(1024, 4) == (32, 32) and not decode_cluster(32)
+    err = (flash_decode(q, k, v).float()
+           - attention_ref(q, k, v, causal=False)).abs().max().item()
+    assert err <= 3e-2
+    assert _allocations(lambda: flash_decode(q, k, v)) == 2
+    assert _decode_kernels(lambda: flash_decode(q, k, v)) == \
+        ["decode_merge", "decode_split"]
+    registry.reset_launch_counts()
+    flash_decode(q, k, v)
+    assert form_launches()["decode"] == 1
 
 
 def test_flash_decode_misaligned_raises(card):

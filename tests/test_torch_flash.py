@@ -259,13 +259,17 @@ def test_row_alignment_rule_counts_bytes():
         rows_aligned("k4", "decode", q=odd)
 
 
-@pytest.mark.parametrize("blocks", [1, 2, 4, 8, 16, 100, 132, 500])
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8, 15, 16, 24, 32, 96, 100,
+                                    132, 500])
 def test_decode_split_covers_every_key_once(blocks):
     """Every key in exactly one chunk, no chunk empty, at most one block
     per SM's worth of splits, no chunk but the last below MIN_CHUNK keys,
-    and spans shorter than 2 * MIN_CHUNK keys kept whole (no one-key
-    pieces)."""
-    from repro_torch.kernels.flash.ops import MIN_CHUNK, SMS, decode_split
+    spans shorter than 2 * MIN_CHUNK keys kept whole (no one-key pieces),
+    and from CLUSTER_PAIRS pairs on at most MAX_CLUSTER splits (every
+    span merges in a cluster)."""
+    from repro_torch.kernels.flash.ops import (
+        CLUSTER_PAIRS, MAX_CLUSTER, MIN_CHUNK, SMS, decode_cluster,
+        decode_split)
     for skv in range(1, 2100):
         kc, nsplit = decode_split(skv, blocks)
         chunks = [range(c * kc, min((c + 1) * kc, skv))
@@ -276,6 +280,8 @@ def test_decode_split_covers_every_key_once(blocks):
         assert nsplit == 1 or kc >= MIN_CHUNK
         if skv < 2 * MIN_CHUNK:
             assert nsplit == 1
+        if blocks >= CLUSTER_PAIRS:
+            assert nsplit <= MAX_CLUSTER and decode_cluster(nsplit)
     with pytest.raises(ValueError, match="cannot split"):
         decode_split(0, blocks)
 
@@ -289,6 +295,53 @@ def test_decode_split_fills_the_card_on_the_main_path():
     for skv in (512, 1024, 1056):
         kc, nsplit = decode_split(skv, 4)
         assert 4 * nsplit >= 128
+
+
+@pytest.mark.parametrize("skv,blocks,split,cluster", [
+    (160, 32, (32, 5), True),       # granite's serving cache, B 4 x Hkv 8
+    (100, 32, (20, 5), True),       # granite, a 100-slot span
+    (128, 16, (16, 8), True),       # granite's f32 check, B 2 x Hkv 8
+    (64, 4, (16, 4), True),         # gemma3-1b's short span, B 4 x Hkv 1
+    (1024, 4, (32, 32), False),     # gemma3-1b's prompt: the merge kernel
+    (512, 4, (16, 32), False),      # gemma3-1b's local-layer span
+    (1024, 16, (128, 8), True),     # 16 pairs: capped at 8 (9 uncapped)
+    (160, 16, (20, 8), True),       # qwen2-vl, B 4 x Hkv 4
+    (160, 96, (80, 2), True),       # musicgen, B 4 x Hkv 24
+    (20, 32, (20, 1), True),        # one chunk, a cluster of one block
+])
+def test_decode_split_at_the_model_shapes(skv, blocks, split, cluster):
+    """decode_split and the kernels it gives (the cluster kernel up to
+    MAX_CLUSTER splits, the split and merge kernels past it) at the model
+    paths' decode shapes and at the widths of the archs not yet
+    served."""
+    from repro_torch.kernels.flash.ops import decode_cluster, decode_split
+    assert decode_split(skv, blocks) == split
+    assert decode_cluster(split[1]) == cluster
+
+
+def test_decode_head_group_sizes_groups_to_g():
+    """The decode form's query heads a block: g itself up to 4, 6 and 8
+    above it, and past 8 the largest of 8, 6, 4 that divides g (else 8):
+    granite's 3 and command-r-plus's 12 leave no slot idle, qwen2-vl's 7
+    one."""
+    from repro_torch.kernels.flash.ops import decode_head_group
+    want = {1: 1, 2: 2, 3: 3, 4: 4, 5: 6, 6: 6, 7: 8, 8: 8, 9: 8, 10: 8,
+            12: 6, 16: 8, 18: 6, 20: 4, 24: 8, 28: 4, 30: 6, 96: 8}
+    assert {g: decode_head_group(g) for g in want} == want
+    for g in range(1, 200):
+        gt = decode_head_group(g)
+        assert gt in (1, 2, 3, 4, 6, 8)
+        idle = -(-g // gt) * gt - g
+        assert idle == 0 or g in (5, 7) or all(g % c for c in (8, 6, 4))
+    with pytest.raises(ValueError):
+        decode_head_group(0)
+
+
+def test_decode_cluster_takes_one_to_eight_splits():
+    from repro_torch.kernels.flash.ops import MAX_CLUSTER, decode_cluster
+    assert MAX_CLUSTER == 8
+    assert [n for n in range(1, 140) if decode_cluster(n)] == \
+        list(range(1, 9))
 
 
 def test_prefill_form_by_dtype():
@@ -447,6 +500,10 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
      "prefill_simt", "f32_d192_128"),
     ("_ZN12_GLOBAL__N_13dec25flash_decode_split_kernelI13__nv_bfloat16Li64"
      "ELi4EEEvPT_", "decode_split", "bf16_d64_g4"),
+    ("_ZN12_GLOBAL__N_13dec27flash_decode_cluster_kernelIfLi128ELi6EEEvPT_",
+     "decode_cluster", "f32_d128_g6"),
+    ("void (anonymous namespace)::dec::flash_decode_cluster_kernel<"
+     "__nv_bfloat16, 64, 3>(__nv_bfloat16*)", "decode_cluster", None),
     ("void (anonymous namespace)::mma::flash_mma_qreg_kernel<64, 64, 3>("
      "__nv_bfloat16*)", "prefill_mma", None),
     ("void (anonymous namespace)::mma::flash_mma_scores_kernel(float*)",
