@@ -58,10 +58,13 @@ phase prints one JSON line:
            g 3, bf16 at 4 x 1024 and f32 at 2 x 128; its decode over
            serving's 4 x 160-slot cache and a 100-slot view of it in bf16
            and over the f32 loop's 2 x 128 keys, and its rows at an
-           offset with the lse; bf16 decode at B 4 over 160 keys at the
-           widths of archs not yet served (g 8 and g 12 at D 128 and Hkv
-           8, g 7 at D 128 and Hkv 4, g 1 at D 64 and Hkv 24) and g 8 at
-           D 256 and Hkv 1 over 1024 keys; deepseek's MLA prefill with q, k at 192
+           offset with the lse; the served dense archs' shapes (gemma-2b's
+           MQA, g 8 at D 256; musicgen's MHA at D 64, Hkv 24; qwen2-vl's
+           g 7 at D 128, Hkv 4; qwen2-72b's and jamba's g 8 and
+           command-r-plus's g 12 at D 128, Hkv 8): the bf16 prefill at
+           4 x 1024 and the f32 one at 2 x 128, causal, and bf16 decode at
+           B 4 over serving's 160 keys, with gemma-2b's decode over 1024
+           keys too; deepseek's MLA prefill with q, k at 192
            and v at 128 as K4 takes them unpadded, the scale
            1/sqrt(192), 128 heads, bf16 at 4 x 1024 and f32 at 2 x 64,
            and once more zero-padded to 256 as before K4 took Dv != Dk
@@ -166,8 +169,9 @@ phase prints one JSON line:
            warmup seconds (the kernels' nvcc builds ran in the build
            phase; their cache is the one the server loads)
   llm      gemma3-1b at full width and depth (26 layers, random weights
-           from seed 0): f32 decode_fn over a 1024-token prompt against
-           prefill_fn (atol 2e-3, rtol 1e-3), the f32 prefill_fn launching
+           drawn on the card from seed 0, ``card_params``): f32 decode_fn
+           over a 1024-token prompt against prefill_fn (atol 2e-3, rtol
+           1e-3), the f32 prefill_fn launching
            the SIMT prefill form 26 times and the tensor-core form never;
            the model cut to 2 layers on the card against the same on the
            CPU; then, in bf16 and with the launch counters reset,
@@ -181,27 +185,38 @@ phase prints one JSON line:
            of its device time and its split and merge kernels' calls (a
            merge a layer: gemma3-1b's spans take 32 splits; granite's
            profiled step must run none)
-  families granite-moe-3b-a800m (MoE, 32 layers, 48 padded experts
-           top-8) and mamba2-1.3b (48 Mamba2 layers) uncut, and
-           deepseek-v2-236b (MLA + MoE, 160 experts top-6 and a shared
-           one) cut to 2 layers, at full width with weights drawn on the
-           card from a seeded generator (init_params's kinds and scales):
-           f32 decode_fn over a 128-token prompt (64 for deepseek) against
+  families nine archs at full width with weights drawn on the card from
+           a seeded generator (init_params's kinds and scales), each at an
+           f32 cut for the checks and a serving cut: granite-moe-3b-a800m
+           (MoE, 32 layers, 48 padded experts top-8), mamba2-1.3b (48
+           Mamba2 layers), gemma-2b (MQA at D 256, a tied 256,000-entry
+           head), musicgen-medium (embedding frames, LayerNorm, MHA) and
+           qwen2-vl-7b (frames, M-RoPE over (3, B, S) positions, qkv bias)
+           uncut; deepseek-v2-236b (MLA + MoE, 160 experts top-6 and a
+           shared one) at 2 layers; qwen2-72b at 4 layers (f32) and 16
+           (bf16), command-r-plus-104b at 2 and 16, jamba-1.5-large-398b
+           at 4 (its MoE at layer 3 alone in f32, the 16 padded experts
+           of two MoE layers being 92 GB there; all of it in bf16): f32
+           decode_fn over a 128-token prompt (64 for deepseek) against
            prefill_fn at capacity factor E/K (no drop; atol 2e-3, rtol
            1e-3), the SIMT and decode forms launched once per GQA layer
            per call and step (MLA decodes without K4, mamba2 has no
-           attention); the model cut to 2 layers on the card against the
-           CPU at the config's capacity factor; every MoE layer's top-k
-           sets and k-th/(k+1)-th gate gaps recorded on both paths
+           attention); the f32 cut's first two layers (jamba's layers 2
+           and 3, Mamba2 and attention with the MoE) on the card against
+           the CPU at the config's capacity factor; every MoE layer's
+           top-k sets and k-th/(k+1)-th gate gaps recorded on both paths
            (``RouteLog``): a root difference with a gap above 1e-5 fails,
-           rows with a difference are left out of the comparison; then in
-           bf16 with the counters reset, prefill_fn on 4 x 1024 tokens
-           (the tensor-core form once per attention layer, MLA's at Dk
-           192 and Dv 128 with no zero pad: the profiled call must run no
-           aten::constant_pad_nd) and serve (4 x 128, 32 generated), held
-           to finiteness and shapes; per arch init seconds, peak memory,
+           rows with a difference are left out of the comparison; the f32
+           weights freed, the serving cut drawn in bf16; then with the
+           counters reset, prefill_fn on 4 x 1024 tokens or frames (the
+           tensor-core form once per attention layer, MLA's at Dk 192 and
+           Dv 128 with no zero pad: the profiled call must run no
+           aten::constant_pad_nd) and serve (4 x 128, 32 generated; the
+           decode form once per GQA layer a step), held to finiteness and
+           shapes; per arch init seconds, both cuts' peak memory,
            launches, prefill ms and its device ms (K4's share), decode ms
-           per step, tokens/s and a profiled decode step
+           per step, tokens/s, a profiled decode step and its seconds;
+           then the phase's seconds
   train    gemma3-1b's training path (launch/train's loop): K4's row
            log-sum-exp in both prefill forms against the plain version's
            and the attention gradient (K4 with its lse, the plain
@@ -281,11 +296,33 @@ TPU_KERNELS = {"conv2d": "kernels/conv2d/kernel.py::_conv_kernel",
                            "hwsim/population.py::_pop_impl"}
 LLM_ARCH = "gemma3-1b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 1024, 32
-# the families phase: each arch at full width, cut as ``reduced`` says
-FAMILIES = (("granite-moe-3b-a800m", {}), ("mamba2-1.3b", {}),
-            ("deepseek-v2-236b", {"n_layers": 2}))
+# the families phase: each arch at full width, cut as ``reduced`` says:
+# (arch, the f32 checks' cut, the bf16 serving cut).  The f32 cuts fit
+# the card in f32 (at most 28 GB, jamba's 56), the serving cuts in bf16
+# (at most 57 GB).  jamba's experts pad to 16 whatever their count
+# (models.model.moe_experts_padded), so its 4 layers with two MoE layers
+# are 92 GB in f32: its f32 cut keeps the MoE at layer 3 alone (every 4th
+# layer from 3; layers 0-2 keep jamba's dense MLP)
+FAMILIES = (("granite-moe-3b-a800m", {}, {}), ("mamba2-1.3b", {}, {}),
+            ("deepseek-v2-236b", {"n_layers": 2}, {"n_layers": 2}),
+            ("gemma-2b", {}, {}), ("musicgen-medium", {}, {}),
+            ("qwen2-vl-7b", {}, {}),
+            ("qwen2-72b", {"n_layers": 4}, {"n_layers": 16}),
+            ("command-r-plus-104b", {"n_layers": 2}, {"n_layers": 16}),
+            ("jamba-1.5-large-398b",
+             {"n_layers": 4, "moe_every": 4, "moe_offset": 3},
+             {"n_layers": 4}))
+# the 2-layer card-against-CPU check takes the f32 cut's first two layers,
+# or (first layer, the 2-layer config's changes): jamba's layers 2 and 3
+# of its f32 cut (Mamba2 with the dense MLP, attention with the MoE), as
+# a 2-layer model whose pattern is those two kinds
+FAM_TWO_LAYERS = {"jamba-1.5-large-398b": (2, {
+    "pattern": ("mamba", "attn"), "moe_every": 2, "moe_offset": 1})}
 FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 32
 FAM_F32_PROMPT, FAM_F32_PROMPT_MLA = 128, 64
+# a leaf of more elements is drawn a slice at a time (card_params), so a
+# bf16 leaf's f32 draw stays below 4.3 GB
+DRAW_ELEMS = 1 << 30
 ROUTE_GAP = 1e-5        # a routing difference at or below it is a near-tie
 # the head dim MLA's q, k and v were zero-padded to before K4 took
 # Dv != Dk: its "before" cases time that call once more
@@ -293,9 +330,6 @@ MLA_PADDED = 256
 # K4's row log-sum-exp against the plain version's: f32 sums of up to 1024
 # exponentials of f32 scores (bf16 products are exact in f32)
 LSE_ATOL = 1e-4
-# each family's K4 forms on its path, with the key of flash_phase's case
-# at that path's shapes (mamba2 runs no attention, deepseek decodes MLA in
-# latent space)
 # K4's prefill kernels by ``flash.ops.resources``' keys: the tensor-core
 # form's D 256 kernel and its Q-register kernel at (Dk, Dv) with 1..GH_max
 # heads a block, the SIMT form at each (Dk, Dv)
@@ -303,17 +337,20 @@ K4_PREFILL_BUILDS = {
     "prefill_mma": ["bf16_d256", "bf16_d64_g1", "bf16_d64_g2", "bf16_d64_g3",
                     "bf16_d128_g1", "bf16_d192_128_g1"],
     "prefill_simt": ["f32_d64", "f32_d128", "f32_d192_128", "f32_d256"]}
-FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", ("prefill_mma",
-                                                  "prefill_simt", "decode")),
-             "deepseek-v2-236b": ("mla", ("prefill_mma", "prefill_simt"))}
 MK_APPS = ("flow", "descriptor", "pyramid")
-# decode cases at the widths of the archs not yet served at width (not on
-# a model path): name -> (Hkv, g, D, keys), batch FAM_BATCH
-DECODE_WIDTHS = {"jamba_qwen2_72b_decode": (8, 8, 128, 160),
-                 "command_r_plus_decode": (8, 12, 128, 160),
-                 "qwen2_vl_decode": (4, 7, 128, 160),
-                 "musicgen_decode": (24, 1, 64, 160),
-                 "gemma_2b_decode": (1, 8, 256, 1024)}
+# the served dense archs' K4 shapes, (H, Hkv, D) from their configs, by
+# flash_phase's case key
+SERVED_K4 = {"gemma_2b": "gemma-2b", "musicgen": "musicgen-medium",
+             "qwen2_vl": "qwen2-vl-7b", "qwen2_72b": "qwen2-72b",
+             "command_r_plus": "command-r-plus-104b"}
+# each family's K4 forms on its path, with the key of flash_phase's cases
+# at that path's shapes (mamba2 runs no attention, deepseek decodes MLA in
+# latent space, jamba's attention layer has qwen2-72b's shapes)
+_K4_FORMS = ("prefill_mma", "prefill_simt", "decode")
+FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", _K4_FORMS),
+             "deepseek-v2-236b": ("mla", ("prefill_mma", "prefill_simt")),
+             **{arch: (key, _K4_FORMS) for key, arch in SERVED_K4.items()},
+             "jamba-1.5-large-398b": ("qwen2_72b", _K4_FORMS)}
 # the decode form's cluster and split kernels' builds each: 3 head dims x 2
 # types x head groups of 1, 2, 3, 4, 6 and 8 (ops.decode_head_group); the
 # merge kernel's 2 types
@@ -2031,17 +2068,33 @@ def flash_phase(torch, np):
         randn((2, FAM_F32_PROMPT, g.n_kv_heads, g.hd), f32), causal=False,
         window=None, decode=True, atol=2e-5)
     del kc, vc, q1
-    # the decode shapes of the archs not yet served at width, at B 4 over
-    # 160 keys: jamba's and qwen2-72b's g 8 at D 128 (Hkv 8),
-    # command-r-plus's g 12 (two head groups of 6), qwen2-vl's g 7 at Hkv
-    # 4 (one group of 8, a slot idle), musicgen's MHA at D 64 (Hkv 24);
-    # and gemma-2b's MQA, g 8 at D 256 over 1024 keys (the merge kernel)
-    for name, (hkv, grp, d, keys) in DECODE_WIDTHS.items():
-        lines[name] = flash_case(
-            torch, np, name, randn((FAM_BATCH, 1, hkv * grp, d), bf16),
-            randn((FAM_BATCH, keys, hkv, d), bf16),
-            randn((FAM_BATCH, keys, hkv, d), bf16), causal=False,
-            window=None, decode=True, atol=3e-2)
+    # the served dense archs' shapes as their paths hand them over
+    # (SERVED_K4; jamba's attention layer is qwen2-72b's): the bf16
+    # prefill at serving's 4 x 1024 and the f32 one at the f32 check's
+    # 2 x 128, causal; decode at B 4 over serving's last 160 keys:
+    # gemma-2b's MQA (g 8 at D 256, Hkv 1), musicgen's MHA (g 1 at D 64,
+    # Hkv 24), qwen2-vl's g 7 at D 128 and Hkv 4 (one group of 8, a slot
+    # idle), qwen2-72b's g 8 at Hkv 8 and command-r-plus's g 12 (two head
+    # groups of 6); and gemma-2b's decode over 1024 keys (the merge kernel)
+    for key, arch in SERVED_K4.items():
+        c = ARCHS[arch]
+        H, Hkv, D = c.n_heads, c.n_kv_heads, c.hd
+        for name, (b, s, dtype, atol) in {
+                f"{key}_prefill_bf16": (FAM_BATCH, FAM_PREFILL, bf16, 3e-2),
+                f"{key}_prefill_f32": (2, FAM_F32_PROMPT, f32, 2e-5)}.items():
+            lines[name] = flash_case(
+                torch, np, name, randn((b, s, H, D), dtype),
+                randn((b, s, Hkv, D), dtype), randn((b, s, Hkv, D), dtype),
+                causal=True, window=None, decode=False, atol=atol)
+        decodes = {f"{key}_decode_bf16": FAM_PROMPT + FAM_GEN}
+        if key == "gemma_2b":
+            decodes["gemma_2b_decode_1024_bf16"] = LLM_PROMPT
+        for name, keys in decodes.items():
+            lines[name] = flash_case(
+                torch, np, name, randn((FAM_BATCH, 1, H, D), bf16),
+                randn((FAM_BATCH, keys, Hkv, D), bf16),
+                randn((FAM_BATCH, keys, Hkv, D), bf16), causal=False,
+                window=None, decode=True, atol=3e-2)
     m = ARCHS["deepseek-v2-236b"]
     dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
     for name, (b, s, dtype, atol) in {
@@ -2083,7 +2136,12 @@ def flash_phase(torch, np):
             "prefill_simt:granite": lines["granite_prefill_f32"],
             "decode:granite": lines["granite_decode_bf16"],
             "prefill_mma:mla": lines["mla_prefill_bf16"],
-            "prefill_simt:mla": lines["mla_prefill_f32"]}
+            "prefill_simt:mla": lines["mla_prefill_f32"],
+            **{f"{form}:{key}": lines[f"{key}_{case}"]
+               for key in SERVED_K4 for form, case in (
+                   ("prefill_mma", "prefill_bf16"),
+                   ("prefill_simt", "prefill_f32"),
+                   ("decode", "decode_bf16"))}}
 
 
 def _sync_ms(torch, fn):
@@ -2108,22 +2166,20 @@ def prefill_device(torch, call, wall_ms: float) -> dict:
             "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]}
 
 
-def decode_step_profile(torch, cfg, params, tokens, index: int,
+def decode_step_profile(torch, cfg, params, step_in, index: int,
                         merge_calls: int) -> dict:
-    """Where a decode step's time goes: one warm step, then 3 steps at
-    ``index`` under the profiler (CPU and CUDA activity): the wall and
-    device ms a step, K4's split and merge kernels' share and calls a step,
-    the host's aten operators a step and the top device kernels.  A step
-    must run the merge kernel ``merge_calls`` times (once per layer whose
-    span takes more splits than a cluster merges, else never)."""
+    """Where a decode step's time goes: one warm step on ``step_in`` (a
+    decode_fn batch at position ``index``), then 3 steps at ``index``
+    under the profiler (CPU and CUDA activity): the wall and device ms a
+    step, K4's split and merge kernels' share and calls a step, the
+    host's aten operators a step and the top device kernels.  A step must
+    run the merge kernel ``merge_calls`` times (once per layer whose span
+    takes more splits than a cluster merges, else never)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_forward
     from repro_torch.models.model import zero_cache
     _, _, decode_fn = build_forward(cfg)
-    B = tokens.shape[0]
-    cache = zero_cache(cfg, B, index + 8, "cuda")
-    step_in = {"tokens": tokens,
-               "positions": torch.full((B, 1), index, device="cuda")}
+    cache = zero_cache(cfg, step_in["tokens"].shape[0], index + 8, "cuda")
     with torch.no_grad():
         decode_fn(params, cache, step_in, index=index)
         torch.cuda.synchronize()
@@ -2169,7 +2225,7 @@ def llm_phase(torch, np):
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash.ops import form_launches
     from repro_torch.launch.serve import make_prompt, serve
-    from repro_torch.models import build_forward, init_params
+    from repro_torch.models import build_forward
     from repro_torch.models.convert import cast_params
     from repro_torch.models.model import tree_map, zero_cache
 
@@ -2178,7 +2234,10 @@ def llm_phase(torch, np):
     cfg = ARCHS[LLM_ARCH]
     cfg32 = cfg.replace(dtype="float32")
     t0 = time.perf_counter()
-    params = init_params(cfg32, 0, "cuda")
+    # drawn on the card: init_params's numpy draws took about 35 s of the
+    # script's time limit (the CPU tests hold init_params to the
+    # reference's, and the card tests run it on the card)
+    params = card_params(torch, cfg32, 0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     line = {"phase": "llm", "arch": cfg.name, "n_layers": cfg.n_layers,
@@ -2308,8 +2367,9 @@ def llm_phase(torch, np):
     # (every layer's span, 1024 keys or a 512-slot window at 4 (b, kv
     # head) pairs, takes 32 splits: past a cluster, so the merge kernel)
     line["decode_step_profile"] = decode_step_profile(
-        torch, cfg, params, toks[:, :1], LLM_PROMPT - 1,
-        merge_calls=cfg.n_layers)
+        torch, cfg, params, {"tokens": toks[:, :1], "positions": torch.full(
+            (LLM_BATCH, 1), LLM_PROMPT - 1, device="cuda")},
+        LLM_PROMPT - 1, merge_calls=cfg.n_layers)
     emit(line)
     return line, {"prefill_mma": n_prefill, "prefill_simt": n_simt,
                   "decode": n_decode}
@@ -2324,11 +2384,24 @@ def card_params(torch, cfg, seed: int):
     fan-in, normal(0, 0.2) for the conv, log(1..8) for a_log, zeros and
     ones); not the reference's numbers, which the CPU tests hold
     init_params to.  numpy draws about 30 M normals a second on a host:
-    minutes for granite's 3.9 B parameters."""
+    minutes for granite's 3.9 B parameters.  A normal leaf is drawn in f32
+    and rounded to its type; a bf16 one of more than DRAW_ELEMS elements
+    a slice at a time along its first axes, so no more than one slice is
+    held in f32 beside the bf16 tree."""
     import math
     from repro_torch.models.model import DTYPES, param_specs, tree_map
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
+
+    def normal(t, std):
+        if t.dtype == torch.float32:
+            t.normal_(0.0, std, generator=gen)
+        elif t.dim() > 1 and t.numel() > DRAW_ELEMS:
+            for part in t.unbind(0):
+                normal(part, std)
+        else:
+            t.copy_(torch.empty(t.shape, device="cuda").normal_(
+                0.0, std, generator=gen))
 
     def draw(p):
         if p.init in ("zeros", "ones"):
@@ -2341,9 +2414,9 @@ def card_params(torch, cfg, seed: int):
         elif p.init in ("normal", "conv"):
             fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(
                 p.shape[:-1])
-            std = 0.2 if p.init == "conv" else 1.0 / math.sqrt(max(1, fan_in))
-            t = torch.empty(p.shape, device="cuda").normal_(
-                0.0, std, generator=gen)
+            t = torch.empty(p.shape, dtype=DTYPES[p.dtype], device="cuda")
+            normal(t, 0.2 if p.init == "conv" else 1.0 / math.sqrt(
+                max(1, fan_in)))
         else:
             raise ValueError(f"card_params: no card draw for init kind "
                              f"{p.init!r}")
@@ -2436,30 +2509,90 @@ def _held(torch, what, got, want, rows, atol, rtol) -> dict:
             "rows_held": rows, "atol": atol, "rtol": rtol}
 
 
-def family(torch, np, arch: str, cut: dict):
-    """One arch at full width (``cut`` its ``reduced``): f32 checks, then
-    bf16 serving with K4's counters set to 0 just before the prefill_fn
-    call and read after ``serve``.  Returns the line and K4's launches per
-    form on the serving path (the SIMT form's from the f32 prefill_fn)."""
+def model_batch(torch, cfg, prompt, batch: int, seq: int):
+    """The first ``batch`` rows and ``seq`` positions of a make_prompt
+    prompt on the card as prefill_fn takes them: token ids, or embedding
+    frames rounded to bf16 (as serve feeds them), with the positions
+    (M-RoPE's (3, B, S), as the reference's launcher builds them); and a
+    function giving decode step i's batch from it."""
+    x = torch.from_numpy(prompt.tokens[:batch, :seq].copy())
+    if cfg.input_mode != "tokens":
+        x = x.to(torch.bfloat16)
+    x = x.cuda()
+    lead = (3, batch) if cfg.mrope_sections else (batch,)
+    full = {"tokens": x, "positions": torch.arange(
+        seq, device="cuda").expand(*lead, seq)}
+
+    def step(i: int):
+        return {"tokens": x[:, i:i + 1],
+                "positions": torch.full((*lead, 1), i, device="cuda")}
+
+    return full, step
+
+
+def layer_cut(params, cfg, cfg2, first: int):
+    """cfg2's parameter tree from cfg's layers first, first + 1, ...,
+    as views: a period-1 model's stacked leaves sliced, or the tail slots
+    of a model shorter than its period laid out as cfg2's one period (or
+    tail) wants them.  Held leaf for leaf to cfg2's shapes."""
+    from repro_torch.models.model import param_specs, tree_leaves, tree_map
+    n = cfg2.n_layers
+    out = {k: v for k, v in params.items()
+           if k not in ("period_slots", "tail_slots")}
+    if cfg.period == 1:
+        out["period_slots"] = [tree_map(lambda t: t[first:first + n],
+                                        params["period_slots"][0])]
+        out["tail_slots"] = []
+    else:
+        per = cfg2.period
+        if cfg.n_layers >= cfg.period or n // per > 1:
+            raise ValueError(f"layer_cut takes a period-1 model or tail "
+                             f"slots into at most one period, not "
+                             f"{cfg.n_layers} layers of period {cfg.period} "
+                             f"into {n} of period {per}")
+        layers = params["tail_slots"][first:first + n]
+        out["period_slots"] = [tree_map(lambda t: t[None], layers[s])
+                               for s in range(per)] if n // per else []
+        out["tail_slots"] = layers[n // per * per:]
+    got = [tuple(t.shape) for t in tree_leaves(out)]
+    want = [tuple(p.shape) for p in tree_leaves(param_specs(cfg2))]
+    if got != want:
+        raise AssertionError(f"layer_cut: shapes {got} against {want}")
+    return out
+
+
+def layer_counts(cfg):
+    """(attention layers, those that decode through K4 (MLA's do not),
+    MoE layers) of ``cfg``."""
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    return (attn, 0 if cfg.mla else attn,
+            sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)))
+
+
+def family(torch, np, arch: str, cut32: dict, cut: dict):
+    """One arch at full width: the f32 checks on its f32 cut (``cut32``),
+    whose weights are then freed, and bf16 serving on its serving cut
+    (``cut``), drawn in bf16, with K4's counters set to 0 just before the
+    prefill_fn call and read after ``serve``.  Returns the line and K4's
+    launches per form on the serving path (the SIMT form's from the f32
+    prefill_fn)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import registry
-    from repro_torch.kernels.flash.ops import form_launches
-    from repro_torch.launch.serve import make_prompt, serve
+    from repro_torch.kernels.flash.ops import (decode_cluster, decode_split,
+                                               form_launches)
+    from repro_torch.launch.serve import Prompt, make_prompt, serve
     from repro_torch.models import build_forward
-    from repro_torch.models.convert import cast_params
     from repro_torch.models.model import (moe_experts_padded, tree_leaves,
                                           tree_map, zero_cache)
 
-    cfg = ARCHS[arch].replace(**cut)
-    if cfg.period != 1:
-        raise AssertionError(f"{arch}: the 2-layer cut takes period 1")
-    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    n_gqa = 0 if cfg.mla else n_attn          # MLA decodes without K4
-    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
-    E = moe_experts_padded(cfg) if cfg.moe_experts else 0
+    base = ARCHS[arch]
+    cfg = base.replace(**cut)
+    E = moe_experts_padded(base) if base.moe_experts else 0
     # capacity factor E / K: C = S slots an expert, no token drops
-    cfg32 = cfg.replace(dtype="float32", moe_capacity_factor=(
-        E / cfg.moe_top_k if E else cfg.moe_capacity_factor))
+    cfg32 = base.replace(**cut32, dtype="float32", moe_capacity_factor=(
+        E / base.moe_top_k if E else base.moe_capacity_factor))
+    n_attn32, n_gqa32, n_moe32 = layer_counts(cfg32)
+    n_attn, n_gqa, n_moe = layer_counts(cfg)
 
     def forms_were(what, **want):
         got = form_launches()
@@ -2469,115 +2602,132 @@ def family(torch, np, arch: str, cut: dict):
         return got
 
     t_arch = time.perf_counter()
+    # one prompt for every batch below: an embedding arch's prompt carries
+    # a (vocab, d_model) stub, 545 M numpy normals for qwen2-vl
+    prompt = make_prompt(cfg, FAM_BATCH, FAM_PREFILL)
+    prompt_s = time.perf_counter() - t_arch
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     params = card_params(torch, cfg32, 0)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t_arch
     line = {"phase": "families", "arch": arch, "reduced": cut,
-            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-            "attn_layers": n_attn, "mla": cfg.mla, "moe_layers": n_moe,
+            "f32_reduced": cut32, "n_layers": cfg.n_layers,
+            "f32_n_layers": cfg32.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+            "input_mode": cfg.input_mode, "attn_layers": n_attn,
+            "f32_attn_layers": n_attn32, "mla": cfg.mla,
+            "moe_layers": n_moe, "f32_moe_layers": n_moe32,
             "experts_padded": E, "top_k": cfg.moe_top_k,
-            "params": sum(t.numel() for t in tree_leaves(params)),
-            "init_s": init_s}
+            "f32_params": sum(t.numel() for t in tree_leaves(params)),
+            "f32_init_s": time.perf_counter() - t0, "prompt_s": prompt_s}
 
     # f32: decode_fn over the prompt against prefill_fn, every MoE route
     # recorded on both paths (the reference's tolerance,
     # tests/test_models.py:83)
     P = FAM_F32_PROMPT_MLA if cfg.mla else FAM_F32_PROMPT
-    toks = torch.from_numpy(make_prompt(cfg, 2, P).tokens).cuda()
+    full_in, step_in = model_batch(torch, cfg32, prompt, 2, P)
     _, prefill_fn, decode_fn = build_forward(cfg32)
     with torch.no_grad():
         registry.reset_launch_counts()
         with RouteLog(torch) as r_pre:
-            full = prefill_fn(params, {"tokens": toks})
+            full = prefill_fn(params, full_in)
             torch.cuda.synchronize()
         n_simt = forms_were("f32 prefill_fn",
-                            prefill_simt=n_attn)["prefill_simt"]
+                            prefill_simt=n_attn32)["prefill_simt"]
         cache = zero_cache(cfg32, 2, P, "cuda")
         registry.reset_launch_counts()
         with RouteLog(torch) as r_dec:
             for i in range(P):
-                step, cache = decode_fn(params, cache, {
-                    "tokens": toks[:, i:i + 1],
-                    "positions": torch.full((2, 1), i, device="cuda")},
-                    index=i)
+                step, cache = decode_fn(params, cache, step_in(i), index=i)
             torch.cuda.synchronize()
-        forms_were("f32 decode loop", decode=n_gqa * P)
+        forms_were("f32 decode loop", decode=n_gqa32 * P)
     del cache
-    rows, roots = compare_routes(torch, r_pre, r_dec, n_moe, 2)
+    rows, roots = compare_routes(torch, r_pre, r_dec, n_moe32, 2)
     line["f32_decode_vs_prefill"] = dict(
         _held(torch, "f32 decode against prefill", step, full, rows,
               2e-3, 1e-3), batch=2, prompt=P,
         capacity_factor=cfg32.moe_capacity_factor, route_roots=roots,
-        simt_launches=n_simt, decode_launches=n_gqa * P)
+        simt_launches=n_simt, decode_launches=n_gqa32 * P)
+    del full, step, r_pre, r_dec
 
-    # the model cut to 2 layers, prefill_fn on the card (K4) and on the CPU
-    # (the plain version), at the config's capacity factor (drops held
-    # equal with the routes)
-    cfg2 = cfg32.replace(n_layers=2,
-                         moe_capacity_factor=cfg.moe_capacity_factor)
-    p2 = {k: v for k, v in params.items()
-          if k not in ("period_slots", "tail_slots")}
-    p2["period_slots"] = [tree_map(lambda t: t[:2],
-                                   params["period_slots"][0])]
-    p2["tail_slots"] = []
+    # the model cut to 2 layers (FAM_TWO_LAYERS), prefill_fn on the card
+    # (K4) and on the CPU (the plain version), at the config's capacity
+    # factor (drops held equal with the routes)
+    first, changes = FAM_TWO_LAYERS.get(arch, (0, {}))
+    cfg2 = cfg32.replace(n_layers=2, moe_capacity_factor=(
+        base.moe_capacity_factor), **changes)
+    p2 = layer_cut(params, cfg32, cfg2, first)
     pf2 = build_forward(cfg2)[1]
     t0 = time.perf_counter()
     with torch.no_grad():
         with RouteLog(torch) as r_card:
-            card = pf2(p2, {"tokens": toks}).float().cpu()
+            card = pf2(p2, full_in).float().cpu()
         p2 = tree_map(lambda t: t.cpu(), p2)
         with RouteLog(torch) as r_cpu:
-            cpu = pf2(p2, {"tokens": toks.cpu()}).float()
+            cpu = pf2(p2, {k: v.cpu() for k, v in full_in.items()}).float()
     del p2
-    n_moe2 = sum(cfg2.layer_is_moe(i) for i in range(2))
-    rows2, roots2 = compare_routes(torch, r_card, r_cpu, n_moe2, 2)
+    rows2, roots2 = compare_routes(torch, r_card, r_cpu, layer_counts(
+        cfg2)[2], 2)
     line["f32_2layer_card_vs_cpu"] = dict(
         _held(torch, "2-layer card against CPU", card, cpu, rows2, 1e-4,
-              1e-4), batch=2, prompt=P,
+              1e-4), batch=2, prompt=P, first_layer=first,
+        changes={k: list(v) if isinstance(v, tuple) else v
+                 for k, v in changes.items()},
         capacity_factor=cfg2.moe_capacity_factor, route_roots=roots2,
         s=time.perf_counter() - t0)
-
-    # bf16 serving: the weights cast leaf by leaf, the counters set to 0
-    # just before the prefill_fn call and read after serve
-    params = cast_params(params, cfg)
+    line["f32_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, r_card, r_cpu
     torch.cuda.empty_cache()
+    line["f32_s"] = time.perf_counter() - t_arch
+
+    # bf16 serving: the serving cut drawn in bf16, the counters set to 0
+    # just before the prefill_fn call and read after serve
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = card_params(torch, cfg, 0)
+    torch.cuda.synchronize()
+    line.update(params=sum(t.numel() for t in tree_leaves(params)),
+                init_s=time.perf_counter() - t0)
     prefill_fn = build_forward(cfg)[1]
-    ptoks = torch.from_numpy(make_prompt(cfg, FAM_BATCH,
-                                         FAM_PREFILL).tokens).cuda()
-    prompt = make_prompt(cfg, FAM_BATCH, FAM_PROMPT)
+    p_in, p_step = model_batch(torch, cfg, prompt, FAM_BATCH, FAM_PREFILL)
     with torch.no_grad():
         # the warm call, profiled: MLA hands K4 its operands unpadded, so
         # the call pads nothing
-        pads = _aten_calls(torch, lambda: prefill_fn(
-            params, {"tokens": ptoks}), "aten::constant_pad_nd")
+        pads = _aten_calls(torch, lambda: prefill_fn(params, p_in),
+                           "aten::constant_pad_nd")
         if cfg.mla and pads:
             raise AssertionError(f"{arch} bf16 prefill_fn ran "
                                  f"aten::constant_pad_nd {pads} times")
         registry.reset_launch_counts()
-        logits, prefill_ms = _sync_ms(
-            torch, lambda: prefill_fn(params, {"tokens": ptoks}))
+        logits, prefill_ms = _sync_ms(torch, lambda: prefill_fn(params, p_in))
         n_mma = forms_were("bf16 prefill_fn",
                            prefill_mma=n_attn)["prefill_mma"]
-        res = serve(cfg, params, prompt, FAM_GEN, "cuda")
+        res = serve(cfg, params, Prompt(np.ascontiguousarray(
+            prompt.tokens[:, :FAM_PROMPT]), prompt.emb_stub), FAM_GEN,
+            "cuda")
         launched = forms_were("bf16 prefill_fn and serve",
                               prefill_mma=n_attn,
                               decode=n_gqa * res.steps)
     V = cfg.padded_vocab
-    if logits.shape != (FAM_BATCH, 1, V) or res.tokens.shape != (
+    if res.steps != FAM_PROMPT + FAM_GEN or logits.shape != (
+            FAM_BATCH, 1, V) or res.tokens.shape != (
             FAM_BATCH, FAM_GEN + 1) or not all(bool(torch.isfinite(
                 t.float()).all()) for t in (logits, res.logits,
                                             res.prompt_logits)):
         raise AssertionError(f"{arch} bf16 serving: bad shapes or "
                              f"non-finite logits")
+    # a profiled step's spans (128 keys) merge in a cluster unless they
+    # take more splits than one holds
+    merges = 0 if decode_cluster(decode_split(
+        FAM_PROMPT, FAM_BATCH * cfg.n_kv_heads)[1]) else n_gqa
     line.update({
         "bf16_prefill": dict(
             {"batch": FAM_BATCH, "prompt": FAM_PREFILL, "ms": prefill_ms,
              "capacity_factor": cfg.moe_capacity_factor,
              "k4_launches": n_mma, "constant_pad_nd_calls": pads,
              "tokens_per_s": FAM_BATCH * FAM_PREFILL / prefill_ms * 1e3},
-            **prefill_device(torch, lambda: prefill_fn(
-                params, {"tokens": ptoks}), prefill_ms)),
+            **prefill_device(torch, lambda: prefill_fn(params, p_in),
+                             prefill_ms)),
         "bf16_serve": {"batch": FAM_BATCH, "prompt": FAM_PROMPT,
                        "gen": FAM_GEN, "steps": res.steps,
                        "prompt_ms_per_step": res.prompt_s * 1e3 / FAM_PROMPT,
@@ -2585,11 +2735,9 @@ def family(torch, np, arch: str, cut: dict):
                        "tokens_per_s": res.tokens_per_s,
                        "k4_decode_launches": launched["decode"],
                        "sampled_ids": res.tokens[:2, :8].tolist()},
-        # (granite's 128 keys at 32 pairs take 5 splits, merged in a
-        # cluster; mamba2 and MLA run no decode form)
         "decode_step_profile": decode_step_profile(
-            torch, cfg, params, ptoks[:, :1], FAM_PROMPT - 1,
-            merge_calls=0),
+            torch, cfg, params, p_step(FAM_PROMPT - 1), FAM_PROMPT - 1,
+            merge_calls=merges),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "arch_s": time.perf_counter() - t_arch})
     del params
@@ -2601,13 +2749,14 @@ def family(torch, np, arch: str, cut: dict):
 
 def families_phase(torch, np):
     """FAMILIES at full width, one after another; returns their lines
-    and K4's launches per form on their serving paths, summed."""
+    and K4's launches per form on their serving paths."""
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     t0 = time.perf_counter()
     lines, launches = {}, {}
-    for arch, cut in FAMILIES:
-        lines[arch], launches[arch] = family(torch, np, arch, cut)
-    emit({"phase": "families", "archs": [a for a, _ in FAMILIES],
+    for arch, cut32, cut in FAMILIES:
+        lines[arch], launches[arch] = family(torch, np, arch, cut32, cut)
+    emit({"phase": "families", "archs": [a for a, _, _ in FAMILIES],
+          "arch_s": {a: lines[a]["arch_s"] for a in lines},
           "phase_s": time.perf_counter() - t0})
     return lines, launches
 

@@ -9,7 +9,8 @@ import numpy as np
 
 from . import convolution as _conv, descriptor as _desc, flow as _flow
 from . import pyramid as _pyr, stereo as _stereo
-from .convolution import Convolution, golden_convolution  # noqa: F401
+from .convolution import (Convolution, golden_convolution,  # noqa: F401
+                          separable_kernel)
 from .descriptor import Descriptor, golden_descriptor  # noqa: F401
 from .flow import Flow, golden_flow  # noqa: F401
 from .pyramid import Pyramid, golden_pyramid  # noqa: F401

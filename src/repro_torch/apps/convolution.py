@@ -26,6 +26,16 @@ def default_kernel() -> np.ndarray:
     return np.clip(k, 0, 255)
 
 
+def separable_kernel() -> np.ndarray:
+    """A rank-1 (tent x tent) 8x8 kernel with sum < 2**SHIFT: triggers the
+    lowering compiler's separable-filter split on the torch backend."""
+    tent = np.array([1, 2, 3, 4, 4, 3, 2, 1], dtype=np.int64)
+    k = np.outer(tent, tent)
+    if k.sum() >= 2 ** SHIFT:
+        raise AssertionError(f"separable kernel sum {k.sum()} >= 2**{SHIFT}")
+    return k
+
+
 class Convolution(UserFunction):
     """Paper fig. 1 (ConvTop/ConvInner), Python-flavored HWImg."""
 

@@ -423,3 +423,12 @@ RULES: List[RewriteRule] = [
 # conv2d/sad dispatches stay, as do the pyramid algebraic collapses (they
 # shrink the graph, which helps every path).
 MK_SUBSUMED_RULES = frozenset({"separable_conv", "window_sum"})
+
+
+def register_rule(rule: RewriteRule, priority: Optional[int] = None) -> None:
+    """Add a fusion pattern to the resident library (see README: the rule's
+    pattern is declarative data; higher priority = earlier index).  A rule
+    runs on the backends it names (both by default), and also where
+    megakernel emission is on: ``MK_SUBSUMED_RULES`` lists only the
+    resident rules that the emitter streams."""
+    RULES.insert(len(RULES) if priority is None else priority, rule)

@@ -1,6 +1,6 @@
 """Time K4's decode form alone on the card, against the plain version and
 ``scaled_dot_product_attention``, at the decode shapes of the model
-paths and of the archs not yet served at width.
+paths: gemma3-1b's and the families' served at width.
 
     PYTHONPATH=src python -m repro_torch.launch.decode_profile \\
         [--cases granite_decode_bf16,decode_full] [--iters 200]
@@ -51,7 +51,9 @@ CASES = {
     "decode_full": (4, 1, 4, 256, 1024, 1024, "bfloat16"),
     "decode_window_span": (4, 1, 4, 256, 512, 1056, "bfloat16"),
     "decode_short": (4, 1, 4, 256, 64, 1024, "bfloat16"),
-    # the archs not yet served at width (ROADMAP Queue 1 item 3)
+    # the dense archs' serve paths (chip_smoke's families phase): the last
+    # step over 4 x 160 slots (jamba's attention layer is qwen2-72b's),
+    # and gemma-2b over a 1024-token prompt's keys
     "jamba_qwen2_72b_decode": (4, 8, 8, 128, 160, 160, "bfloat16"),
     "command_r_plus_decode": (4, 8, 12, 128, 160, 160, "bfloat16"),
     "qwen2_vl_decode": (4, 4, 7, 128, 160, 160, "bfloat16"),

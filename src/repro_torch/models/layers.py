@@ -560,6 +560,25 @@ def attention_block(x, p, cfg, *, positions, window, cache=None,
     return out, cache
 
 
+def attention_prefill_cache(x, p, cfg, *, positions,
+                            shard: Shard = _noshard):
+    """A prompt's keys and values in the KV cache's layout: ``{"k", "v"}``,
+    each (B, S, Hkv, hd), projected from x (B, S, D) with the qkv bias
+    where ``cfg.qkv_bias`` is set, and k rotated by RoPE (M-RoPE with
+    ``cfg.mrope_sections``, positions (3, B, S)) as ``attention_block``
+    rotates it.  The reference's counterpart, which nothing in either
+    package calls."""
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    k = shard(k, ("act_batch", "act_seq", "act_kv", None))
+    v = shard(v, ("act_batch", "act_seq", "act_kv", None))
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return {"k": k, "v": v}
+
+
 # --------------------------------------------------------------------------
 # MLA (DeepSeek-V2 §2.1): low-rank KV compression; the cache holds only the
 # latent c_kv (and the shared rope key), and decode absorbs the

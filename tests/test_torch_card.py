@@ -215,7 +215,8 @@ def test_point_fn_probes_on_card_match_cpu(card, probe):
 # then bf16 cases for the tensor-core form: D 64/128/256 at a ragged Sq
 # and window, a non-causal ragged Skv, a window with empty-band rows (rows
 # 25.. of Sq 40 see no key of Skv 20), GQA at D 256, and granite's GQA (D
-# 64, 3 query heads a kv head) in both forms
+# 64, 3 query heads a kv head), qwen2-vl's g 7 and command-r-plus's g 12
+# at D 128, in both forms
 FLASH_CASES = [
     (2, 48, 48, 4, 2, 128, True, None, torch.float32, 2e-5),
     (2, 48, 48, 4, 4, 128, True, 13, torch.bfloat16, 3e-2),
@@ -235,6 +236,12 @@ FLASH_CASES = [
     (2, 130, 130, 8, 2, 256, True, None, torch.float32, 2e-5),
     (2, 200, 200, 24, 8, 64, True, None, torch.bfloat16, 3e-2),
     (2, 130, 130, 24, 8, 64, True, None, torch.float32, 2e-5),
+    # D 128 with g 7 (qwen2-vl's 28 query heads on 4 kv heads) and g 12
+    # (command-r-plus's 96 on 8), in both forms
+    (2, 200, 200, 28, 4, 128, True, None, torch.bfloat16, 3e-2),
+    (2, 130, 130, 28, 4, 128, True, None, torch.float32, 2e-5),
+    (2, 200, 200, 96, 8, 128, True, None, torch.bfloat16, 3e-2),
+    (2, 130, 130, 96, 8, 128, True, None, torch.float32, 2e-5),
 ]
 
 
@@ -671,33 +678,45 @@ def test_flash_decode_misaligned_raises(card):
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m",
                                   "mamba2-1.3b", "deepseek-v2-236b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "gemma-2b",
+                                  "musicgen-medium", "qwen2-vl-7b",
+                                  "qwen2-72b", "command-r-plus-104b"])
 def test_model_forwards_on_card_match_cpu(card, arch):
-    """Reduced gemma3-1b, MoE, Mamba2, MLA + MoE and the hybrid in f32
-    (head_dim 64, K4's smallest; MLA's 16 + 16 is padded to 64; capacity
-    factor 8, so no token drops): prefill_fn and the decode loop on the
-    card against the same on the CPU, and K4's launches: one per attention
-    layer per prefill_fn, and per GQA layer per decode step (MLA decodes
-    in latent space)."""
+    """Every reduced family in f32 (head_dim 64, K4's smallest; MLA's
+    16 + 16 is padded to 64; qwen2-vl's M-RoPE sections (8, 12, 12), its
+    published (16, 24, 24) halved with the head dim; capacity factor 8,
+    so no token drops): prefill_fn and the decode loop on the card against
+    the same on the CPU, tokens or embedding frames, and K4's launches:
+    one per attention layer per prefill_fn, and per GQA layer per decode
+    step (MLA decodes in latent space)."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models import build_forward, init_params
     from repro_torch.models.model import zero_cache
     cfg = reduced(ARCHS[arch]).replace(
         dtype="float32", head_dim=64, attn_impl="blocked",
         moe_capacity_factor=8.0)
+    if cfg.mrope_sections:
+        cfg = cfg.replace(mrope_sections=(8, 12, 12))
     B, S = 2, 12
-    toks = np.random.RandomState(1).randint(2, cfg.vocab, (B, S))
+    rng = np.random.RandomState(1)
+    if cfg.input_mode == "tokens":
+        x = torch.from_numpy(rng.randint(2, cfg.vocab, (B, S)))
+    else:
+        x = torch.from_numpy(rng.randn(B, S, cfg.d_model).astype(
+            np.float32) * 0.3)
+    pos = (3, B) if cfg.mrope_sections else (B,)
     got = {}
     for dev in ("cuda", "cpu"):
         params = init_params(cfg, 0, dev)
         _, prefill_fn, decode_fn = build_forward(cfg)
-        t = torch.from_numpy(toks).to(dev)
-        full = prefill_fn(params, {"tokens": t})
+        t = x.to(dev)
+        full = prefill_fn(params, {"tokens": t, "positions": torch.arange(
+            S, device=dev).expand(*pos, S)})
         cache = zero_cache(cfg, B, S, dev)
         for i in range(S):
             step, cache = decode_fn(params, cache, {
                 "tokens": t[:, i:i + 1],
-                "positions": torch.full((B, 1), i, device=dev)}, index=i)
+                "positions": torch.full((*pos, 1), i, device=dev)}, index=i)
         got[dev] = (full.cpu(), step.cpu())
     for a, b in zip(got["cuda"], got["cpu"]):
         assert torch.allclose(a, b, atol=2e-4, rtol=1e-4)

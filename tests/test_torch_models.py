@@ -254,6 +254,31 @@ def test_attention_block_decode_matches_reference(cache_len, window, pos):
         assert np.allclose(_np(cache[k]), _np(ref_cache[k]), atol=1e-6)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "gemma3-1b"])
+def test_attention_prefill_cache_matches_reference(arch):
+    """A prompt's k and v in the cache's layout: qwen2-vl's qkv bias and
+    M-RoPE over three position streams, gemma3-1b's plain RoPE."""
+    ref_p, p, ref_cfg, cfg = _slot(arch, "attn")
+    rng = np.random.RandomState(7)
+    B, S = 2, 11
+    x = rng.randn(B, S, cfg.d_model).astype(np.float32)
+    base = np.arange(S)[None] + rng.randint(0, 5, (B, 1))
+    if cfg.mrope_sections:
+        assert cfg.qkv_bias and "bk" in p
+        pos = base[None] + rng.randint(0, 4, (3, B, 1))
+    else:
+        assert not cfg.qkv_bias
+        pos = base
+    want = RL.attention_prefill_cache(jnp.asarray(x), ref_p, ref_cfg,
+                                      positions=jnp.asarray(pos))
+    got = TL.attention_prefill_cache(_t(x), p, cfg,
+                                     positions=torch.from_numpy(pos))
+    assert set(got) == set(want) == {"k", "v"}
+    for key in ("k", "v"):
+        assert got[key].shape == (B, S, cfg.n_kv_heads, cfg.hd)
+        assert np.allclose(_np(got[key]), _np(want[key]), atol=1e-5)
+
+
 # --------------------------------------------------------------------------
 # MLA, MoE and the Mamba2 mixer, in f32
 

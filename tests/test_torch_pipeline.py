@@ -27,14 +27,19 @@ torch = pytest.importorskip("torch")
 
 from repro.apps import Convolution as JaxConvolution  # noqa: E402
 from repro.apps import PIPELINES as JAX_PIPELINES  # noqa: E402
+from repro.apps import separable_kernel as jax_separable_kernel  # noqa: E402
 from repro.core.executor import evaluate  # noqa: E402
 import repro.core as jax_core  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
 from repro_torch import CompileOptions, compile_pipeline  # noqa: E402
 from repro_torch.apps import (from_reference, golden_convolution,  # noqa: E402
                               golden_descriptor, golden_flow, golden_pyramid,
-                              golden_stereo)
+                              golden_stereo, separable_kernel)
+from repro_torch.core.lowering import (RULES, Chain, Dispatch,  # noqa: E402
+                                       Leaf, Many, OpPat, RewriteRule,
+                                       register_rule)
 from repro_torch.core.lowering.engine import CompiledPipeline  # noqa: E402
+from repro_torch.kernels.util import shift2d  # noqa: E402
 from repro_torch.kernels.megakernel.check import (  # noqa: E402
     external_pipelines, point_fn_probes)
 
@@ -48,6 +53,8 @@ CASES = {
     "conv_50x21": ("convolution", {"w": 50, "h": 21}),
     "conv_seeded": ("convolution", {"w": 50, "h": 21,
                                     "kernel": SEEDED_KERNEL}),
+    "conv_separable": ("convolution", {"w": 96, "h": 40,
+                                       "kernel": separable_kernel()}),
     "stereo_64x24": ("stereo", {"w": 64, "h": 24, "nd": 8}),
     "stereo_37x13": ("stereo", {"w": 37, "h": 13, "nd": 5}),
     "flow_48x24": ("flow", {"w": 48, "h": 24}),
@@ -279,6 +286,93 @@ def test_from_reference_carries_a_seeded_kernel():
         from_reference("stereo", {"w": 8, "kernel": SEEDED_KERNEL})
     with pytest.raises(ValueError, match="unknown app"):
         from_reference("harris", {})
+
+
+def test_separable_kernel_fires_in_convolution_pipeline(jax_pallas):
+    """Convolution(kernel=separable_kernel()) takes the separable split on
+    the torch backend and the conv2d dispatch on kernels, as the
+    reference's does on jax and pallas (tests/test_lowering.py), and both
+    equal the reference's pallas outputs (``conv_separable`` in CASES
+    holds them to the executor and the golden model)."""
+    assert np.array_equal(separable_kernel(), jax_separable_kernel())
+    app, params = CASES["conv_separable"]
+    design = compile_pipeline(from_reference(app, params))
+    fused = {b: [d.kernel for d in design.lower(b, device="cpu")
+                 .fusions.values()] for b in ("torch", "kernels")}
+    assert fused == {"torch": ["separable_conv"], "kernels": ["conv2d"]}
+    assert "=> kernels/conv2d" in jax_pallas["conv_separable"][2]
+    inputs = _inputs("conv_separable")
+    jax_run, jax_batch, _ = jax_pallas["conv_separable"]
+    for b in ("torch", "kernels"):
+        assert _equal(design.run(_frame(inputs, 0), backend=b, device="cpu"),
+                      tuple(jax_run))
+        assert _equal(design.run_batch(inputs, backend=b, device="cpu"),
+                      tuple(jax_batch))
+
+
+def _window_max(c):
+    """A 4x4 window maximum over a u8 image, built from either package's
+    core (``c``): the README's ``window_max`` pattern."""
+    class WindowMax(c.UserFunction):
+        def __init__(self):
+            super().__init__("wmax", c.Array2d(c.UInt(8), 24, 16))
+
+        def define(self, x):
+            st = c.Stencil(-3, 0, -3, 0)(x)
+            return c.Reduce(c.Max)(c.Map(c.AddMSBs(8))(st))
+
+    return WindowMax()
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernels"])
+def test_register_rule_window_max_fires_and_matches_executor(backend):
+    """The README's ``register_rule`` example on the port: a window-max
+    rule whose Dispatch applies a torch function fires on either backend
+    (a user rule is not one the megakernel emitter subsumes), and run and
+    run_batch equal the numpy executor bit for bit."""
+    pat = OpPat("Reduce", fn="Max", bind="acc", ins=(
+        Chain(Many(OpPat("Map", fn="AddMSBs")),
+              OpPat("Stencil", bind="st", ins=(Leaf("x"),))),))
+
+    def build(m):
+        p = m["st"].params
+        sh, sw = abs(p["t"] - p["b"]) + 1, abs(p["r"] - p["l"]) + 1
+
+        def window_max(xv):
+            xi = xv.to(torch.int64)
+            h, w = xi.shape[1:3]
+            return torch.stack([shift2d(xi, p["b"] + dy, p["l"] + dx, h, w)
+                                for dy in range(sh) for dx in range(sw)]
+                               ).amax(dim=0)
+
+        return Dispatch("window_max", (m["x"].uid,), window_max,
+                        "fused window max")
+
+    rule = RewriteRule("window_max", pat, build)
+    rng = np.random.RandomState(21)
+    x = rng.randint(0, 256, (FRAMES, 16, 24)).astype(np.int64)
+    register_rule(rule)
+    try:
+        assert RULES[-1] is rule
+        design = compile_pipeline(_window_max(port_core),
+                                  options=CompileOptions(backend=backend,
+                                                         device="cpu"))
+        lp = design.lower()
+        assert [d.kernel for d in lp.fusions.values()] == ["window_max"]
+        assert not lp.megakernels
+        ref_out = _window_max(jax_core).build()[1]
+        want = [evaluate(ref_out, {"wmax.in": x[f]}) for f in range(FRAMES)]
+        batch = np.asarray(design.run_batch({"wmax.in": x}))
+        for f in range(FRAMES):
+            one = np.asarray(design.run({"wmax.in": x[f]}))
+            port_exec = np.asarray(design.run({"wmax.in": x[f]},
+                                              backend="numpy"))
+            assert want[f].dtype == one.dtype == batch.dtype
+            assert want[f].tobytes() == one.tobytes() == \
+                batch[f].tobytes() == port_exec.tobytes()
+    finally:
+        RULES.remove(rule)
+    assert rule not in RULES
 
 
 def _sink(c):
