@@ -39,9 +39,11 @@ phase prints one JSON line:
            operations over the SMs' lane rate at the maximum SM clock:
            integer ops on 64 lanes per SM, integer and f32 ops together on
            128; a box sum counts as a sliding sum)
-  kernel   (K4) flash attention's three forms against the plain version:
-           the bf16 tensor-core prefill form (prefill_mma), the f32 SIMT
-           prefill form (prefill_simt) and the decode form, at the model's
+  kernel   (K4) flash attention's four forms against the plain version:
+           the bf16 prefill forms on the tensor cores (prefill_wgmma at
+           (Dk, Dv) = (128, 128) and (256, 256), prefill_mma at (64, 64)
+           and (192, 128)), the f32 SIMT prefill form (prefill_simt) and
+           the decode form, at the model's
            shapes (prefill B 4, S 1024, H 4, Hkv 1, D 256 in bf16, with
            window 512 and without, and the f32 check's B 2 local layer;
            decode over a 1024-key cache and over a 512-slot window span of
@@ -257,7 +259,7 @@ phase prints one JSON line:
   kernels  one line: every kernel (K3 once per app segment, K4 once per
            form on gemma3-1b's path and once per form on each family's
            path that launches it, ``flash_attention:<form>:<arch>``, the
-           training paths' ``flash_attention:prefill_mma:train`` and
+           training paths' ``flash_attention:prefill_wgmma:train`` and
            ``flash_attention:prefill_mma:train:<arch>``, the cycle kernel) with its launches on its main path (the counters
            are reset just before the cycle phase's path, the image path
            phase, each f32 prefill_fn call and each bf16 prefill_fn call;
@@ -282,11 +284,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# the SMs' lanes a cycle; the memory rate and the flop peaks are
+# kernels.timing's (HBM_BYTES_PER_S, PEAK_FLOPS, bound_ms)
 INT32_LANES_PER_SM = 64
 F32_LANES_PER_SM = 128
-BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
-F32_FLOPS = 67e12                  # f32 outside the tensor cores
 TPU_KERNELS = {"conv2d": "kernels/conv2d/kernel.py::_conv_kernel",
                "sad": "kernels/sad/kernel.py::_sad_kernel",
                "megakernel": "core/lowering/megakernel.py::emit_megakernel",
@@ -330,27 +331,30 @@ MLA_PADDED = 256
 # K4's row log-sum-exp against the plain version's: f32 sums of up to 1024
 # exponentials of f32 scores (bf16 products are exact in f32)
 LSE_ATOL = 1e-4
-# K4's prefill kernels by ``flash.ops.resources``' keys: the tensor-core
-# form's D 256 kernel and its Q-register kernel at (Dk, Dv) with 1..GH_max
-# heads a block, the SIMT form at each (Dk, Dv)
+# K4's prefill kernels by ``flash.ops.resources``' keys: the wgmma form at
+# D 128 and 256, the Q-register kernel at (Dk, Dv) with 1..GH_max heads a
+# block, the SIMT form at each (Dk, Dv)
 K4_PREFILL_BUILDS = {
-    "prefill_mma": ["bf16_d256", "bf16_d64_g1", "bf16_d64_g2", "bf16_d64_g3",
-                    "bf16_d128_g1", "bf16_d192_128_g1"],
+    "prefill_wgmma": ["bf16_d128", "bf16_d256"],
+    "prefill_mma": ["bf16_d64_g1", "bf16_d64_g2", "bf16_d64_g3",
+                    "bf16_d192_128_g1"],
     "prefill_simt": ["f32_d64", "f32_d128", "f32_d192_128", "f32_d256"]}
+# the bf16 prefill forms on the tensor cores
+K4_BF16_FORMS = ("prefill_wgmma", "prefill_mma")
 MK_APPS = ("flow", "descriptor", "pyramid")
 # the served dense archs' K4 shapes, (H, Hkv, D) from their configs, by
 # flash_phase's case key
 SERVED_K4 = {"gemma_2b": "gemma-2b", "musicgen": "musicgen-medium",
              "qwen2_vl": "qwen2-vl-7b", "qwen2_72b": "qwen2-72b",
              "command_r_plus": "command-r-plus-104b"}
-# each family's K4 forms on its path, with the key of flash_phase's cases
-# at that path's shapes (mamba2 runs no attention, deepseek decodes MLA in
-# latent space, jamba's attention layer has qwen2-72b's shapes)
-_K4_FORMS = ("prefill_mma", "prefill_simt", "decode")
-FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", _K4_FORMS),
-             "deepseek-v2-236b": ("mla", ("prefill_mma", "prefill_simt")),
-             **{arch: (key, _K4_FORMS) for key, arch in SERVED_K4.items()},
-             "jamba-1.5-large-398b": ("qwen2_72b", _K4_FORMS)}
+# each family with attention: the key of flash_phase's cases at its
+# path's shapes and whether its serving decodes through K4 (mamba2 runs no
+# attention, deepseek decodes MLA in latent space, jamba's attention layer
+# has qwen2-72b's shapes); its K4 forms are family_forms'
+FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", True),
+             "deepseek-v2-236b": ("mla", False),
+             **{arch: (key, True) for key, arch in SERVED_K4.items()},
+             "jamba-1.5-large-398b": ("qwen2_72b", True)}
 # the decode form's cluster and split kernels' builds each: 3 head dims x 2
 # types x head groups of 1, 2, 3, 4, 6 and 8 (ops.decode_head_group); the
 # merge kernel's 2 types
@@ -367,6 +371,33 @@ def kernel_form(name: str):
     """K4's form whose kernel a profiler event's name is, or None."""
     from repro_torch.kernels.flash.ops import kernel_form as form
     return form(name)
+
+
+def bf16_prefill_form(cfg) -> str:
+    """The form K4 takes for a config's bf16 prefill: by its head dims
+    (MLA's q, k at dn + dr and v at dv, as models.layers hands them)."""
+    import torch
+    from repro_torch.kernels.flash.ops import prefill_form
+    if cfg.mla:
+        return prefill_form(torch.bfloat16, cfg.qk_nope_dim + cfg.qk_rope_dim,
+                            cfg.v_head_dim)
+    return prefill_form(torch.bfloat16, cfg.hd, cfg.hd)
+
+
+def family_forms(arch: str) -> tuple:
+    """K4's forms on a family's path: its bf16 prefill's (by its head
+    dims), the SIMT form's f32 prefill, and decode where it decodes
+    through K4."""
+    from repro_torch.configs import ARCHS
+    decodes = FAMILY_K4[arch][1]
+    return (bf16_prefill_form(ARCHS[arch]), "prefill_simt",
+            *(("decode",) if decodes else ()))
+
+
+def form_counts(**counts) -> dict:
+    """K4's launches per form of ``flash.ops.FORMS``, 0 where not given."""
+    from repro_torch.kernels.flash.ops import FORMS
+    return {f: counts.get(f, 0) for f in FORMS}
 
 
 def smi(query: str) -> str:
@@ -444,6 +475,7 @@ def bound(nbytes: int, int_ops: int, peak_int_ops: float, f32_ops: int = 0):
     memory rate and the operations over the SMs' lane rate, where integer
     ops run on 64 INT32 lanes per SM and all ops together on at most 128
     (the FP32 lanes)."""
+    from repro_torch.kernels.timing import HBM_BYTES_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak_all = peak_int_ops * F32_LANES_PER_SM / INT32_LANES_PER_SM
     t_ops = max(int_ops / peak_int_ops, (int_ops + f32_ops) / peak_all) * 1e3
@@ -1791,10 +1823,12 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     from repro_torch.kernels.flash.ops import (
         attention_pairs, decode_cluster, decode_split, form_launches,
         prefill_form)
-    from repro_torch.kernels.timing import device_events, device_ms, graph_ms
+    from repro_torch.kernels.timing import (bound_ms, device_events,
+                                            device_ms, graph_ms)
     from repro_torch.kernels.flash.ref import attention_ref
 
-    form = "decode" if decode else prefill_form(q.dtype)
+    form = "decode" if decode else prefill_form(q.dtype, q.shape[-1],
+                                                v.shape[-1])
     if decode:
         run = lambda: flash_decode(q, k, v)                     # noqa: E731
         plain = plain_pair = lambda: attention_ref(             # noqa: E731
@@ -1877,15 +1911,15 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     if lse:
         nbytes += 4 * B * H * sq
     flops = 2 * (dk + dv) * pairs
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    bound, bound_by, t_bytes, t_ops = bound_ms(nbytes, flops, q.dtype)
     # ms: the kernel's device time (the profiler's events); graph_ms: CUDA
     # events around replays of a CUDA graph of 20 back-to-back calls (every
     # kernel of a call, the gaps between them, no host work); call_ms: CUDA
     # events around back-to-back wrapper calls, which the wrapper's host
-    # work bounds when the kernel is short; the same three for the library
-    ms, by_name = device_events(run, iters)
+    # work bounds when the kernel is short; the same three for the
+    # library.  A kernel's ms is the mean of its recorded events times its
+    # launches a call (the profiler can lose records)
+    ms, by_name = device_events(run, iters, whole_calls=True)
     kernels = sorted(f for f in map(kernel_form, by_name) if f)
     if decode:
         # the decode form's kernels: the cluster kernel alone up to 8
@@ -1899,14 +1933,13 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         "ms": ms, "kernels": kernels, "graph_ms": graph_ms(run),
         "call_ms": cuda_ms(run, iters),
         "plain_ms": cuda_ms(plain_pair, 5, warmup=1),
-        "library_ms": device_ms(library, iters),
+        "library_ms": device_ms(library, iters, whole_calls=True),
         "library_graph_ms": graph_ms(library),
         "library_call_ms": cuda_ms(library, iters),
         "library_max_abs_err": lib_err,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound, "bound_by": bound_by,
         "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes,
-        "flops": flops, "pairs": pairs, "peak_flops": peak})
+        "flops": flops, "pairs": pairs})
     line["share_of_bound"] = line["bound_ms"] / line["ms"]
     return line
 
@@ -2129,19 +2162,20 @@ def flash_phase(torch, np):
     torch.cuda.empty_cache()
     for line in lines.values():
         emit(line)
-    return {"prefill_mma": lines["main_local"],
+    # each path's cases by "<form>:<key>", the bf16 prefill's form as the
+    # case launched it (the wgmma form at D 128 and 256, the Q-register
+    # form at D 64 and MLA's (192, 128))
+    return {lines["main_local"]["form"]: lines["main_local"],
             "prefill_simt": lines["main_local_f32"],
             "decode": lines["decode_full"],
-            "prefill_mma:granite": lines["granite_prefill_bf16"],
-            "prefill_simt:granite": lines["granite_prefill_f32"],
-            "decode:granite": lines["granite_decode_bf16"],
-            "prefill_mma:mla": lines["mla_prefill_bf16"],
-            "prefill_simt:mla": lines["mla_prefill_f32"],
+            **{f"{lines[f'{key}_prefill_bf16']['form']}:{key}":
+               lines[f"{key}_prefill_bf16"]
+               for key in ("granite", "mla", *SERVED_K4)},
             **{f"{form}:{key}": lines[f"{key}_{case}"]
-               for key in SERVED_K4 for form, case in (
-                   ("prefill_mma", "prefill_bf16"),
-                   ("prefill_simt", "prefill_f32"),
-                   ("decode", "decode_bf16"))}}
+               for key in ("granite", "mla", *SERVED_K4)
+               for form, case in (("prefill_simt", "prefill_f32"),
+                                  ("decode", "decode_bf16"))
+               if f"{key}_{case}" in lines}}
 
 
 def _sync_ms(torch, fn):
@@ -2155,14 +2189,14 @@ def _sync_ms(torch, fn):
 def prefill_device(torch, call, wall_ms: float) -> dict:
     """Where a bf16 prefill_fn call's device time goes: one call under the
     profiler, its device time against the unprofiled call's wall, K4's
-    tensor-core kernel's share and the top kernels."""
+    tensor-core kernels' share and the top kernels."""
     from repro_torch.kernels.timing import device_events
     with torch.no_grad():
         dev_ms, by_name = device_events(call, 1, warmup=1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
             "k4_device_ms": sum(ms for name, ms in by_name.items()
-                                if kernel_form(name) == "prefill_mma"),
+                                if kernel_form(name) in K4_BF16_FORMS),
             "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]}
 
 
@@ -2319,10 +2353,11 @@ def llm_phase(torch, np):
         logits, prefill_ms = _sync_ms(
             torch, lambda: prefill_fn(params, {"tokens": toks}))
         n_prefill = k4.launches()
-        forms_were("bf16 prefill_fn", prefill_mma=cfg.n_layers)
+        form = bf16_prefill_form(cfg)
+        forms_were("bf16 prefill_fn", **{form: cfg.n_layers})
         res = serve(cfg, params, prompt, LLM_GEN, "cuda")
         n_decode = k4.launches() - n_prefill
-        forms_were("bf16 prefill_fn and serve", prefill_mma=cfg.n_layers,
+        forms_were("bf16 prefill_fn and serve", **{form: cfg.n_layers},
                    decode=n_decode)
     if n_prefill != cfg.n_layers:
         raise AssertionError(f"bf16 prefill_fn launched K4 {n_prefill} "
@@ -2346,7 +2381,7 @@ def llm_phase(torch, np):
         "f32_prefill_simt_launches": n_simt,
         "bf16_prefill": {"batch": LLM_BATCH, "prompt": LLM_PROMPT,
                          "ms": prefill_ms, "k4_launches": n_prefill,
-                         "k4_form": "prefill_mma",
+                         "k4_form": form,
                          "tokens_per_s": LLM_BATCH * LLM_PROMPT
                          / prefill_ms * 1e3},
         "bf16_serve": {"batch": LLM_BATCH, "prompt": LLM_PROMPT,
@@ -2371,8 +2406,8 @@ def llm_phase(torch, np):
             (LLM_BATCH, 1), LLM_PROMPT - 1, device="cuda")},
         LLM_PROMPT - 1, merge_calls=cfg.n_layers)
     emit(line)
-    return line, {"prefill_mma": n_prefill, "prefill_simt": n_simt,
-                  "decode": n_decode}
+    return line, form_counts(**{form: n_prefill}, prefill_simt=n_simt,
+                             decode=n_decode)
 
 
 # ---- the families phase: MoE, Mamba2 and MLA + MoE at full width ----
@@ -2700,14 +2735,13 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
                                  f"aten::constant_pad_nd {pads} times")
         registry.reset_launch_counts()
         logits, prefill_ms = _sync_ms(torch, lambda: prefill_fn(params, p_in))
-        n_mma = forms_were("bf16 prefill_fn",
-                           prefill_mma=n_attn)["prefill_mma"]
+        form = bf16_prefill_form(cfg)
+        n_tc = forms_were("bf16 prefill_fn", **{form: n_attn})[form]
         res = serve(cfg, params, Prompt(np.ascontiguousarray(
             prompt.tokens[:, :FAM_PROMPT]), prompt.emb_stub), FAM_GEN,
             "cuda")
         launched = forms_were("bf16 prefill_fn and serve",
-                              prefill_mma=n_attn,
-                              decode=n_gqa * res.steps)
+                              **{form: n_attn}, decode=n_gqa * res.steps)
     V = cfg.padded_vocab
     if res.steps != FAM_PROMPT + FAM_GEN or logits.shape != (
             FAM_BATCH, 1, V) or res.tokens.shape != (
@@ -2724,7 +2758,8 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
         "bf16_prefill": dict(
             {"batch": FAM_BATCH, "prompt": FAM_PREFILL, "ms": prefill_ms,
              "capacity_factor": cfg.moe_capacity_factor,
-             "k4_launches": n_mma, "constant_pad_nd_calls": pads,
+             "k4_form": form, "k4_launches": n_tc,
+             "constant_pad_nd_calls": pads,
              "tokens_per_s": FAM_BATCH * FAM_PREFILL / prefill_ms * 1e3},
             **prefill_device(torch, lambda: prefill_fn(params, p_in),
                              prefill_ms)),
@@ -2743,8 +2778,8 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
     del params
     torch.cuda.empty_cache()
     emit(line)
-    return line, {"prefill_mma": n_mma, "prefill_simt": n_simt,
-                  "decode": launched["decode"]}
+    return line, form_counts(**{form: n_tc}, prefill_simt=n_simt,
+                             decode=launched["decode"])
 
 
 def families_phase(torch, np):
@@ -2785,7 +2820,7 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
     import torch.nn.functional as F
     from repro_torch.kernels.flash.ops import attention_pairs
     from repro_torch.kernels.flash.ref import attention_ref
-    from repro_torch.kernels.timing import device_ms
+    from repro_torch.kernels.timing import bound_ms, device_ms
     from repro_torch.models.layers import FlashAttention, flash_attention_bwd
     from repro_torch.kernels.flash import flash_attention
     rng = np.random.RandomState(S + H + D)
@@ -2850,12 +2885,12 @@ def attention_grad_case(torch, np, name, B, S, H, Hkv, D, window, dtype,
     # pairs outside the band
     flops = 2 * (3 * dk + 2 * dv) * B * H * attention_pairs(S, S, True,
                                                             window)
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     # the plain backward's device ms (the profiler's events) with its
     # CUDA-event ms beside them; the library's by CUDA events alone
     line.update({"bwd_ms": device_ms(bwd, 5), "bwd_call_ms": cuda_ms(bwd, 5),
                  "sdpa_bwd_call_ms": cuda_ms(lib_bwd, 5),
-                 "bwd_flops": flops, "bwd_bound_ops_ms": flops / peak * 1e3})
+                 "bwd_flops": flops,
+                 "bwd_bound_ops_ms": bound_ms(0, flops, dtype)[3]})
     return line
 
 
@@ -2938,7 +2973,7 @@ def train_phase(torch, np):
     l_card, g_card = value_and_grad(loss_fn2, p2, {
         k: v.cuda() for k, v in batch2.items()})
     n_check = form_launches()
-    if n_check != {"prefill_mma": 0, "prefill_simt": 2, "decode": 0}:
+    if n_check != form_counts(prefill_simt=2):
         raise AssertionError(f"f32 2-layer loss_fn launched {n_check}")
     g_card = [g.cpu() for g in tree_leaves(g_card)]
     l_cpu, g_cpu = value_and_grad(loss_fn2, tree_map(lambda t: t.cpu(), p2),
@@ -2962,8 +2997,10 @@ def train_phase(torch, np):
     torch.cuda.empty_cache()
 
     # bf16, uncut: the launcher's loop with the counters set to 0 just
-    # before it; K4's tensor-core form once per layer in the forward and
-    # once more per period layer in the remat backward
+    # before it; K4's tensor-core form (the wgmma form at D 256) once per
+    # layer in the forward and once more per period layer in the remat
+    # backward
+    form = bf16_prefill_form(cfg)
     n_per = cfg.n_layers // cfg.period
     per_step = cfg.n_layers + (n_per * cfg.period if cfg.remat else 0)
     ckpt_dir = ROOT / ".train_ckpt"
@@ -2981,8 +3018,7 @@ def train_phase(torch, np):
         run_s = time.perf_counter() - t0
         launches = form_launches()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        want = {"prefill_mma": TRAIN_STEPS * per_step, "prefill_simt": 0,
-                "decode": 0}
+        want = form_counts(**{form: TRAIN_STEPS * per_step})
         if launches != want:
             raise AssertionError(f"training launched K4's forms {launches}, "
                                  f"want {want}")
@@ -3000,9 +3036,9 @@ def train_phase(torch, np):
         step(res.params, res.opt, b)
         torch.cuda.synchronize()
         on_step = form_launches()
-        if on_step["prefill_mma"] != per_step:
+        if on_step != form_counts(**{form: per_step}):
             raise AssertionError(f"a train step launched {on_step}, want "
-                                 f"{per_step} of prefill_mma")
+                                 f"{per_step} of {form}")
         t0 = time.perf_counter()
         dev_ms, by_name = device_events(lambda: step(res.params, res.opt, b),
                                         1, warmup=0)
@@ -3021,7 +3057,7 @@ def train_phase(torch, np):
         t0 = time.perf_counter()
         res2 = train(cfg, **dict(kw, ckpt_every=2))
         resume_s = time.perf_counter() - t0
-        resumed = form_launches()["prefill_mma"]
+        resumed = form_launches()[form]
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     replay, replay_s, replay_save_s = res2.losses, res2.step_s, res2.save_s
@@ -3053,7 +3089,7 @@ def train_phase(torch, np):
                  "first": True},
         "step_device_ms": dev_ms, "device_busy_share": dev_ms / steady_ms,
         "k4_device_ms": sum(ms for n, ms in by_name.items()
-                            if kernel_form(n) == "prefill_mma"),
+                            if kernel_form(n) in K4_BF16_FORMS),
         "top": [{"name": n[:80], "ms": ms} for n, ms in top[:10]],
         "k4_launches_per_step": on_step, "k4_launches_path": launches,
         "k4_launches_per_step_want": per_step,
@@ -3171,7 +3207,7 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
     rows = [0, 1]
     # K4's SIMT form in the forward and the remat recompute, once each an
     # attention layer
-    want = {"prefill_mma": 0, "prefill_simt": 2 * n_attn2, "decode": 0}
+    want = form_counts(prefill_simt=2 * n_attn2)
     for _ in range(2):
         (la, ga), log_a, n_a = run(cfg32, p32, rows, "cuda")
         if n_a != want:
@@ -3221,7 +3257,8 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
                 for k, v in _batch_at(dcfg, i, 0, batch).items()}
 
     losses, gnorms, host_ms, event_ms, launches = [], [], [], [], []
-    total = {"prefill_mma": 0, "prefill_simt": 0, "decode": 0}
+    form = bf16_prefill_form(cfg)
+    total = form_counts()
     for i in range(FAM_TRAIN_STEPS):
         b = batch_at(i)
         torch.cuda.synchronize()
@@ -3237,9 +3274,9 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
         host_ms.append(1e3 * (time.perf_counter() - t1))
         event_ms.append(ev0.elapsed_time(ev1))
         n = form_launches()
-        if n != {"prefill_mma": per_step, "prefill_simt": 0, "decode": 0}:
+        if n != form_counts(**{form: per_step}):
             raise AssertionError(f"{arch} train step {i} launched {n}, want "
-                                 f"{per_step} of prefill_mma")
+                                 f"{per_step} of {form}")
         launches.append(n)
         total = {f: total[f] + n[f] for f in total}
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3268,7 +3305,7 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
         "step_device_ms": dev_ms,
         "device_busy_share": dev_ms / float(np.median(host_ms[1:])),
         "k4_device_ms": sum(ms for nm, ms in by_name.items()
-                            if kernel_form(nm) == "prefill_mma"),
+                            if kernel_form(nm) in K4_BF16_FORMS),
         "top": [{"name": nm[:80], "ms": ms} for nm, ms in top[:8]],
         "k4_launches_per_step": launches[0],
         "k4_launches_per_step_want": per_step,
@@ -3456,8 +3493,10 @@ def main() -> int:
     # the families' training paths: counters set to 0 before each step and
     # read after it
     kern_fam_train, fam_train_launches = train_families_phase(torch, np)
+    from repro_torch.configs import ARCHS
+    llm_form = bf16_prefill_form(ARCHS[LLM_ARCH])
     for arch, n in fam_launches.items():
-        forms = FAMILY_K4.get(arch, (None, ()))[1]
+        forms = family_forms(arch) if arch in FAMILY_K4 else ()
         if any(n[f] != 0 for f in n if f not in forms) or \
                 any(n[f] == 0 for f in forms):
             raise AssertionError(f"{arch}: K4 launched {n} on its path, "
@@ -3476,8 +3515,11 @@ def main() -> int:
                                  f"({path[app]['plan']})")
 
     def k4_line(name, k, n_launch):
-        source = {"source": "src/repro_torch/csrc/flash_decode.cu"} \
-            if k["form"] == "decode" else {}
+        source = {"decode": "flash_decode.cu",
+                  "prefill_wgmma": "flash_attn_wgmma.cuh",
+                  "prefill_mma": "flash_attn_mma.cuh"}.get(k["form"])
+        source = {"source": f"src/repro_torch/csrc/{source}"} \
+            if source else {}
         return dict(line(name, registry.get_kernel("flash_attention"), k,
                          n_launch), **source,
                     equal=False, tolerance=k["tolerance"], case=k["case"],
@@ -3505,17 +3547,18 @@ def main() -> int:
              for app in MK_APPS]
           + [k4_line(f"flash_attention:{form}", kern_k4[form],
                      llm_launches[form])
-             for form in ("prefill_mma", "prefill_simt", "decode")]
+             for form in (llm_form, "prefill_simt", "decode")]
           + [k4_line(f"flash_attention:{form}:{arch}",
                      kern_k4[f"{form}:{key}"], fam_launches[arch][form])
-             for arch, (key, forms) in FAMILY_K4.items() for form in forms]
-          + [dict(k4_line("flash_attention:prefill_mma:train", kern_train,
-                          train_launches["prefill_mma"]),
+             for arch, (key, _) in FAMILY_K4.items()
+             for form in family_forms(arch)]
+          + [dict(k4_line(f"flash_attention:{llm_form}:train", kern_train,
+                          train_launches[llm_form]),
                   lse_max_abs_err=kern_train["lse_max_abs_err"],
                   lse_tolerance=kern_train["lse_tolerance"])]
-          + [dict(k4_line(f"flash_attention:prefill_mma:train:{arch}",
-                          kern_fam_train[key],
-                          fam_train_launches[arch]["prefill_mma"]),
+          + [dict(k4_line(f"flash_attention:{family_forms(arch)[0]}:train:"
+                          f"{arch}", kern_fam_train[key],
+                          fam_train_launches[arch][family_forms(arch)[0]]),
                   lse_max_abs_err=kern_fam_train[key]["lse_max_abs_err"],
                   lse_tolerance=kern_fam_train[key]["lse_tolerance"])
              for arch, key in (("granite-moe-3b-a800m", "granite"),

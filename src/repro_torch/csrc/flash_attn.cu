@@ -1,6 +1,9 @@
-// K4: flash attention with an online softmax, in three forms: a prefill
-// form on the tensor cores for bf16 (flash_attn_mma.cuh), a SIMT prefill
-// form for float (below) and a decode form for both (flash_decode.cu).
+// K4: flash attention with an online softmax, in four forms: two bf16
+// prefill forms on the tensor cores (warpgroup products fed by the tensor
+// memory accelerator at (Dk, Dv) = (128, 128) and (256, 256),
+// flash_attn_wgmma.cuh; mma.sync with Q in registers at (64, 64) and
+// (192, 128), flash_attn_mma.cuh), a SIMT prefill form for float (below)
+// and a decode form for both (flash_decode.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // (driver flash_bhsd, wrappers flash_attention_tpu / flash_decode_tpu).
@@ -31,8 +34,12 @@
 // key at -1e30 and so averages them uniformly, as the plain version
 // (attention_ref) does.
 //
-// bf16 prefill: flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a
-// cp.async ring); its note gives the design.
+// bf16 prefill: flash_attn_wgmma.cuh (wgmma.mma_async on TMA tiles, a
+// producer warp and two consumer warpgroups) at (128, 128) and (256, 256),
+// flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a cp.async ring) at
+// (64, 64) and (192, 128); each header's note gives its design.  The pair
+// alone picks the form (prefill_form below, mirrored by
+// kernels/flash/ops.py's prefill_form).
 //
 // f32 prefill (the SIMT form, simt::flash_prefill_kernel): one block of 8
 // warps per (b*H + h, 64-row q tile), the q tiles in reverse order,
@@ -63,14 +70,15 @@
 // D 256) the work is about 8.6e9 flops for the causal layers, 8.7 us at the
 // bf16 tensor-core rate, and 21 MB of q, k, v and out (6.3 us): bound by
 // operations.  The f32 SIMT form runs its products on the f32 FMA lanes
-// and can at best reach the 67 TFLOP/s f32 rate; the bf16 form uses the
-// tensor cores through mma.sync.
+// and can at best reach the 67 TFLOP/s f32 rate; the bf16 forms use the
+// tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_attn_mma.cuh"   // Strides, launch_mma, flash_common.cuh
+#include "flash_attn_mma.cuh"     // Strides, launch_mma_qreg_any_g
+#include "flash_attn_wgmma.cuh"   // launch_wgmma
 
 namespace {
 
@@ -428,18 +436,26 @@ cudaError_t launch_prefill(void* out, const void* q, const void* k,
 
 }  // namespace
 
+// The prefill form of a call: 0 the SIMT form (f32), 1 the Q-register
+// form (bf16 at (64, 64) and (192, 128)), 2 the wgmma form (bf16 at (128,
+// 128) and (256, 256)); -1 for a pair or type K4 is not built for.
+constexpr int kFormSimt = 0, kFormQreg = 1, kFormWgmma = 2;
+constexpr int prefill_form(int dtype, int Dk, int Dv) {
+  const bool built = (Dk == 64 && Dv == 64) || (Dk == 128 && Dv == 128) ||
+                     (Dk == 192 && Dv == 128) || (Dk == 256 && Dv == 256);
+  if (!built || (dtype != 0 && dtype != 1)) return -1;
+  if (dtype == 0) return kFormSimt;
+  return Dk == Dv && Dk >= 128 ? kFormWgmma : kFormQreg;
+}
+
 // dtype: 0 float32, 1 bfloat16.  window 0 = none.  q_off: query row i
 // sits at key position i + q_off for the causal and window masks (0: row i
 // aligns with key i).  Strides are in elements, (b, s, h) for each of q,
-// k, v.
-
-// bf16 prefill takes a tensor-core form and f32 the SIMT form; the SIMT
-// form has no bf16 instantiation.  Dk, Dv: q and k's head dim and v's, one
-// of the pairs (64, 64), (128, 128), (192, 128), (256, 256).  bf16 at D 256
-// takes flash_mma_kernel, every other pair the Q-register form, whose scale
-// must be positive.  lse: null, or f32 (B, H, sq) for each row's
-// log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30)) (what
-// the attention backward reads).
+// k, v.  Dk, Dv: q and k's head dim and v's, one of the pairs (64, 64),
+// (128, 128), (192, 128), (256, 256); prefill_form picks the form.  The
+// Q-register form's scale must be positive.  lse: null, or f32 (B, H, sq)
+// for each row's log-sum-exp of the scaled, masked scores, m + log(max(l,
+// 1e-30)) (what the attention backward reads).
 extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
                                  const void* v, int dtype, int B, int H,
                                  int Hkv, int Dk, int Dv, int sq, int skv,
@@ -451,62 +467,57 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K4_ARGS out, q, k, v, qs, ks, vs, B, H
-#define K4_BAND sq, skv, causal, window, q_off, scale, lse, st
-  if (dtype == 0) {
-    const int g = H / Hkv;
-    if (Dk == 64 && Dv == 64)
-      return int(simt::launch_prefill<float, 64, 64>(K4_ARGS, g, K4_BAND));
-    if (Dk == 128 && Dv == 128)
-      return int(simt::launch_prefill<float, 128, 128>(K4_ARGS, g, K4_BAND));
-    if (Dk == 192 && Dv == 128)
-      return int(simt::launch_prefill<float, 192, 128>(K4_ARGS, g, K4_BAND));
-    if (Dk == 256 && Dv == 256)
-      return int(simt::launch_prefill<float, 256, 256>(K4_ARGS, g, K4_BAND));
-  }
-  if (dtype == 1) {
-    if (Dk == 64 && Dv == 64)
-      return int(launch_mma_qreg_any_g<64, 64>(K4_ARGS, Hkv, K4_BAND));
-    if (Dk == 128 && Dv == 128)
-      return int(launch_mma_qreg_any_g<128, 128>(K4_ARGS, Hkv, K4_BAND));
-    if (Dk == 192 && Dv == 128)
-      return int(launch_mma_qreg_any_g<192, 128>(K4_ARGS, Hkv, K4_BAND));
-    if (Dk == 256 && Dv == 256)
-      return int(launch_mma(K4_ARGS, H / Hkv, K4_BAND));
+#define K4_BAND sq, skv, causal, window, q_off, scale, lse
+  switch (prefill_form(dtype, Dk, Dv)) {
+    case kFormSimt: {
+      const int g = H / Hkv;
+#define K4_SIMT(DK, DV) \
+  int(simt::launch_prefill<float, DK, DV>(K4_ARGS, g, K4_BAND, st))
+      if (Dk == 64) return K4_SIMT(64, 64);
+      if (Dk == 128) return K4_SIMT(128, 128);
+      if (Dk == 192) return K4_SIMT(192, 128);
+      return K4_SIMT(256, 256);
+#undef K4_SIMT
+    }
+    case kFormQreg:
+      if (Dk == 64)
+        return int(launch_mma_qreg_any_g<64, 64>(K4_ARGS, Hkv, K4_BAND, st));
+      return int(launch_mma_qreg_any_g<192, 128>(K4_ARGS, Hkv, K4_BAND, st));
+    case kFormWgmma:
+      if (Dk == 128)
+        return int(launch_wgmma<128>(K4_ARGS, Hkv, K4_BAND, st));
+      return int(launch_wgmma<256>(K4_ARGS, Hkv, K4_BAND, st));
   }
   return int(cudaErrorInvalidValue);
 #undef K4_ARGS
 #undef K4_BAND
 }
 
-// flash_mma_kernel's raw scores q . k^T (f32, unscaled, unmasked) into out
-// (B*H, sq, skv): a card test of its QK^T fragments alone.  q, k bf16 at
-// D 256.
-extern "C" int flash_mma_scores_launch(float* out, const void* q,
-                                       const void* k, int B, int H, int Hkv,
-                                       int D, int sq, int skv, long long qsb,
-                                       long long qss, long long qsh,
-                                       long long ksb, long long kss,
-                                       long long ksh, void* stream) {
-  if (D != mma::kD) return int(cudaErrorInvalidValue);
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh};
-  return int(launch_mma_scores(out, q, k, qs, ks, B, H, H / Hkv, sq, skv,
-                               static_cast<cudaStream_t>(stream)));
+// flash_attn_launch's form for (dtype, Dk, Dv), as prefill_form gives it
+// (the Python mirror, kernels/flash/ops.py's prefill_form, is tested
+// against it).
+extern "C" int flash_prefill_form(int dtype, int Dk, int Dv) {
+  return prefill_form(dtype, Dk, Dv);
 }
 
-// The tensor-core forms' dynamic shared memory per block, or 0 for a
-// kernel that is not built: flash_mma_kernel at D 256 (GH 0: Q and the K/V
-// ring, padded rows), the Q-register form at (Dk, Dv) with GH heads a block
-// (Q's staging and the ring).
+// The Q-register form's dynamic shared memory per block at (Dk, Dv) with GH
+// heads a block (Q's staging and the ring), or 0 for an instantiation that
+// is not built.
 extern "C" int flash_mma_smem_bytes(int Dk, int Dv, int GH) {
-  if (GH == 0) return Dk == 256 && Dv == 256 ? int(mma::kSmemBytes) : 0;
-  if (Dk == 64 && Dv == 64 && GH <= 3)
+  if (Dk == 64 && Dv == 64 && GH >= 1 && GH <= 3)
     return int(GH == 1 ? mma::qreg_smem_bytes<64, 64, 1>()
                : GH == 2 ? mma::qreg_smem_bytes<64, 64, 2>()
                          : mma::qreg_smem_bytes<64, 64, 3>());
-  if (Dk == 128 && Dv == 128 && GH == 1)
-    return int(mma::qreg_smem_bytes<128, 128, 1>());
   if (Dk == 192 && Dv == 128 && GH == 1)
     return int(mma::qreg_smem_bytes<192, 128, 1>());
+  return 0;
+}
+
+// The wgmma form's dynamic shared memory per block at D (both warpgroups'
+// Q rows, the K / V ring, the mbarriers and the alignment slack), or 0.
+extern "C" int flash_wgmma_smem_bytes(int D) {
+  if (D == 128) return int(wg::smem_bytes<128>());
+  if (D == 256) return int(wg::smem_bytes<256>());
   return 0;
 }
 

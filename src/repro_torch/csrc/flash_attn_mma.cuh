@@ -1,15 +1,14 @@
-// K4's bf16 prefill forms on the tensor cores: mma.sync m16n8k16 (bf16
-// in, f32 accumulate), operands from shared memory through ldmatrix, tiles
-// brought in by cp.async into a two-stage ring.  Included by flash_attn.cu,
-// whose launcher sends every bf16 prefill here; f32 prefill stays on the
-// SIMT form there.  Two kernels share the fragments and copies:
-//
-//   flash_mma_kernel               D 256 (gemma3-1b): Q in shared memory,
-//                                  32-key tiles, one query head a block;
-//   flash_mma_qreg_kernel<DK, DV, GH>  (Dk, Dv) of (64, 64), (128, 128) and
-//                                  (192, 128) (DeepSeek-V2's MLA, unpadded):
-//                                  Q in registers, 64-key tiles, GH query
-//                                  heads of one kv head a block.
+// K4's bf16 prefill form on the tensor cores at (Dk, Dv) = (64, 64) and
+// (192, 128) (DeepSeek-V2's MLA, unpadded): flash_mma_qreg_kernel<DK, DV,
+// GH>, mma.sync m16n8k16 (bf16 in, f32 accumulate), operands from shared
+// memory through ldmatrix, tiles brought in by cp.async into a two-stage
+// ring, Q in registers, GH query heads of one kv head a block.  Included by
+// flash_attn.cu, whose launcher sends the bf16 prefills at these pairs
+// here; (128, 128) and (256, 256) take the wgmma form
+// (flash_attn_wgmma.cuh), f32 the SIMT form.  (Until the wgmma form, this
+// header also held flash_mma_kernel, D 256 with Q in shared memory and
+// 32-key tiles, and built this kernel at (128, 128); PERF.md keeps their
+// last times.)
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // for bf16 operands, with the function written at the top of flash_attn.cu
@@ -17,64 +16,15 @@
 // weight past skv, p rounded to bf16 before p . v, l summing the unrounded
 // p, out = acc / max(l, 1e-30) in bf16).
 //
-// Bound on an H100: at the main path's prefill (B 4, S 1024, H 4, Hkv 1,
-// D 256, causal) the products are about 8.6e9 flops, 8.7 us at the dense
-// bf16 tensor-core rate, against 6.3 us for the 21 MB of q, k, v and out:
-// bound by operations.  mma.sync reaches only part of that rate (wgmma,
-// whose B operand four warps read from shared memory once, is the way to
-// all of it).  What bounds these forms instead is shared memory and the
-// softmax's per-element work: every warp reads the whole K and V tile
-// through ldmatrix, at D 256 its Q rows again for every key tile (40 KB
-// per warp per 32-key tile).
+// Bound on an H100: the products are 2 (Dk + Dv) flops a (q, k) pair in
+// the band, and at the models' shapes their time at the dense bf16 rate
+// exceeds that of q, k, v and out's bytes: bound by operations.  mma.sync
+// reaches only part of the tensor cores' rate (wgmma, whose B operand four
+// warps read from shared memory once, is the way to all of it).  What
+// bounds this form instead is shared memory and the softmax's per-element
+// work: every warp reads the whole K and V tile through ldmatrix.
 //
-// Tiles (flash_mma_kernel).  One block of 4 warps per (b*H + h, 64-row q
-// tile); warp w owns query rows 16w .. 16w+15 for the whole softmax, so m
-// and l live in registers and no block-wide reduction is needed.  At D 256
-// a thread holds the 16 x 256 f32 O accumulator of its warp as 128
-// registers, so Q is not held in registers: it stays in shared memory and
-// is re-read through ldmatrix for every key tile.  Key tiles hold 32 keys
-// (kBK): with a 64-key score tile beside the accumulator ptxas
-// spilled 72 bytes at 255 registers and the form ran much slower; with 32
-// it holds 255 registers, no spill, and two blocks fit an SM.
-//
-// Shared memory: Q (64 x D) and a two-stage ring of K and V tiles
-// (2 x 2 x BK x D), all bf16, each row padded by 8 elements (16 bytes).
-// The padding makes consecutive rows start 16 bytes apart modulo 128, so
-// the 8 row addresses of each 8x8 ldmatrix fall in 8 different bank groups
-// (no conflicts) without an XOR swizzle's address arithmetic.  101,376
-// bytes at D 256; the launcher opts in above 48 KB on every launch.
-//
-// Fragments (PTX ISA, mma.m16n8k16 .bf16): S = Q K^T takes A from Q with
-// ldmatrix.x4 (16 rows x 16 d) and B from K's rows with ldmatrix.x4 (two
-// n8 blocks of keys x 16 d; K's row-major [key][d] tile is the "col"
-// operand as it stands).  The m16n8 f32 C fragment of S is, element for
-// element, the A fragment of the next product, so P goes to bf16 pairs in
-// registers and O += P V never sends P through shared memory; V's B
-// fragments come from its [key][d] tile through ldmatrix.x4.trans.
-//
-// Copies: 16-byte cp.async.cg per (row, 8 elements); rows past sq or skv
-// are zero-filled with the src-size 0 form.  Tile j+1's copies are started
-// before tile j is computed; cp.async.wait_group 1 and __syncthreads then
-// make tile j visible.  Every row start must be 16-byte aligned: the
-// Python wrapper raises unless each operand's data_ptr() is a multiple of
-// 16 bytes and its (b, s, h) strides multiples of 8 elements.
-//
-// Softmax: a thread holds 2 rows of the score fragment (rows g and g+8 of
-// its warp's 16); the row max finishes with two __shfl_xor over the 4
-// threads of a quad, l is kept per thread and summed over the quad once,
-// at the end.  A tile wholly inside every row's band skips the masking.
-//
-// Schedule: q tiles in launch order (blockIdx.x).  Reversing it, so the
-// causal tiles with the most key tiles start first, measured level with
-// the plain order on the model's grid (256 blocks, two per SM: one wave).
-// Epilogue: each warp writes acc / max(l, 1e-30) as bf16 pairs straight
-// from its fragments; staging them through shared memory for 16-byte rows
-// measured slower.  With an lse pointer, one thread of each quad writes
-// its row's m + log(max(l, 1e-30)) in f32.
-//
-// The Q-register form (flash_mma_qreg_kernel) differs where D 256's
-// registers forced the choices above.  Its layout is fixed
-// (qreg_rows, qreg_max_heads, kQKeys, kQStages), the fastest of the
+// Layout (qreg_rows, qreg_max_heads, kQKeys, kQStages), the fastest of the
 // layouts measured on an H100:
 //
 // - Q in registers.  With Dv at most 128 the O accumulator is at most 64
@@ -85,22 +35,41 @@
 //   about 80 KB (Q's included) and did 60 % more products.
 // - Rows a block.  Each K and V tile copied into shared memory serves
 //   every query row of its block, so the copies per product fall with the
-//   rows a block holds.  At (192, 128) and (128, 128) a block holds 128
-//   rows of one head (8 warps; 64 rows ran MLA 30 % slower) and a ring of
-//   two stages (three measured within 1 %): 137,216 bytes at (192, 128),
-//   one block an SM.  At D 64 a block owns one (batch, kv head, 64-row q
-//   tile) and GH of the kv head's g query heads, 4 warps each (granite's
-//   g 3: 12 warps, K and V copied once where one head a block copied them
-//   three times); a larger group is split over ceil(g / GH_max) blocks of
-//   equal GH (GH_max 3 at D 64, 1 at D 128 and 192, where more warps would
-//   spill), a block's heads past g loading zeros and writing nothing.
-//   Two m16 row tiles a warp, 32- or 128-key tiles, 3 stages and a launch
-//   bound of two blocks an SM measured no faster at D 64, nor did 128
-//   rows a block there.
+//   rows a block holds.  At (192, 128) a block holds 128 rows of one head
+//   (8 warps; 64 rows ran MLA 30 % slower) and a ring of two stages (three
+//   measured within 1 %): 137,216 bytes, one block an SM.  At D 64 a block
+//   owns one (batch, kv head, 64-row q tile) and GH of the kv head's g
+//   query heads, 4 warps each (granite's g 3: 12 warps, K and V copied once
+//   where one head a block copied them three times); a larger group is
+//   split over ceil(g / GH_max) blocks of equal GH (GH_max 3 at D 64, 1 at
+//   192, where more warps would spill), a block's heads past g loading
+//   zeros and writing nothing.  Two m16 row tiles a warp, 32- or 128-key
+//   tiles, 3 stages and a launch bound of two blocks an SM measured no
+//   faster at D 64, nor did 128 rows a block there.
+// - Shared memory: Q's staging and the K / V ring, all bf16, each row
+//   padded by 8 elements (16 bytes), so consecutive rows start 16 bytes
+//   apart modulo 128 and the 8 row addresses of each 8x8 ldmatrix fall in
+//   8 different bank groups (no conflicts) without an XOR swizzle's address
+//   arithmetic; the launcher opts in above 48 KB on every launch.
+// - Fragments (PTX ISA, mma.m16n8k16 .bf16): S = Q K^T takes B from K's
+//   rows with ldmatrix.x4 (two n8 blocks of keys x 16 d; K's row-major
+//   [key][d] tile is the "col" operand as it stands).  The m16n8 f32 C
+//   fragment of S is, element for element, the A fragment of the next
+//   product, so P goes to bf16 pairs in registers and O += P V never sends
+//   P through shared memory; V's B fragments come from its [key][d] tile
+//   through ldmatrix.x4.trans.
 // - Copies: 8 threads a row, 16 bytes each per 64 columns, so a thread's
 //   column is fixed and only its row steps (an unrolled table of copy
-//   addresses held 60 registers and spilled at (192, 128)); one barrier a
-//   key tile (see the kernel).
+//   addresses held 60 registers and spilled at (192, 128)); rows past sq
+//   or skv are zero-filled with the src-size 0 form; one barrier a key
+//   tile (see the kernel).  Every row start must be 16-byte aligned: the
+//   Python wrapper raises unless each operand's data_ptr() is a multiple
+//   of 16 bytes and its (b, s, h) strides multiples of 8 elements.
+// - Softmax: a thread holds 2 rows of the score fragment (rows g and g+8
+//   of its warp's 16); the row max finishes with two __shfl_xor over the
+//   4 threads of a quad, l is kept per thread and summed over the quad
+//   once, at the end.  A tile wholly inside every row's band of a warp
+//   skips the masking.
 // - The scale folded into the exponent: the row max is kept on the raw
 //   scores and p = 2^(s * c - m * c) with c = scale * log2(e), one FMA a
 //   score, by ex2.approx.ftz (exp2f's range fix-up cost 5 % at D 64); the
@@ -112,6 +81,10 @@
 // - q tiles longest first: blockIdx.y counts from the last q tile, and the
 //   grid's x runs over (batch, kv head, head block), so the causal tiles
 //   with the most keys start in the first wave.
+// - Epilogue: each warp writes acc / max(l, 1e-30) as bf16 pairs straight
+//   from its fragments (staging them through shared memory for 16-byte
+//   rows measured slower); with an lse pointer, one thread of each quad
+//   writes its row's m + log(max(l, 1e-30)) in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -127,20 +100,8 @@ namespace mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBQ = 64;                 // query rows per block, 16 per warp
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kPad = 8;                 // bf16 elements of padding per row
-constexpr float kMaskAdd = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// flash_mma_kernel's one head dim (gemma3-1b's) and its keys per tile:
-// 32, where a 64-key score tile beside the 128-register accumulator made
-// ptxas spill
-constexpr int kD = 256;
-constexpr int kBK = 32;
-constexpr int kRS = kD + kPad;          // its padded row stride
-constexpr size_t kSmemBytes = sizeof(bf16) * size_t(kRS) * (kBQ + 2 * 2 * kBK);
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -165,23 +126,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ROWS rows of kD elements from g (row r0 + r at g + (r0 + r) * stride)
-// into a padded shared tile; rows at or past `limit` are zero-filled
-template <int ROWS>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long stride, int r0, int limit,
-                                          int tid) {
-  constexpr int CH = kD / 8;             // 16-byte chunks per row
-  static_assert((ROWS * CH) % kThreads == 0, "tile chunks per thread");
-#pragma unroll
-  for (int j = 0; j < ROWS * CH / kThreads; ++j) {
-    const int i = tid + j * kThreads, r = i / CH, c = i % CH;
-    const bool in = r0 + r < limit;
-    const bf16* src = in ? g + (r0 + r) * stride + c * 8 : g;
-    cp_async16(smem_u32(s + r * kRS + c * 8), src, in);
-  }
-}
-
 // lane's row and column (elements) in the 16x16 block that ldmatrix.x4
 // reads for an A fragment, or for V's B fragments with .trans: matrices
 // (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
@@ -198,227 +142,11 @@ __device__ __forceinline__ int b_col(int lane) {
   return ((lane >> 3) & 1) * 8;
 }
 
-// s = q . k^T for a warp's 16 query rows (sQw) against a key tile (sKt)
-__device__ __forceinline__ void tile_scores(float (&s)[kBK / 8][4],
-                                            const bf16* sQw, const bf16* sKt,
-                                            int lane) {
-  constexpr int D = kD, RS = kRS, BK = kBK;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-  const uint32_t qa = smem_u32(sQw + a_row(lane) * RS + a_col(lane));
-  const uint32_t kb = smem_u32(sKt + b_row(lane) * RS + b_col(lane));
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, qa + kk * 32);
-#pragma unroll
-    for (int nb = 0; nb < BK / 16; ++nb) {
-      uint32_t b[4];
-      ldsm_x4(b, kb + nb * 16 * RS * 2 + kk * 32);
-      mma_bf16(s[2 * nb], a, b[0], b[1]);
-      mma_bf16(s[2 * nb + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-flash_mma_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
-                 const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 Strides qs, Strides ks, Strides vs, int H, int g, int sq,
-                 int skv, int causal, int window, int q_off, float scale,
-                 float* __restrict__ lse) {
-  constexpr int D = kD, RS = kRS, BK = kBK;
-  constexpr int NO = D / 8;              // n8 blocks of the O accumulator
-  static_assert(BK % 16 == 0 && BK >= 16, "key tile: a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][RS]
-  bf16* sK = sQ + kBQ * RS;                       // [2][BK][RS]
-  bf16* sV = sK + 2 * BK * RS;                   // [2][BK][RS]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tig = lane & 3;       // fragment row, column pair
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / g;
-  const int q0 = blockIdx.x * kBQ, q1 = min(q0 + kBQ, sq);
-  const int w0 = q0 + warp * 16;                  // the warp's first row
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-
-  // the keys this tile's band meets (as the SIMT form: row i sits at
-  // position i + q_off); a row with no key in its band (only with a window
-  // and sq + q_off > skv) needs every key, at -1e30
-  const int p0 = q0 + q_off, p1 = q1 + q_off, pw0 = w0 + q_off;
-  int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
-  if (window > 0) {
-    if (p1 - window >= skv) kv_hi = skv;
-    else kv_lo = max(0, p0 - window + 1);
-  }
-
-  load_tile<kBQ>(sQ, qb, qs.s, q0, sq, tid);
-  if (kv_lo < kv_hi) {
-    load_tile<BK>(sK, kb, ks.s, kv_lo, skv, tid);
-    load_tile<BK>(sV, vb, vs.s, kv_lo, skv, tid);
-  }
-  cp_async_commit();
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
-  float m_r[2] = {kMaskAdd, kMaskAdd}, l_r[2] = {0.f, 0.f};
-  const bf16* sQw = sQ + warp * 16 * RS;
-  const int vrow = a_row(lane), vcol = a_col(lane);
-
-  int stage = 0;
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += BK, stage ^= 1) {
-    if (t0 + BK < kv_hi) {              // tile j+1 into the other stage
-      load_tile<BK>(sK + (stage ^ 1) * BK * RS, kb, ks.s, t0 + BK, skv,
-                        tid);
-      load_tile<BK>(sV + (stage ^ 1) * BK * RS, vb, vs.s, t0 + BK, skv,
-                        tid);
-    }
-    cp_async_commit();                   // (possibly empty) group of j+1
-    cp_async_wait<1>();                  // Q and tile j have landed
-    __syncthreads();
-
-    float s[BK / 8][4];
-    tile_scores(s, sQw, sK + stage * BK * RS, lane);
-
-    // scale and mask; a tile inside every row's band of this warp skips
-    // the per-element test
-    const bool inside = t0 + BK <= skv &&
-                        (!causal || t0 + BK - 1 <= pw0) &&
-                        (window <= 0 || t0 > pw0 + 15 - window);
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[n][c] * scale;
-        if (!inside) {
-          const int row = pw0 + gr + (c >> 1) * 8;   // its position
-          const int key = t0 + n * 8 + tig * 2 + (c & 1);
-          bool keep = !causal || key <= row;
-          if (window > 0) keep = keep && key > row - window;
-          x = key < skv ? x + (keep ? 0.f : kMaskAdd) : -INFINITY;
-        }
-        s[n][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f((m_r[r] - mx[r]) * kLog2e);
-      m_r[r] = mx[r];
-      l_r[r] *= corr[r];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = exp2f((s[n][c] - m_r[c >> 1]) * kLog2e);
-        l_r[c >> 1] += p;                // the unrounded p, as the reference
-        s[n][c] = p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // O += round_to_bf16(P) . V: S's C fragments are P's A fragments
-    const uint32_t vbase =
-        smem_u32(sV + stage * BK * RS + vrow * RS + vcol);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nb = 0; nb < D / 16; ++nb) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, vbase + kk * 16 * RS * 2 + nb * 32);
-        mma_bf16(o[2 * nb], a, bv[0], bv[1]);
-        mma_bf16(o[2 * nb + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();                     // stage is free for tile j+2
-  }
-  cp_async_wait<0>();
-
-  float den[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    den[r] = fmaxf(l_r[r], 1e-30f);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = w0 + gr + r * 8;
-    if (row >= sq) continue;
-    // the row's log-sum-exp of the scaled scores: m_r is in natural units
-    // (the exponentials above are exp2f of (s - m) * log2(e)), so log, not
-    // log2; the quad's four threads hold the same m_r and l_r
-    if (lse != nullptr && tig == 0)
-      lse[size_t(bh) * sq + row] = m_r[r] + logf(den[r]);
-    bf16* orow = out + ((size_t(b) * sq + row) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + tig * 2) =
-          pack_bf16(o[n][2 * r] / den[r], o[n][2 * r + 1] / den[r]);
-  }
-}
-
-// The raw scores q . k^T (f32, unscaled, unmasked) of one (q tile, key
-// tile) per block, through the same copies and fragments as the prefill
-// form: the card test of the QK^T fragments alone.  out: (B*H, sq, skv).
-__global__ void __launch_bounds__(kThreads, 1)
-flash_mma_scores_kernel(float* __restrict__ out, const bf16* __restrict__ q,
-                        const bf16* __restrict__ k, Strides qs, Strides ks,
-                        int H, int g, int sq, int skv) {
-  constexpr int RS = kRS, BK = kBK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBQ * RS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / g;
-  const int w0 = blockIdx.x * kBQ + warp * 16, t0 = blockIdx.z * BK;
-  load_tile<kBQ>(sQ, q + b * qs.b + h * qs.h, qs.s, blockIdx.x * kBQ, sq,
-                    tid);
-  load_tile<BK>(sK, k + b * ks.b + hk * ks.h, ks.s, t0, skv, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  float s[BK / 8][4];
-  tile_scores(s, sQ + warp * 16 * RS, sK, lane);
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = w0 + gr + (c >> 1) * 8;
-      const int key = t0 + n * 8 + tig * 2 + (c & 1);
-      if (row < sq && key < skv)
-        out[(size_t(bh) * sq + row) * skv + key] = s[n][c];
-    }
-}
-
 // ---- the Q-register form ------------------------------------------------
 
 // The Q-register form's layout (the header's note): the query rows of a
-// head a block (QT), 64 at D 64 and 128 at the wider pairs; the most query
-// heads a block, 3 at D 64 and 1 at the wider pairs; 64-key tiles in a
+// head a block (QT), 64 at D 64 and 128 at (192, 128); the most query
+// heads a block, 3 at D 64 and 1 at (192, 128); 64-key tiles in a
 // two-stage ring; 16 rows a warp.
 constexpr int kQKeys = 64;
 constexpr int kQStages = 2;
@@ -695,26 +423,6 @@ flash_mma_qreg_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
 
 }  // namespace mma
 
-cudaError_t launch_mma(void* out, const void* q, const void* k, const void* v,
-                       Strides qs, Strides ks, Strides vs, int B, int H,
-                       int g, int sq, int skv, int causal, int window,
-                       int q_off, float scale, float* lse,
-                       cudaStream_t stream) {
-  constexpr size_t smem = mma::kSmemBytes;
-  // dynamic shared memory above 48 KB needs the opt-in (on every launch:
-  // the attribute belongs to the current device)
-  const cudaError_t err = cudaFuncSetAttribute(
-      mma::flash_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + mma::kBQ - 1) / mma::kBQ, B * H, 1);
-  mma::flash_mma_kernel<<<grid, mma::kThreads, smem, stream>>>(
-      static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
-      static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v), qs,
-      ks, vs, H, g, sq, skv, causal, window, q_off, scale, lse);
-  return cudaGetLastError();
-}
-
 template <int DK, int DV, int GH>
 cudaError_t launch_mma_qreg(void* out, const void* q, const void* k,
                             const void* v, Strides qs, Strides ks, Strides vs,
@@ -757,24 +465,6 @@ cudaError_t launch_mma_qreg_any_g(void* out, const void* q, const void* k,
   if constexpr (GHMAX >= 3) if (gh == 3) return K4_QREG(3);
 #undef K4_QREG
   return cudaErrorInvalidValue;
-}
-
-// the raw scores of flash_mma_kernel's fragments (D 256)
-cudaError_t launch_mma_scores(float* out, const void* q, const void* k,
-                              Strides qs, Strides ks, int B, int H, int g,
-                              int sq, int skv, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(mma::bf16) * mma::kRS * (mma::kBQ + mma::kBK);
-  const cudaError_t err = cudaFuncSetAttribute(
-      mma::flash_mma_scores_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + mma::kBQ - 1) / mma::kBQ, B * H,
-                  (skv + mma::kBK - 1) / mma::kBK);
-  mma::flash_mma_scores_kernel<<<grid, mma::kThreads, smem, stream>>>(
-      out, static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
-      qs, ks, H, g, sq, skv);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,0 +1,753 @@
+// K4's bf16 prefill form for Hopper at (Dk, Dv) = (128, 128) and (256,
+// 256): flash_wgmma_kernel<D>, warpgroup products (wgmma.mma_async) on
+// tiles that the tensor memory accelerator (cp.async.bulk.tensor) copies
+// into shared memory.  Included by flash_attn.cu, whose launcher sends
+// every bf16 prefill at those two pairs here; (64, 64) and (192, 128)
+// stay on the Q-register form (flash_attn_mma.cuh), f32 on the SIMT form.
+//
+// Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
+// for bf16 operands at D 128 and 256, with the function written at the
+// top of flash_attn.cu (scores in f32, -1e30 where the causal or window
+// band drops a key, no weight past skv, p rounded to bf16 before p . v, l
+// summing the unrounded p, out = acc / max(l, 1e-30) in bf16, the lse as
+// m + log(max(l, 1e-30)) in f32 when asked for).
+//
+// Bound on an H100: 2 (Dk + Dv) flops a (q, k) pair in the band at the
+// dense bf16 rate, against q, k, v and out's bytes at 3.35 TB/s.  At the
+// paths' prefills (B 4, S 1024, causal) the products bound every call:
+// qwen2-vl's g 7 at D 128 is 30.1 GFLOP (0.0304 ms) against 67.1 MB
+// (0.0200 ms); gemma-2b's MQA at D 256 17.2 GFLOP (0.0174 ms) against 37.7
+// MB (0.0113 ms).  The forms this one replaces issued mma.sync, in which
+// every warp reads the whole K and V tile through ldmatrix for its own 16
+// rows; wgmma reads B from shared memory once for the four warps of a
+// warpgroup and keeps A (Q) in shared memory too, and the copies cost no
+// thread a register or an instruction.
+//
+// Layout.  A block of 384 threads: warpgroup 0 is the producer (one
+// thread issues every TMA copy; setmaxnreg drops its warps to 40
+// registers), warpgroups 1 and 2 consume (232 registers each, the 168 a
+// thread of the launch moved over: 128 x 40 + 256 x 232 = 384 x 168).
+// A block per (batch, query head, 128-row q tile), each consumer
+// warpgroup owning 64 consecutive rows for the whole softmax, q tiles
+// longest first (blockIdx.y counts from the last) so the causal tiles
+// with the most keys start in the first wave.  Whatever g, no head slot
+// idles (g 7 included).  The head-pair layout (the two warpgroups on the
+// same 64 rows of two query heads of one kv head, each K and V tile
+// serving both) measured faster at some even g and slower at g 7
+// (PERF.md §6; that variant, a text edit of this header, is not kept).
+//
+// Tiles.  Key tiles of 128 keys at D 128 and 64 at D 256: the S
+// accumulator (64 x BK f32, BK / 2 registers a thread) sits beside O (64
+// x D f32: 64 registers at D 128, 128 at D 256) and P (BK / 4).  Two
+// stages of K and V.  Shared bytes (smem_bytes, reported by
+// flash_wgmma_smem_bytes): Q 128 x D, 2 x (K + V) BK x D, all bf16, nine
+// mbarriers and 1024 bytes that align the swizzled tiles: 164,936 at D
+// 128, 197,704 at D 256; one block an SM.
+//
+// Copies.  Each operand has a 4-D tensor map (d, s, h, b) over its own
+// strides, encoded on the host at every call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint: the library links no
+// libcuda), passed as a __grid_constant__ parameter.  A box is 64 columns
+// (128 bytes, the 128-byte swizzle's width) by 64 q rows or BK keys of one
+// head, so a D-wide tile is D / 64 boxes; rows past sq or skv arrive as
+// zeros.  The strided head views models/layers.py passes need no copy;
+// the wrapper's 16-byte rule (_checks.rows_aligned) is TMA's alignment.
+// Q is copied once; K_j and V_j each complete on their own full barrier
+// and are released on their own empty barrier (256 arrivals), so K_j+1
+// can land while V_j is still read.
+//
+// Products.  S = Q K^T: wgmma m64nBKk16 with both operands in shared
+// memory, K-major (a descriptor of the 128-byte swizzle; a k16 step moves
+// the start address 32 bytes along a 128-byte row, a chunk of 64 columns
+// away every four steps).  O += P V: P from registers (the S accumulator
+// is, element for element, the A fragment of P once packed to bf16
+// pairs), V's [key][d] tile as the MN-major B operand (the next 64 columns
+// a BK x 128-byte chunk on, the next 8 keys 1024 bytes on).
+//
+// Schedule.  Iteration j issues S_j and then PV_{j-1}, waits for S_j alone
+// (wgmma groups complete in order) and computes its softmax while PV_{j-1}
+// still runs, then waits for PV_{j-1}, rescales O and packs P_j.  The two
+// warpgroups take turns to issue (named barriers 1 and 2: ping-pong), so
+// the tensor cores run one warpgroup's products while the other computes
+// exponentials.  Every warpgroup runs every tile of its block: a wgmma
+// under a per-warpgroup test was serialized by ptxas ("compiler-inserted
+// WG.AR in divergent path"), so a tile outside one warpgroup's band
+// computes p = 0 there rather than being skipped.  Tiles wholly outside
+// the block's band are neither copied nor computed (gemma3-1b's window
+// 512, q_offset); a tile inside every row's band skips the masking.
+//
+// Softmax.  Scores scaled to log2 units (x = s * scale * log2(e), so any
+// scale is taken: the max is over scaled scores); a dropped key's score
+// is -1e30 * log2(e), so a row with no key in its band averages every key
+// (p = 1) as the plain version does, and its lse is written as -1e30 +
+// log(l); keys past skv get -inf.  p = 2^(x - m) by ex2.approx.ftz; l sums
+// the unrounded p per thread, over the quad at the end.
+//
+// Epilogue.  out / l is packed to bf16 into the warpgroup's own Q rows
+// (its last S has read them) in the swizzled layout the Q copy used, and
+// one thread stores each 64-column chunk with a TMA store (rows past sq
+// are not written): the block's stores leave asynchronously, where the
+// threads' own 4-byte stores held the SM to the end of each block.  The
+// lse, when asked for, goes straight from the quad's first thread.
+//
+// Measured on an H100 and rejected (PERF.md §6; the variants were text
+// edits of this header, not kept): the serial schedule (S, softmax, PV,
+// each waited for), 3 stages at D 128, ping-pong off, the threads' own
+// stores, the head-pair layout.
+#pragma once
+
+#include <cuda.h>               // CUtensorMap and its enums (no libcuda link)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"     // Strides, smem_u32, pack_bf16, kMaskAdd
+
+namespace {
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using mma::pack_bf16;
+using mma::smem_u32;
+
+constexpr int kWGRows = 64;             // query rows a consumer warpgroup
+constexpr int kThreads = 384;           // the producer's warpgroup, 2 consumers
+constexpr int kChunk = 64;              // bf16 columns of a 128-byte box
+constexpr int kProducerRegs = 40;       // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int kConsumerRegs = 232;      // = 384 x 168, the launch's registers
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// a dropped key's score in log2 units: -1e30 * log2(e), as the plain
+// version's s * scale - 1e30 once both are scaled by log2(e)
+constexpr float kMaskL2 = -1.4426950408889634e30f;
+
+// The tile plan (the header's note): keys a tile, and the shared bytes of
+// both warpgroups' Q rows, stages() K and V tiles, the mbarriers and the
+// slack that aligns the base to the 1024 bytes of a swizzle pattern.
+template <int D> __host__ __device__ constexpr int keys() {
+  return D == 256 ? 64 : 128;
+}
+// K and V tiles in flight (a third stage at D 128 measured level with
+// two; at D 256 it does not fit beside Q)
+template <int D> __host__ __device__ constexpr int stages() { return 2; }
+template <int D> __host__ __device__ constexpr uint32_t q_bytes() {
+  return 2u * kWGRows * D * 2;
+}
+template <int D> __host__ __device__ constexpr uint32_t tile_bytes() {
+  return uint32_t(keys<D>()) * D * 2;
+}
+template <int D> __host__ __device__ constexpr uint32_t bar_offset() {
+  return q_bytes<D>() + 2u * stages<D>() * tile_bytes<D>();
+}
+template <int D> __host__ __device__ constexpr size_t smem_bytes() {
+  return size_t(bar_offset<D>()) + 8 * (1 + 4 * stages<D>()) + 1024;
+}
+static_assert(smem_bytes<128>() <= 232448 && smem_bytes<256>() <= 232448,
+              "a block's shared memory");
+
+// ---- mbarriers, TMA and wgmma in inline PTX -----------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of shared memory at src to the 4-D map at those coordinates;
+// rows past the map's extent are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int d, int s, int h,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(d), "r"(s),
+      "r"(h), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+// one box of the 4-D map (d, s, h, b) at those coordinates into dst,
+// completing on bar; a row past the map's extent lands as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d),
+      "r"(s), "r"(h), "r"(b)
+      : "memory");
+}
+
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// named barriers 1 and 2 over both consumer warpgroups' 256 threads
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 2^x by the SFU alone (ex2.approx.ftz: relative error about 2^-22,
+// results below 2^-126 flushed to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// keeps the compiler from moving accesses of r across a wgmma
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A shared-memory matrix descriptor for 128-byte swizzled tiles: the
+// start address, the leading and stride byte offsets (16-byte units) and
+// the swizzle mode (1 << 62)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 64 f32) (+)= A (64 x 16, shared, K-major) . B (64 x 16,
+// shared, K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 f32) (+)= A (64 x 16, shared, K-major) . B (128 x 16,
+// shared, K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16 in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256 f32) += A (64 x 16 bf16 in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, "
+      "%71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, "
+      "%85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
+      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
+      "%121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, "
+      "%132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Block (x: b * H + h, y: q tile from the last): the consumer
+// warpgroups take rows q0 .. q0+63 and q0+64 .. q0+127 of query head h.
+// Warp 0 of warpgroup 0 is the producer: one thread copies Q, then each
+// key tile's K and V into the ring; warpgroups 1 and 2 consume.  The
+// header's note gives the design.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                   const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv,
+                   const __grid_constant__ CUtensorMap tmo,
+                   float* __restrict__ lse, int H, int g, int sq, int skv,
+                   int causal, int window, int q_off, float scale) {
+  constexpr int BK = keys<D>();
+  constexpr int NC = D / kChunk;           // 128-byte column chunks a row
+  constexpr uint32_t QWG = kWGRows * D * 2;  // one warpgroup's Q bytes
+  constexpr uint32_t TILE = tile_bytes<D>();
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (smem_u32(wg_smem) + 1023) & ~1023u;
+  constexpr int NS = stages<D>();
+  const uint32_t sQ = base, sK = base + q_bytes<D>(), sV = sK + NS * TILE;
+  // mbarriers: Q's, then per stage K full, V full, K empty and V empty
+  const uint32_t bar = base + bar_offset<D>();
+  const uint32_t q_full = bar;
+  auto k_full = [&](int st) { return bar + 8 * (1 + st); };
+  auto v_full = [&](int st) { return bar + 8 * (1 + NS + st); };
+  auto k_empty = [&](int st) { return bar + 8 * (1 + 2 * NS + st); };
+  auto v_empty = [&](int st) { return bar + 8 * (1 + 3 * NS + st); };
+
+  // warpgroup w (0, 1) owns rows row0(w) .. row0(w) + 63 of head h
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / g;
+  auto row0 = [&](int w) { return (2 * qt + w) * kWGRows; };
+  const int lo = row0(0), hi = min(sq, row0(1) + kWGRows);
+
+  // the keys the block's band meets (row i sits at position i + q_off); a
+  // row with no key in its band (only with a window and sq + q_off > skv)
+  // needs every key, at the mask value
+  const int p0 = lo + q_off, p1 = hi + q_off;
+  int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
+  if (window > 0) {
+    if (p1 - window >= skv) kv_hi = skv;
+    else kv_lo = max(0, p0 - window + 1);
+  }
+  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 2 * 128);
+      mbar_init(v_empty(st), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: one thread issues every copy ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      // both warpgroups' rows, those past sq as zeros
+      mbar_expect_tx(q_full, 2 * QWG);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c)
+          tma_load(sQ + w * QWG + c * (kWGRows * 128), &tmq, q_full,
+                   c * kChunk, row0(w), h, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % NS, t0 = kv_lo + j * BK;
+        const int done = ((j / NS) - 1) & 1;   // tile j - NS's release
+        if (j >= NS) mbar_wait(k_empty(st), done);
+        mbar_expect_tx(k_full(st), TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load(sK + st * TILE + c * (BK * 128), &tmk, k_full(st),
+                   c * kChunk, t0, hk, b);
+        if (j >= NS) mbar_wait(v_empty(st), done);
+        mbar_expect_tx(v_full(st), TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load(sV + st * TILE + c * (BK * 128), &tmv, v_full(st),
+                   c * kChunk, t0, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w owns 64 rows for the whole softmax ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = wgi - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int gr = lane / 4, tig = lane % 4;  // fragment row, column pair
+    const int pw0 = row0(w) + q_off;          // the warpgroup's first position
+    const int pw1 = pw0 + kWGRows - 1;        // ... and its last
+    const int pr = pw0 + 16 * warp + gr;      // this thread's row 0 position
+    const float c = scale * kLog2e;          // raw scores to log2 units
+    const uint32_t qw = sQ + w * QWG;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kMaskL2, kMaskL2}, l[2] = {0.f, 0.f};
+    float s[BK / 2];                          // S_j, then its p
+    uint32_t pa[BK / 16][4];                  // P_{j-1}: the A operand
+    float corr[2];
+
+    // Every warpgroup runs every key tile of the block, so that each
+    // wgmma sits in control flow the whole warpgroup shares (a wgmma
+    // behind a per-warpgroup test was serialized by ptxas); a tile wholly
+    // outside a warpgroup's band computes p = 0 there.
+    //
+    // S_j = Q K_j^T: D / 16 steps of k16, a step 32 bytes along a 128-byte
+    // chunk, four steps a chunk
+    auto issue_s = [&](int j) {
+      const uint32_t kt = sK + (j % NS) * TILE;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        const uint64_t da =
+            desc(qw + (kk / 4) * (kWGRows * 128) + off, 16, 1024);
+        const uint64_t db = desc(kt + (kk / 4) * (BK * 128) + off, 16, 1024);
+        if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
+        else wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += round_to_bf16(P_j) . V_j: S's accumulator is, block for block,
+    // the A fragment of P; V's [key][d] chunks are the MN-major B operand
+    // (the next 64 columns LBO = BK * 128 bytes on, the next 8 keys 1024)
+    auto issue_pv = [&](int j) {
+      const uint32_t vt = sV + (j % NS) * TILE;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = desc(vt + kk * 16 * 128, BK * 128, 1024);
+        if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], db);
+        else wgmma_rs_n256(o, pa[kk], db);
+      }
+      wgmma_commit();
+    };
+    // S_j's p in place, m and l updated, corr the rescale of O
+    auto softmax = [&](int j) {
+      const int t0 = kv_lo + j * BK;
+      // scale to log2 units and mask; a tile inside every row's band of
+      // the warpgroup skips the per-element test
+      const bool inside = t0 + BK <= skv &&
+                          (!causal || t0 + BK - 1 <= pw0) &&
+                          (window <= 0 || t0 > pw1 - window);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * n + e] * c;
+          if (!inside) {
+            const int row = pr + (e >> 1) * 8;
+            const int key = t0 + n * 8 + tig * 2 + (e & 1);
+            bool keep = !causal || key <= row;
+            if (window > 0) keep = keep && key > row - window;
+            x = key < skv ? (keep ? x : kMaskL2) : -INFINITY;
+          }
+          s[4 * n + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2_approx(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(s[4 * n + e] - m[e >> 1]);
+          l[e >> 1] += p;                  // the unrounded p, as the reference
+          s[4 * n + e] = p;
+        }
+      }
+    };
+    // O rescaled to the new row max, and P_j packed over P_{j-1}
+    auto rescale_pack = [&]() {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= corr[0];
+        o[4 * n + 1] *= corr[0];
+        o[4 * n + 2] *= corr[1];
+        o[4 * n + 3] *= corr[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto k_wait = [&](int j) { mbar_wait(k_full(j % NS), (j / NS) & 1); };
+    auto v_wait = [&](int j) { mbar_wait(v_full(j % NS), (j / NS) & 1); };
+
+    // tile j's S = Q K^T goes in while tile j - 1's O += P V still runs,
+    // and j's softmax overlaps that product: iteration j issues S_j, then
+    // PV_{j-1}, waits for S_j alone (wgmma groups complete in order),
+    // computes j's p, then waits for PV_{j-1} before it rescales O and
+    // packs P_j over P_{j-1}.  K_j is released once S_j is done, V_{j-1}
+    // once PV_{j-1} is.
+    // Ping-pong: the warpgroups take turns to issue, so the tensor cores
+    // run one warpgroup's products while the other computes its softmax.
+    // Warpgroup w issues after a bar.sync on barrier 1 + w and then
+    // arrives on the other's; warpgroup 1 arrives once first, so 0 goes
+    // first, and skips its last arrival, so each barrier sees as many
+    // arrivals as syncs (ntiles + 1 issue turns a warpgroup).
+    auto turn = [&]() { bar_sync(1 + w); };
+    auto yield = [&](bool last) {
+      if (!(last && w == 1)) bar_arrive(2 - w);
+    };
+    if (w == 1) bar_arrive(1);
+    mbar_wait(q_full, 0);
+    if (ntiles > 0) {
+      k_wait(0);
+      turn();
+      wgmma_fence();
+      issue_s(0);
+      yield(false);
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(k_empty(0));
+      softmax(0);
+      rescale_pack();
+    }
+    for (int j = 1; j < ntiles; ++j) {
+      k_wait(j);
+      v_wait(j - 1);
+      fence_regs(o);
+      turn();
+      wgmma_fence();
+      issue_s(j);
+      issue_pv(j - 1);
+      yield(false);
+      wgmma_wait<1>();
+      fence_regs(s);
+      mbar_arrive(k_empty(j % NS));
+      softmax(j);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(v_empty((j - 1) % NS));
+      rescale_pack();
+    }
+    if (ntiles > 0) {
+      v_wait(ntiles - 1);
+      fence_regs(o);
+      turn();
+      wgmma_fence();
+      issue_pv(ntiles - 1);
+      yield(true);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(v_empty((ntiles - 1) % NS));
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float den = fmaxf(lr, 1e-30f);
+      inv[r] = 1.f / den;
+      const int row = row0(w) + 16 * warp + gr + 8 * r;
+      // the row's log-sum-exp of the scaled scores, in natural units; a row
+      // that saw only dropped keys sits at -1e30, as in the plain version
+      if (lse != nullptr && tig == 0 && row < sq)
+        lse[(size_t(b) * H + h) * sq + row] =
+            (m[r] == kMaskL2 ? kMaskAdd : m[r] * kLn2) + logf(den);
+    }
+    // out / l in bf16 over this warpgroup's Q rows (its last S has read
+    // them), in the layout the Q copy used: 64-column chunks of 64 rows
+    // of 128 bytes, a row's 16-byte units XOR-swizzled by row % 8; then
+    // one thread stores each chunk with TMA, rows past sq left out
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = 16 * warp + gr + 8 * r;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        st_shared(qw + (n / 8) * (kWGRows * 128) + rr * 128 +
+                      (((n % 8) ^ (rr % 8)) * 16) + tig * 4,
+                  pack_bf16(o[4 * n + 2 * r] * inv[r],
+                            o[4 * n + 2 * r + 1] * inv[r]));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(3 + w) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int c = 0; c < NC; ++c)
+        tma_store(&tmo, qw + c * (kWGRows * 128), c * kChunk, row0(w), h,
+                  b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+}  // namespace wg
+
+// ---- host side: tensor maps and the launch ------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda; null if the driver has none
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (d, s, h, b) of one bf16 operand over its own element strides,
+// boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; rows
+// past S read as zeros.  A dim of size 1 is never stepped, so its stride
+// (which PyTorch leaves free) is given as 16 bytes.
+inline bool encode_operand(CUtensorMap* map, const void* p, int D, int S,
+                           int Hx, int B, const Strides& st, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(Hx),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {
+      S > 1 ? cuuint64_t(st.s) * 2 : 16, Hx > 1 ? cuuint64_t(st.h) * 2 : 16,
+      B > 1 ? cuuint64_t(st.b) * 2 : 16};
+  const cuuint32_t box[4] = {cuuint32_t(wg::kChunk), cuuint32_t(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// flash_wgmma_kernel<D> on one call, its four tensor maps encoded here
+template <int D>
+cudaError_t launch_wgmma(void* out, const void* q, const void* k,
+                         const void* v, Strides qs, Strides ks, Strides vs,
+                         int B, int H, int Hkv, int sq, int skv, int causal,
+                         int window, int q_off, float scale, float* lse,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  const Strides os{(long long)sq * H * D, (long long)H * D, D};
+  if (!encode_operand(&tq, q, D, sq, H, B, qs, wg::kWGRows) ||
+      !encode_operand(&tk, k, D, skv, Hkv, B, ks, wg::keys<D>()) ||
+      !encode_operand(&tv, v, D, skv, Hkv, B, vs, wg::keys<D>()) ||
+      !encode_operand(&to, out, D, sq, H, B, os, wg::kWGRows))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = wg::smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      wg::flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  constexpr int R = 2 * wg::kWGRows;
+  const dim3 grid(B * H, (sq + R - 1) / R);
+  wg::flash_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+      tq, tk, tv, to, lse, H, H / Hkv, sq, skv, causal, window, q_off,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -6,9 +6,13 @@ A CUDA tensor launches ``csrc/flash_attn.cu`` (the prefill forms) or
 ``csrc/flash_decode.cu`` (the decode form), or raises; a CPU tensor
 takes the plain version in ref.py; any other device raises.  Operands may
 be strided views (a slice of a KV cache, a head split of a projection):
-only the last dim must be contiguous.  A bf16 prefill goes to the
-tensor-core form (``csrc/flash_attn_mma.cuh``: one kernel at D 256, the
-Q-register kernel at (64, 64), (128, 128) and MLA's unpadded (192, 128),
+only the last dim must be contiguous.  The (dtype, Dk, Dv) of a prefill
+alone picks its form (``prefill_form``, the mirror of the C++ dispatch):
+a bf16 prefill at (128, 128) or (256, 256) goes to the wgmma form
+(``csrc/flash_attn_wgmma.cuh``: warpgroup products on tiles the tensor
+memory accelerator copies, a producer warp and two consumer warpgroups,
+128 query rows of one head a block), at (64, 64) or MLA's unpadded
+(192, 128) to the Q-register form (``csrc/flash_attn_mma.cuh``: mma.sync,
 a kv head's query heads in one block), an f32 prefill to the SIMT form.
 The decode form splits the keys over blocks (``decode_split``) for a
 group of query heads a block (``decode_head_group``); up to MAX_CLUSTER
@@ -17,7 +21,8 @@ splits run as one kernel whose blocks merge in a thread-block cluster
 merge kernel, behind one launcher.  The tensor-core
 and decode forms copy 16-byte rows: their operands must also meet
 ``_checks.row_misalignment``'s rule, or the wrapper raises (there is no
-other form to fall back to).
+other form to fall back to); the wgmma form encodes a tensor map per
+operand on every call, which the same rule satisfies.
 
 Every launch counts under ``flash_attention`` and under its form,
 ``flash_attention:<form>`` for the forms of ``FORMS``; ``form_launches``
@@ -45,13 +50,12 @@ from torch.utils.flop_counter import register_flop_formula
 from .ref import attention_ref
 
 KERNEL = "flash_attention"
-FORMS = ("prefill_mma", "prefill_simt", "decode")
+FORMS = ("prefill_mma", "prefill_wgmma", "prefill_simt", "decode")
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 8 + (_LL,) * 9
                      + (_I, _I, _I, ctypes.c_float, _P, _P))
 _DECODE_ARGTYPES = ((_P,) * 5 + (_I,) * 8 + (_LL,) * 8
                     + (ctypes.c_float, _P))
-_SCORES_ARGTYPES = (_P,) * 3 + (_I,) * 6 + (_LL,) * 6 + (_P,)
 
 # the decode form's split: about one block per SM over its grid, chunks of
 # at least MIN_CHUNK keys (csrc/flash_decode.cu dec::kMaxSplits = SMS), and
@@ -67,14 +71,14 @@ _DECODE_GROUPS = (8, 6, 4)
 # a kernel of the library by its name, mangled (ptxas) or demangled (the
 # profiler): kernel, then its type and integer template arguments (mangled
 # only); the integers are (Dk, Dv, heads a block) for the Q-register form,
-# (Dk, Dv) for the SIMT form, (D, head group) for the decode form's cluster
-# and split kernels; flash_mma_kernel has none (it is D 256's alone)
-_ENTRY = re.compile(r"(flash_(?:mma_qreg|mma|prefill|decode_cluster"
+# (D,) for the wgmma form (bf16 alone), (Dk, Dv) for the SIMT form, (D,
+# head group) for the decode form's cluster and split kernels
+_ENTRY = re.compile(r"(flash_(?:mma_qreg|wgmma|prefill|decode_cluster"
                     r"|decode_split|decode_merge)_kernel)"
                     r"(?:I(f|13__nv_bfloat16)?"
                     r"((?:Li\d+E)*))?")
-_FORM_OF = {"flash_mma_kernel": "prefill_mma",
-            "flash_mma_qreg_kernel": "prefill_mma",
+_FORM_OF = {"flash_mma_qreg_kernel": "prefill_mma",
+            "flash_wgmma_kernel": "prefill_wgmma",
             "flash_prefill_kernel": "prefill_simt",
             "flash_decode_cluster_kernel": "decode_cluster",
             "flash_decode_split_kernel": "decode_split",
@@ -102,8 +106,8 @@ def _resource_key(kernel: str, dtype: str, ints) -> str:
     """"bf16_d256", "bf16_d192_128_g1", "f32_d64", "bf16_d64_g4", "bf16":
     the type, the head dims (Dv when it differs from Dk) and the heads a
     block of a Q-register or decode split kernel."""
-    if kernel == "flash_mma_kernel":
-        return f"{dtype}_d256"
+    if kernel == "flash_wgmma_kernel":
+        return f"{dtype}_d{ints[0]}"
     if kernel == "flash_mma_qreg_kernel":
         dk, dv, heads = ints
         return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "") \
@@ -115,7 +119,7 @@ def _resource_key(kernel: str, dtype: str, ints) -> str:
 
 
 def resources(*built: _build.Built) -> dict:
-    """Per kernel (the two prefill forms, the decode form's cluster,
+    """Per kernel (the three prefill forms, the decode form's cluster,
     split and merge kernels), then per ``_resource_key`` ("bf16_d256",
     "bf16_d192_128_g1", "bf16_d256_g4", "bf16"): ptxas's registers, stack
     and spill bytes for each kernel of the built ``flash_attn`` and
@@ -123,8 +127,8 @@ def resources(*built: _build.Built) -> dict:
     block."""
     out = {}
     for b in built:
-        smem = {"flash_mma_kernel": "flash_mma_smem_bytes",
-                "flash_mma_qreg_kernel": "flash_mma_smem_bytes",
+        smem = {"flash_mma_qreg_kernel": "flash_mma_smem_bytes",
+                "flash_wgmma_kernel": "flash_wgmma_smem_bytes",
                 "flash_prefill_kernel": "flash_simt_smem_bytes"}
         for name, use in _build.ptxas_usage(b.log).items():
             e = _entry(name)
@@ -135,9 +139,8 @@ def resources(*built: _build.Built) -> dict:
             if kernel in smem:
                 fn = getattr(b.lib, smem[kernel])
                 fn.restype = ctypes.c_int
-                args = (256, 256, 0) if kernel == "flash_mma_kernel" else ints
-                fn.argtypes = [ctypes.c_int] * len(args)
-                entry["smem_bytes"] = fn(*args)
+                fn.argtypes = [ctypes.c_int] * len(ints)
+                entry["smem_bytes"] = fn(*ints)
             out.setdefault(_FORM_OF[kernel], {})[
                 _resource_key(kernel, dtype, ints)] = entry
     return out
@@ -193,9 +196,37 @@ def decode_head_group(g: int) -> int:
     return next((gt for gt in _DECODE_GROUPS if g % gt == 0), 8)
 
 
-def prefill_form(dtype: torch.dtype) -> str:
-    """The prefill form a CUDA operand of ``dtype`` launches."""
-    return "prefill_mma" if dtype == torch.bfloat16 else "prefill_simt"
+def prefill_form(dtype: torch.dtype, dk: int, dv: int) -> str:
+    """The prefill form that CUDA operands of ``dtype`` at q and k's head
+    dim ``dk`` and v's ``dv`` launch, as ``csrc/flash_attn.cu``'s
+    prefill_form picks it: f32 the SIMT form at every pair, bf16 the wgmma
+    form at (128, 128) and (256, 256) and the Q-register form at (64, 64)
+    and (192, 128).  Any other pair or type raises."""
+    if (dk, dv) not in _checks.ATTENTION_HEAD_DIMS or \
+            dtype not in _checks.ATTENTION_DTYPES:
+        raise ValueError(f"{KERNEL}: no prefill form for {dtype} at "
+                         f"({dk}, {dv})")
+    if dtype != torch.bfloat16:
+        return "prefill_simt"
+    return "prefill_wgmma" if dk == dv and dk >= 128 else "prefill_mma"
+
+
+def wgmma_plan(d: int) -> dict:
+    """The wgmma form's tile plan at head dim ``d`` (128 or 256), as
+    ``csrc/flash_attn_wgmma.cuh`` fixes it: 128 query rows a block (64 a
+    consumer warpgroup), 128 keys a tile at D 128 and 64 at D 256, two
+    stages of K and V, and the block's shared bytes: both
+    warpgroups' Q rows, the K and V ring, 8 bytes an mbarrier (Q's, and
+    each stage's K full, V full, K empty and V empty) and 1024 of slack
+    that aligns the swizzled tiles."""
+    if d not in (128, 256):
+        raise ValueError(f"{KERNEL}: the wgmma form takes D 128 or 256, "
+                         f"got {d}")
+    rows, keys, stages = 128, (128 if d == 128 else 64), 2
+    smem = (2 * rows * d + 2 * stages * 2 * keys * d
+            + 8 * (1 + 4 * stages) + 1024)
+    return {"rows": rows, "keys": keys, "stages": stages,
+            "smem_bytes": smem}
 
 
 def form_launches() -> dict:
@@ -261,8 +292,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp of the scaled, masked scores, f32 (B, H, Sq), which the
     kernel writes beside out.  On the card (Dk, Dv) must be a pair of
     ``_checks.ATTENTION_HEAD_DIMS``, and a bf16 call's scale positive at
-    every pair but (256, 256): the Q-register form keeps its row max on
-    the raw scores."""
+    (64, 64) and (192, 128): the Q-register form keeps its row max on the
+    raw scores (the wgmma form scales each score first)."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
     if q_offset < 0:
@@ -274,12 +305,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, Dk = q.shape
     _, Skv, Hkv, Dv = v.shape
     scale = 1.0 / math.sqrt(Dk) if scale is None else scale
-    form = prefill_form(q.dtype)
-    if form == "prefill_mma":
+    form = prefill_form(q.dtype, Dk, Dv)
+    if form != "prefill_simt":
         _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
-        if (Dk, Dv) != (256, 256) and not scale > 0:
-            raise ValueError(f"{KERNEL}: the Q-register form takes a "
-                             f"positive scale, got {scale}")
+    if form == "prefill_mma" and not scale > 0:
+        raise ValueError(f"{KERNEL}: the Q-register form takes a "
+                         f"positive scale, got {scale}")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -345,26 +376,4 @@ def decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
                       _dtype_code(q), B, H, Hkv, D, Skv, kc, nsplit, qsb, qsh,
                       *_strides(k_cache), *_strides(v_cache),
                       1.0 / math.sqrt(D), stream, form="decode")
-    return out
-
-
-def mma_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The D 256 tensor-core form's raw scores q . k^T, unscaled and
-    unmasked, as f32 (B, H, Sq, Skv): its QK^T fragments alone, for a card
-    test.  bf16 CUDA operands at D 256 only; counted under
-    ``flash_mma_scores``, not as a launch of K4."""
-    if q.dtype != torch.bfloat16 or q.device.type != "cuda":
-        raise ValueError("mma_scores takes bf16 CUDA operands")
-    _checks.attention(KERNEL, q, k, k, ((256, 256),))
-    _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k)
-    B, Sq, H, D = q.shape
-    _, Skv, Hkv, _ = k.shape
-    out = torch.empty((B, H, Sq, Skv), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attn", "flash_mma_scores_launch",
-                         _SCORES_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.launch("flash_mma_scores", fn, out.data_ptr(), q.data_ptr(),
-                      k.data_ptr(), B, H, Hkv, D, Sq, Skv, *_strides(q),
-                      *_strides(k), stream)
     return out

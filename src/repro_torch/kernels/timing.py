@@ -8,17 +8,41 @@ launch takes to enqueue (tens of microseconds of Python per call).
 gaps between a call's kernels and any kernel the profiler misses;
 ``graph_ms`` counts both: CUDA events around replays of one CUDA graph
 of back-to-back calls, with no host work between them.  Card only.
+``bound_ms`` is the least time the card could take for a call's work.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+# the rates a bound is taken against (an H100 SXM): device memory bytes/s
+# and dense flop/s by operand type (bf16 on the tensor cores, f32 off them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-def device_events(fn: Callable, iters: int, warmup: int = 2
+
+def bound_ms(nbytes: int, flops: int, dtype) -> Tuple[float, str, float,
+                                                      float]:
+    """The least ms for work that moves ``nbytes`` and does ``flops`` of
+    ``dtype`` (a torch dtype or its name): (the larger of the two times,
+    "bytes" or "operations", the bytes' ms, the operations' ms)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, t_bytes, t_ops
+
+
+def device_events(fn: Callable, iters: int, warmup: int = 2,
+                  whole_calls: bool = False
                   ) -> Tuple[float, Dict[str, float]]:
     """Run ``fn`` ``iters`` times under the profiler after ``warmup``
     calls: (device ms per call, summed over every device event; device
-    ms per call of each event name)."""
+    ms per call of each event name).  The profiler can lose records (on
+    an H100 after a minute of bf16 matrix products at the power limit it
+    kept 195 of 200 kernels), so the sum over ``iters`` under-reads.
+    With ``whole_calls`` (a call that launches each of its kernels the
+    same number of times) a kernel's time a call is the mean of its
+    recorded events times its launches a call, the recorded count over
+    ``iters`` rounded; fewer than half the calls recorded raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -33,19 +57,30 @@ def device_events(fn: Callable, iters: int, warmup: int = 2
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {e.key: e.self_device_time_total / 1e3 / iters
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0}
-        total = sum(by_name.values())
-        if total > 0:
-            return total, by_name
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if not events:
+            continue
+        by_name = {}
+        for e in events:
+            ms = e.self_device_time_total / 1e3
+            if whole_calls:
+                per_call = round(e.count / iters)
+                if per_call == 0:
+                    raise RuntimeError(f"the profiler recorded {e.key} "
+                                       f"{e.count} times in {iters} calls")
+                by_name[e.key] = ms / e.count * per_call
+            else:
+                by_name[e.key] = ms / iters
+        return sum(by_name.values()), by_name
     raise RuntimeError("the profiler recorded no device time")
 
 
-def device_ms(fn: Callable, iters: int, warmup: int = 2) -> float:
+def device_ms(fn: Callable, iters: int, warmup: int = 2,
+              whole_calls: bool = False) -> float:
     """Device ms per call of ``fn`` (see ``device_events``)."""
-    return device_events(fn, iters, warmup)[0]
+    return device_events(fn, iters, warmup, whole_calls)[0]
 
 
 def graph_ms(fn: Callable, calls: int = 20, replays: int = 10,

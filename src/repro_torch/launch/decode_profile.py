@@ -34,9 +34,9 @@ import torch
 from repro_torch.kernels.flash import flash_decode
 from repro_torch.kernels.flash.ops import decode_split
 from repro_torch.kernels.flash.ref import attention_ref
-from repro_torch.kernels.timing import device_events, graph_ms
+from repro_torch.kernels.timing import (HBM_BYTES_PER_S, device_events,
+                                        graph_ms)
 
-HBM_BYTES_PER_S = 3.35e12
 # name: (B, Hkv, g, D, keys, cache slots, dtype): the span is the first
 # keys slots of the cache, a strided view when keys < slots
 CASES = {
@@ -92,7 +92,7 @@ def profile_case(name: str, rng, iters: int) -> dict:
            "split": dict(zip(("kc", "nsplit"), decode_split(keys, B * hkv))),
            "max_abs_err": err}
     for key, fn in (("", run), ("library_", lib)):
-        ms, by_name = device_events(fn, iters)
+        ms, by_name = device_events(fn, iters, whole_calls=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         fn()

@@ -37,7 +37,7 @@ from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
 from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E402
 from repro_torch.kernels.flash.ops import (  # noqa: E402
     MAX_CLUSTER, decode_cluster, decode_head_group, decode_launch,
-    decode_split, form_launches, kernel_form, mma_scores, prefill_form)
+    decode_split, form_launches, kernel_form, prefill_form, wgmma_plan)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.timing import device_events  # noqa: E402
 from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
@@ -264,12 +264,13 @@ def test_flash_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, D, causal,
     assert out.dtype == dtype
     assert (out.float() - want).abs().max().item() <= atol
     assert registry.get_kernel("flash_attention").launches() == 1
-    # bf16 takes the tensor-core form, f32 the SIMT form
-    form = prefill_form(dtype)
-    assert form == ("prefill_mma" if dtype == torch.bfloat16
-                    else "prefill_simt")
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": 0, form: 1}
+    # bf16 takes the wgmma form at D 128 and 256 and the Q-register form
+    # at D 64, f32 the SIMT form
+    form = prefill_form(dtype, D, D)
+    assert form == ("prefill_simt" if dtype == torch.float32
+                    else "prefill_mma" if D == 64 else "prefill_wgmma")
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": 0, form: 1}
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2),
@@ -291,7 +292,7 @@ def test_flash_padded_mla_prefill_matches_plain(card, dtype, atol):
     assert torch.equal(out[..., 128:], torch.zeros_like(out[..., 128:]))
     want = attention_ref(q, k, v, causal=True)
     assert (out[..., :128].float() - want).abs().max().item() <= atol
-    assert form_launches()[prefill_form(dtype)] == 1
+    assert form_launches()[prefill_form(dtype, 256, 256)] == 1
 
 
 # (Dk, Dv) = (192, 128): DeepSeek-V2's MLA unpadded, in both prefill forms.
@@ -329,17 +330,20 @@ def test_flash_dk_dv_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, causal,
         assert (got_lse - want_lse).abs().max().item() <= 1e-4
     assert got.shape == (B, Sq, H, 128) and got.dtype == dtype
     assert (got.float() - want).abs().max().item() <= atol
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": 0, prefill_form(dtype): 1}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": 0,
+                               prefill_form(dtype, 192, 128): 1}
 
 
-# the tensor-core form's grouped heads: (D, g) with g query heads a kv
-# head.  A block holds at most 3 query heads at D 64 and 1 at D 128: at D
-# 64 g 2 and 3 share one block, g 4 splits into two blocks of 2, g 5 into
-# two of 3 (one head slot idle) and g 8 into three of 3; at D 128 every
-# group runs one head a block
+# the tensor-core forms' grouped heads: (D, g) with g query heads a kv
+# head.  The Q-register form (D 64) holds at most 3 query heads a block: g
+# 2 and 3 share one block, g 4 splits into two blocks of 2, g 5 into two
+# of 3 (one head slot idle) and g 8 into three of 3.  The wgmma form (D
+# 128 and 256) runs 128 rows of one query head a block whatever g: the
+# path's g 7 (qwen2-vl), 8 (qwen2-72b, jamba; gemma-2b's MQA at D 256) and
+# 12 (command-r-plus), and gemma3-1b's g 4 at D 256
 GROUP_CASES = [(64, 2), (64, 3), (64, 4), (64, 5), (64, 8), (128, 3),
-               (128, 4)]
+               (128, 4), (128, 7), (128, 8), (128, 12), (256, 4), (256, 8)]
 
 
 @pytest.mark.parametrize("D,g", GROUP_CASES)
@@ -377,15 +381,64 @@ def test_flash_grouped_heads_match_plain(card, D, g):
     assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
                                             v.contiguous(), causal=True,
                                             window=40))
-    assert form_launches() == {"prefill_mma": 4, "prefill_simt": 0,
-                               "decode": 0}
+    form = prefill_form(bf16, D, D)
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": 0, form: 4}
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_wgmma_empty_band_rows_match_plain(card, D):
+    """The wgmma form on rows with no key in their band (rows 25.. of Sq
+    40 against Skv 20 under window 6, and a q tile of 128 rows past 300
+    keys under window 50 at an offset): they average every key, as the
+    plain version does, and their lse is the plain version's (-1e30 plus
+    the log of the key count); 3e-2 on out, 1e-4 on the lse."""
+    rng = np.random.RandomState(D + 40)
+    bf16 = torch.bfloat16
+    for B, Sq, Skv, H, Hkv, window, off in ((2, 40, 20, 4, 2, 6, 0),
+                                            (1, 200, 300, 6, 2, 50, 220)):
+        q = _randn(rng, (B, Sq, H, D), bf16, card)
+        k = _randn(rng, (B, Skv, Hkv, D), bf16, card)
+        v = _randn(rng, (B, Skv, Hkv, D), bf16, card)
+        out, lse = flash_attention(q, k, v, causal=True, window=window,
+                                   q_offset=off, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = attention_ref(q, k, v, causal=True, window=window,
+                                       q_offset=off, return_lse=True)
+        assert bool((want_lse < -1e29).any())      # empty-band rows exist
+        assert (out.float() - want).abs().max().item() <= 3e-2
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert form_launches()["prefill_wgmma"] == 2
+
+
+def test_flash_prefill_form_matches_the_kernels_dispatch(card):
+    """ops.prefill_form, which the wrapper and tests read, against the C
+    dispatch's own choice (flash_prefill_form: 0 SIMT, 1 Q-register, 2
+    wgmma) for both types and every pair, -1 for a pair K4 is not built
+    for; the wgmma form's shared bytes against ops.wgmma_plan, the Python
+    plan."""
+    lib = _build.build_all(["flash_attn"])["flash_attn"].lib
+    lib.flash_prefill_form.argtypes = [ctypes.c_int] * 3
+    lib.flash_prefill_form.restype = ctypes.c_int
+    codes = {"prefill_simt": 0, "prefill_mma": 1, "prefill_wgmma": 2}
+    for code, dtype in enumerate((torch.float32, torch.bfloat16)):
+        for dk, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
+            assert lib.flash_prefill_form(code, dk, dv) == \
+                codes[prefill_form(dtype, dk, dv)]
+        for dk, dv in ((96, 96), (128, 64), (256, 128)):
+            assert lib.flash_prefill_form(code, dk, dv) == -1
+    lib.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_wgmma_smem_bytes.restype = ctypes.c_int
+    for d in (128, 256):
+        assert lib.flash_wgmma_smem_bytes(d) == wgmma_plan(d)["smem_bytes"]
+    assert lib.flash_wgmma_smem_bytes(64) == 0
 
 
 def test_flash_qreg_form_takes_only_a_positive_scale(card):
     """The Q-register form keeps its row max on the raw scores, so a bf16
     call at (64, 64) with a scale that is not positive raises before any
-    launch; D 256's form scales each score first and takes it, against
-    the plain version at 3e-2."""
+    launch; the wgmma form (D 256 here) scales each score first and takes
+    it, against the plain version at 3e-2."""
     rng = np.random.RandomState(11)
     bf16 = torch.bfloat16
     q, k, v = (_randn(rng, (1, 40, 2, 64), bf16, card) for _ in range(3))
@@ -419,25 +472,6 @@ def test_flash_unbuilt_head_dims_raise(card):
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
-@pytest.mark.parametrize("D", [256])
-def test_mma_scores_match_qk(card, D):
-    """The D 256 tensor-core form's QK^T fragments alone: its raw scores
-    against q . k^T in f32 (bf16 products are exact in f32; only the order
-    of the sum differs), GQA and a q tile and key tile that Sq 77 and Skv
-    100 cut short.  The scores kernel is built at D 256 alone."""
-    rng = np.random.RandomState(D)
-    q = _randn(rng, (2, 77, 4, D), torch.bfloat16, card)
-    k = _randn(rng, (2, 100, 2, D), torch.bfloat16, card)
-    got = mma_scores(q, k)
-    torch.cuda.synchronize()
-    want = torch.einsum("bqhgd,bkhd->bhgqk",
-                        q.float().reshape(2, 77, 2, 2, D),
-                        k.float()).reshape(2, 4, 77, 100)
-    assert (got - want).abs().max().item() <= 1e-3
-    with pytest.raises(ValueError, match="built for"):
-        mma_scores(q[..., :64], k[..., :64])
-
-
 def test_flash_bf16_strided_head_views(card):
     """GQA with q, k, v as head views of one wider (B, S, H + 2 Hkv, D)
     projection, as a fused QKV product would hand them over: strided
@@ -454,7 +488,7 @@ def test_flash_bf16_strided_head_views(card):
     assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
                                             v.contiguous(), causal=True,
                                             window=40))
-    assert form_launches()["prefill_mma"] == 2
+    assert form_launches()["prefill_wgmma"] == 2
 
 
 def test_flash_f32_strided_head_views(card):
@@ -477,8 +511,8 @@ def test_flash_f32_strided_head_views(card):
         assert torch.equal(out, flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
             window=40))
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 4,
-                               "decode": 0}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 4, "decode": 0}
 
 
 def test_flash_bf16_misaligned_raises(card):
@@ -495,8 +529,8 @@ def test_flash_bf16_misaligned_raises(card):
     q_off = flat[1:].view(1, 32, H, D)                 # 2 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q_off, kv, kv)
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": 0}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": 0}
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
@@ -534,8 +568,8 @@ def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
                 err = (out.float() - want).abs().max().item()
                 assert err <= atol, (g, skv, err)
     assert registry.get_kernel("flash_attention").launches() == calls
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": calls}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": calls}
 
 
 def _decode_kernels(fn):
@@ -604,8 +638,8 @@ def test_flash_decode_cluster_at_every_split(card, pairs, D, dtype, atol):
                 assert out.dtype == dtype and out.shape == q.shape
                 err = (out.float() - want).abs().max().item()
                 assert err <= atol, (n, skv, err)
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": calls}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": calls}
 
 
 @pytest.mark.parametrize("keys", [160, 100])
@@ -671,8 +705,8 @@ def test_flash_decode_misaligned_raises(card):
                   kv.to(torch.bfloat16), kv.to(torch.bfloat16))):
         with pytest.raises(ValueError, match="decode form needs 16-byte"):
             flash_decode(*args)
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": 0}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": 0}
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
@@ -722,8 +756,8 @@ def test_model_forwards_on_card_match_cpu(card, arch):
         assert torch.allclose(a, b, atol=2e-4, rtol=1e-4)
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     n_decode = 0 if cfg.mla else n_attn * S
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": n_attn,
-                               "decode": n_decode}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": n_attn, "decode": n_decode}
     assert registry.get_kernel("flash_attention").launches() == \
         n_attn + n_decode
 
@@ -760,7 +794,7 @@ def test_flash_lse_matches_plain(card, B, Sq, Skv, H, Hkv, D, window,
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     assert (lse - want).abs().max().item() <= 1e-4
     assert torch.equal(out, plain)
-    assert form_launches()[prefill_form(dtype)] == 2
+    assert form_launches()[prefill_form(dtype, D, D)] == 2
 
 
 # a context-parallel rank's rows: Sq rows at q_offset, against keys up to
@@ -791,7 +825,7 @@ def test_flash_q_offset_matches_plain(card, B, Sq, Skv, H, Hkv, D, q_offset,
     atol = 2e-5 if dtype == torch.float32 else 3e-2
     assert (out.float() - want_out).abs().max().item() <= atol
     assert (lse - want).abs().max().item() <= 1e-4
-    assert form_launches()[prefill_form(dtype)] == 1
+    assert form_launches()[prefill_form(dtype, D, D)] == 1
 
 
 def _attn_grads(q, k, v, do, fn):
@@ -847,7 +881,7 @@ def test_attention_function_on_card_matches_autograd_of_plain(card, case,
         assert g.dtype == dtype
         err = (g.float() - w.float()).abs().max().item()
         assert err <= rel * w.float().abs().max().item(), err
-    assert form_launches()[prefill_form(dtype)] == 1
+    assert form_launches()[prefill_form(dtype, dp, dp)] == 1
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -897,7 +931,8 @@ def test_train_step_on_card_matches_cpu(card, arch):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item() \
             + 1e-12
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    assert k1 == {"prefill_mma": 0, "prefill_simt": n_attn, "decode": 0}
+    assert k1 == {"prefill_mma": 0, "prefill_wgmma": 0, "prefill_simt": n_attn,
+                  "decode": 0}
 
 
 def test_async_save_reuses_its_pinned_buffers(card, tmp_path):

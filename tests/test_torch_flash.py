@@ -27,7 +27,9 @@ ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # tests/test_kernels.py's four coverage classes: GQA f32, windowed bf16,
 # MHA D=256 f32, ragged bf16 (40 rows, no multiple of its 16-row tiles);
 # then f32 at D 256 with a window at a ragged Sq, and GQA with g 4 at a
-# ragged Sq (the card's SIMT form takes 64-row q and 32-key tiles)
+# ragged Sq (the card's SIMT form takes 64-row q and 32-key tiles); then
+# the wgmma form's groups in bf16 at a reduced size: qwen2-vl's g 7 at D
+# 128 and gemma-2b's g 8 (MQA) at D 256, ragged and windowed
 CLASSES = [
     (2, 48, 4, 2, 128, None, "float32"),
     (2, 48, 4, 4, 128, 13, "bfloat16"),
@@ -35,6 +37,8 @@ CLASSES = [
     (1, 40, 4, 1, 128, None, "bfloat16"),
     (1, 200, 4, 1, 256, 70, "float32"),
     (2, 130, 8, 2, 256, None, "float32"),
+    (1, 40, 14, 2, 128, None, "bfloat16"),
+    (1, 72, 8, 1, 256, 30, "bfloat16"),
 ]
 
 
@@ -346,9 +350,52 @@ def test_decode_cluster_takes_one_to_eight_splits():
 
 def test_prefill_form_by_dtype():
     from repro_torch.kernels.flash.ops import FORMS, prefill_form
-    assert prefill_form(torch.bfloat16) == "prefill_mma"
-    assert prefill_form(torch.float32) == "prefill_simt"
-    assert set(FORMS) == {"prefill_mma", "prefill_simt", "decode"}
+    assert prefill_form(torch.bfloat16, 64, 64) == "prefill_mma"
+    assert prefill_form(torch.float32, 64, 64) == "prefill_simt"
+    assert set(FORMS) == {"prefill_mma", "prefill_wgmma", "prefill_simt",
+                          "decode"}
+
+
+@pytest.mark.parametrize("dtype,dk,dv,form", [
+    (torch.bfloat16, 128, 128, "prefill_wgmma"),
+    (torch.bfloat16, 256, 256, "prefill_wgmma"),
+    (torch.bfloat16, 64, 64, "prefill_mma"),
+    (torch.bfloat16, 192, 128, "prefill_mma"),
+    (torch.float32, 64, 64, "prefill_simt"),
+    (torch.float32, 128, 128, "prefill_simt"),
+    (torch.float32, 192, 128, "prefill_simt"),
+    (torch.float32, 256, 256, "prefill_simt"),
+])
+def test_prefill_form_by_head_dims(dtype, dk, dv, form):
+    """The Python mirror of the C++ dispatch: the (dtype, Dk, Dv) of a
+    prefill alone picks its form (bf16 at (128, 128) and (256, 256) the
+    wgmma form, at (64, 64) and (192, 128) the Q-register form, f32 the
+    SIMT form); a pair K4 is not built for has none."""
+    from repro_torch.kernels.flash.ops import prefill_form
+    assert prefill_form(dtype, dk, dv) == form
+    with pytest.raises(ValueError, match="no prefill form"):
+        prefill_form(dtype, dk, dk + 64)
+
+
+@pytest.mark.parametrize("d,keys,stages,smem", [(128, 128, 2, 164936),
+                                                (256, 64, 2, 197704)])
+def test_wgmma_plan_fits_a_block(d, keys, stages, smem):
+    """The wgmma form's tile plan (the Python mirror of
+    csrc/flash_attn_wgmma.cuh's): 128 query rows a block in two
+    warpgroups of 64, 128 keys a tile at D 128 and 64 at D 256, two stages
+    of K and V, and its shared bytes within the 232,448 a block can
+    have."""
+    from repro_torch.kernels.flash.ops import wgmma_plan
+    plan = wgmma_plan(d)
+    assert plan == {"rows": 128, "keys": keys, "stages": stages,
+                    "smem_bytes": smem}
+    # Q (128 x d), the stages of K and V (keys x d), all bf16; Q's mbarrier
+    # and four a stage; 1024 bytes of alignment slack
+    assert smem == 2 * (128 * d + 2 * stages * keys * d) \
+        + 8 * (1 + 4 * stages) + 1024
+    assert smem <= 232448
+    with pytest.raises(ValueError):
+        wgmma_plan(64)
 
 
 def test_cpu_route_takes_plain_version():
@@ -367,8 +414,8 @@ def test_cpu_route_takes_plain_version():
     out = flash_attention(q, kv, kv, causal=True, window=7)
     want = attention_ref(q, kv, kv, causal=True, window=7).to(torch.bfloat16)
     assert torch.equal(out, want)
-    assert form_launches() == {"prefill_mma": 0, "prefill_simt": 0,
-                               "decode": 0}
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": 0}
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
@@ -378,14 +425,14 @@ def test_form_counts_sit_beside_the_registry_count():
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.flash.ops import KERNEL, form_launches
     registry.reset_launch_counts()
-    for form in ("prefill_mma", "prefill_mma", "decode"):
+    for form in ("prefill_mma", "prefill_mma", "decode", "prefill_wgmma"):
         _build.launch(KERNEL, lambda: 0, form=form)
-    assert form_launches() == {"prefill_mma": 2, "prefill_simt": 0,
-                               "decode": 1}
+    assert form_launches() == {"prefill_mma": 2, "prefill_wgmma": 1,
+                               "prefill_simt": 0, "decode": 1}
     entry = registry.get_kernel(KERNEL)
-    assert entry.launches() == 3
+    assert entry.launches() == 4
     _build.launch(KERNEL, lambda: 0, form="prefill_simt")
-    assert form_launches()["prefill_simt"] == 1 and entry.launches() == 4
+    assert form_launches()["prefill_simt"] == 1 and entry.launches() == 5
     registry.reset_launch_counts()
     assert entry.launches() == 0 and sum(form_launches().values()) == 0
     with pytest.raises(RuntimeError, match="prefill_mma"):
@@ -494,8 +541,14 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
      "__nv_bfloat16", "prefill_mma", "bf16_d192_128_g1"),
     ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi64ELi64ELi3EEEvP13"
      "__nv_bfloat16", "prefill_mma", "bf16_d64_g3"),
-    ("_ZN12_GLOBAL__N_13mma16flash_mma_kernelEP13__nv_bfloat16PKS1_",
-     "prefill_mma", "bf16_d256"),
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi256EEEv14CUtensorMap_stS2_"
+     "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d256"),
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi128EEEv14CUtensorMap_stS2_"
+     "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d128"),
+    ("void (anonymous namespace)::wg::flash_wgmma_kernel<128>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
+     "float*, int, int, int, int, int, int, int, int, float, int)",
+     "prefill_wgmma", None),
     ("_ZN12_GLOBAL__N_14simt20flash_prefill_kernelIfLi192ELi128EEEvPT_",
      "prefill_simt", "f32_d192_128"),
     ("_ZN12_GLOBAL__N_13dec25flash_decode_split_kernelI13__nv_bfloat16Li64"
@@ -506,14 +559,15 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
      "__nv_bfloat16, 64, 3>(__nv_bfloat16*)", "decode_cluster", None),
     ("void (anonymous namespace)::mma::flash_mma_qreg_kernel<64, 64, 3>("
      "__nv_bfloat16*)", "prefill_mma", None),
-    ("void (anonymous namespace)::mma::flash_mma_scores_kernel(float*)",
+    ("void (anonymous namespace)::conv2d_general_kernel(int*, int const*)",
      None, None),
 ])
 def test_kernel_names_map_to_forms(name, form, key):
     """Profiler (demangled) and ptxas (mangled) names of K4's kernels map
-    to their form, the Q-register kernel's to the tensor-core form; a
-    mangled name also gives its ``resources`` key (type, head dims, heads
-    a block); the scores kernel is no form's."""
+    to their form, the Q-register kernel's to prefill_mma and the wgmma
+    kernel's to prefill_wgmma; a mangled name also gives its
+    ``resources`` key (type, head dims, heads a block); a kernel that is
+    not K4's is no form's."""
     from repro_torch.kernels.flash import ops
     assert ops.kernel_form(name) == form
     if key is not None:
