@@ -41,8 +41,8 @@ phase prints one JSON line:
            128; a box sum counts as a sliding sum)
   kernel   (K4) flash attention's four forms against the plain version:
            the bf16 prefill forms on the tensor cores (prefill_wgmma at
-           (Dk, Dv) = (128, 128) and (256, 256), prefill_mma at (64, 64)
-           and (192, 128)), the f32 SIMT prefill form (prefill_simt) and
+           (Dk, Dv) = (64, 64), (128, 128) and (256, 256), prefill_mma at
+           (192, 128)), the f32 SIMT prefill form (prefill_simt) and
            the decode form, at the model's
            shapes (prefill B 4, S 1024, H 4, Hkv 1, D 256 in bf16, with
            window 512 and without, and the f32 check's B 2 local layer;
@@ -85,7 +85,9 @@ phase prints one JSON line:
            path) and the bound (the larger of q,
            k, v and o once over 3.35 TB/s and 2 (Dk + Dv) flops per
            unmasked (q, k) pair over the type's peak: 989 TFLOP/s dense bf16,
-           67 TFLOP/s f32)
+           67 TFLOP/s f32); a bf16 prefill case also reads the SM clock
+           (nvidia-smi every 10 ms) while it runs back to back, as each
+           family's profiled bf16 prefill_fn does
   hw       the hardware half, on the host (the scalar engine): each app
            at the paper's size (compiled once, the hardware flow
            included, and reused by the phases below): compile_pipeline
@@ -260,7 +262,7 @@ phase prints one JSON line:
            form on gemma3-1b's path and once per form on each family's
            path that launches it, ``flash_attention:<form>:<arch>``, the
            training paths' ``flash_attention:prefill_wgmma:train`` and
-           ``flash_attention:prefill_mma:train:<arch>``, the cycle kernel) with its launches on its main path (the counters
+           ``flash_attention:<form>:train:<arch>``, the cycle kernel) with its launches on its main path (the counters
            are reset just before the cycle phase's path, the image path
            phase, each f32 prefill_fn call and each bf16 prefill_fn call;
            each K4 entry counts one path's launches beside the case at
@@ -332,12 +334,11 @@ MLA_PADDED = 256
 # exponentials of f32 scores (bf16 products are exact in f32)
 LSE_ATOL = 1e-4
 # K4's prefill kernels by ``flash.ops.resources``' keys: the wgmma form at
-# D 128 and 256, the Q-register kernel at (Dk, Dv) with 1..GH_max heads a
-# block, the SIMT form at each (Dk, Dv)
+# D 64, 128 and 256, the Q-register kernel at MLA's (192, 128), the SIMT
+# form at each (Dk, Dv)
 K4_PREFILL_BUILDS = {
-    "prefill_wgmma": ["bf16_d128", "bf16_d256"],
-    "prefill_mma": ["bf16_d64_g1", "bf16_d64_g2", "bf16_d64_g3",
-                    "bf16_d192_128_g1"],
+    "prefill_wgmma": ["bf16_d64", "bf16_d128", "bf16_d256"],
+    "prefill_mma": ["bf16_d192_128"],
     "prefill_simt": ["f32_d64", "f32_d128", "f32_d192_128", "f32_d256"]}
 # the bf16 prefill forms on the tensor cores
 K4_BF16_FORMS = ("prefill_wgmma", "prefill_mma")
@@ -405,6 +406,28 @@ def smi(query: str) -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clock_mhz(torch, call, reps: int = 1, seconds: float = 0.3) -> dict:
+    """The SM clock (MHz) that nvidia-smi samples every 10 ms while
+    ``call`` runs back to back (``reps`` calls a synchronize) for about
+    ``seconds``: min, median and max of the samples and their count."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits", "-lms", "10"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        first = proc.stdout.readline()          # the sampler is running
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        rest = proc.communicate(timeout=60)[0]
+    mhz = [int(x) for x in (first + rest).split() if x.isdigit()]
+    return {"min": min(mhz), "median": statistics.median(mhz),
+            "max": max(mhz), "samples": len(mhz)}
 
 
 def ptxas_summary(log: str):
@@ -1941,6 +1964,8 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes,
         "flops": flops, "pairs": pairs})
     line["share_of_bound"] = line["bound_ms"] / line["ms"]
+    if not decode and q.dtype == torch.bfloat16:
+        line["sm_clock_mhz"] = sm_clock_mhz(torch, run, reps=50)
     return line
 
 
@@ -2163,8 +2188,8 @@ def flash_phase(torch, np):
     for line in lines.values():
         emit(line)
     # each path's cases by "<form>:<key>", the bf16 prefill's form as the
-    # case launched it (the wgmma form at D 128 and 256, the Q-register
-    # form at D 64 and MLA's (192, 128))
+    # case launched it (the wgmma form at D 64, 128 and 256, the
+    # Q-register form at MLA's (192, 128))
     return {lines["main_local"]["form"]: lines["main_local"],
             "prefill_simt": lines["main_local_f32"],
             "decode": lines["decode_full"],
@@ -2189,14 +2214,18 @@ def _sync_ms(torch, fn):
 def prefill_device(torch, call, wall_ms: float) -> dict:
     """Where a bf16 prefill_fn call's device time goes: one call under the
     profiler, its device time against the unprofiled call's wall, K4's
-    tensor-core kernels' share and the top kernels."""
+    tensor-core kernels' share and the top kernels; the SM clock over
+    calls back to back (to set beside K4's case alone, whose line reads
+    it too)."""
     from repro_torch.kernels.timing import device_events
     with torch.no_grad():
         dev_ms, by_name = device_events(call, 1, warmup=1)
+        clock = sm_clock_mhz(torch, call)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
             "k4_device_ms": sum(ms for name, ms in by_name.items()
                                 if kernel_form(name) in K4_BF16_FORMS),
+            "sm_clock_mhz": clock,
             "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]}
 
 

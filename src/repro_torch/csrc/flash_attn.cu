@@ -1,9 +1,9 @@
 // K4: flash attention with an online softmax, in four forms: two bf16
 // prefill forms on the tensor cores (warpgroup products fed by the tensor
-// memory accelerator at (Dk, Dv) = (128, 128) and (256, 256),
-// flash_attn_wgmma.cuh; mma.sync with Q in registers at (64, 64) and
-// (192, 128), flash_attn_mma.cuh), a SIMT prefill form for float (below)
-// and a decode form for both (flash_decode.cu).
+// memory accelerator where Dk = Dv, at (64, 64), (128, 128) and (256,
+// 256), flash_attn_wgmma.cuh; mma.sync with Q in registers at MLA's (192,
+// 128), flash_attn_mma.cuh), a SIMT prefill form for float (below) and a
+// decode form for both (flash_decode.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // (driver flash_bhsd, wrappers flash_attention_tpu / flash_decode_tpu).
@@ -35,10 +35,10 @@
 // (attention_ref) does.
 //
 // bf16 prefill: flash_attn_wgmma.cuh (wgmma.mma_async on TMA tiles, a
-// producer warp and two consumer warpgroups) at (128, 128) and (256, 256),
-// flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a cp.async ring) at
-// (64, 64) and (192, 128); each header's note gives its design.  The pair
-// alone picks the form (prefill_form below, mirrored by
+// producer warp and two consumer warpgroups) at (64, 64), (128, 128) and
+// (256, 256), flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a cp.async
+// ring) at MLA's (192, 128); each header's note gives its design.  The
+// pair alone picks the form (prefill_form below, mirrored by
 // kernels/flash/ops.py's prefill_form).
 //
 // f32 prefill (the SIMT form, simt::flash_prefill_kernel): one block of 8
@@ -77,7 +77,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_attn_mma.cuh"     // Strides, launch_mma_qreg_any_g
+#include "flash_attn_mma.cuh"     // Strides, launch_mma_qreg
 #include "flash_attn_wgmma.cuh"   // launch_wgmma
 
 namespace {
@@ -437,7 +437,7 @@ cudaError_t launch_prefill(void* out, const void* q, const void* k,
 }  // namespace
 
 // The prefill form of a call: 0 the SIMT form (f32), 1 the Q-register
-// form (bf16 at (64, 64) and (192, 128)), 2 the wgmma form (bf16 at (128,
+// form (bf16 at (192, 128)), 2 the wgmma form (bf16 at (64, 64), (128,
 // 128) and (256, 256)); -1 for a pair or type K4 is not built for.
 constexpr int kFormSimt = 0, kFormQreg = 1, kFormWgmma = 2;
 constexpr int prefill_form(int dtype, int Dk, int Dv) {
@@ -445,7 +445,7 @@ constexpr int prefill_form(int dtype, int Dk, int Dv) {
                      (Dk == 192 && Dv == 128) || (Dk == 256 && Dv == 256);
   if (!built || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 0) return kFormSimt;
-  return Dk == Dv && Dk >= 128 ? kFormWgmma : kFormQreg;
+  return Dk == Dv ? kFormWgmma : kFormQreg;
 }
 
 // dtype: 0 float32, 1 bfloat16.  window 0 = none.  q_off: query row i
@@ -480,10 +480,9 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
 #undef K4_SIMT
     }
     case kFormQreg:
-      if (Dk == 64)
-        return int(launch_mma_qreg_any_g<64, 64>(K4_ARGS, Hkv, K4_BAND, st));
-      return int(launch_mma_qreg_any_g<192, 128>(K4_ARGS, Hkv, K4_BAND, st));
+      return int(launch_mma_qreg<192, 128>(K4_ARGS, Hkv, K4_BAND, st));
     case kFormWgmma:
+      if (Dk == 64) return int(launch_wgmma<64>(K4_ARGS, Hkv, K4_BAND, st));
       if (Dk == 128)
         return int(launch_wgmma<128>(K4_ARGS, Hkv, K4_BAND, st));
       return int(launch_wgmma<256>(K4_ARGS, Hkv, K4_BAND, st));
@@ -500,22 +499,17 @@ extern "C" int flash_prefill_form(int dtype, int Dk, int Dv) {
   return prefill_form(dtype, Dk, Dv);
 }
 
-// The Q-register form's dynamic shared memory per block at (Dk, Dv) with GH
-// heads a block (Q's staging and the ring), or 0 for an instantiation that
-// is not built.
-extern "C" int flash_mma_smem_bytes(int Dk, int Dv, int GH) {
-  if (Dk == 64 && Dv == 64 && GH >= 1 && GH <= 3)
-    return int(GH == 1 ? mma::qreg_smem_bytes<64, 64, 1>()
-               : GH == 2 ? mma::qreg_smem_bytes<64, 64, 2>()
-                         : mma::qreg_smem_bytes<64, 64, 3>());
-  if (Dk == 192 && Dv == 128 && GH == 1)
-    return int(mma::qreg_smem_bytes<192, 128, 1>());
+// The Q-register form's dynamic shared memory per block at (Dk, Dv) (Q's
+// staging and the ring), or 0 for an instantiation that is not built.
+extern "C" int flash_mma_smem_bytes(int Dk, int Dv) {
+  if (Dk == 192 && Dv == 128) return int(mma::qreg_smem_bytes<192, 128>());
   return 0;
 }
 
 // The wgmma form's dynamic shared memory per block at D (both warpgroups'
 // Q rows, the K / V ring, the mbarriers and the alignment slack), or 0.
 extern "C" int flash_wgmma_smem_bytes(int D) {
+  if (D == 64) return int(wg::smem_bytes<64>());
   if (D == 128) return int(wg::smem_bytes<128>());
   if (D == 256) return int(wg::smem_bytes<256>());
   return 0;

@@ -1,14 +1,14 @@
-// K4's bf16 prefill form on the tensor cores at (Dk, Dv) = (64, 64) and
-// (192, 128) (DeepSeek-V2's MLA, unpadded): flash_mma_qreg_kernel<DK, DV,
-// GH>, mma.sync m16n8k16 (bf16 in, f32 accumulate), operands from shared
-// memory through ldmatrix, tiles brought in by cp.async into a two-stage
-// ring, Q in registers, GH query heads of one kv head a block.  Included by
-// flash_attn.cu, whose launcher sends the bf16 prefills at these pairs
-// here; (128, 128) and (256, 256) take the wgmma form
-// (flash_attn_wgmma.cuh), f32 the SIMT form.  (Until the wgmma form, this
-// header also held flash_mma_kernel, D 256 with Q in shared memory and
-// 32-key tiles, and built this kernel at (128, 128); PERF.md keeps their
-// last times.)
+// K4's bf16 prefill form on the tensor cores at (Dk, Dv) = (192, 128)
+// (DeepSeek-V2's MLA, unpadded): flash_mma_qreg_kernel<DK, DV>, mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), operands from shared memory through
+// ldmatrix, tiles brought in by cp.async into a two-stage ring, Q in
+// registers, 128 rows of one query head a block.  Included by
+// flash_attn.cu, whose launcher sends the bf16 prefills at that pair here;
+// the pairs with Dk = Dv take the wgmma form (flash_attn_wgmma.cuh), f32
+// the SIMT form.  (Until the wgmma form, this header also held
+// flash_mma_kernel, D 256 with Q in shared memory and 32-key tiles, and
+// built this kernel at (128, 128) and at (64, 64) with up to 3 query heads
+// of a kv head a block; PERF.md keeps their last times.)
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // for bf16 operands, with the function written at the top of flash_attn.cu
@@ -24,8 +24,8 @@
 // bounds this form instead is shared memory and the softmax's per-element
 // work: every warp reads the whole K and V tile through ldmatrix.
 //
-// Layout (qreg_rows, qreg_max_heads, kQKeys, kQStages), the fastest of the
-// layouts measured on an H100:
+// Layout (kQRows, kQKeys, kQStages), the fastest of the layouts measured
+// on an H100:
 //
 // - Q in registers.  With Dv at most 128 the O accumulator is at most 64
 //   registers a thread, so each warp loads its 16 x Dk Q fragments once
@@ -37,15 +37,8 @@
 //   every query row of its block, so the copies per product fall with the
 //   rows a block holds.  At (192, 128) a block holds 128 rows of one head
 //   (8 warps; 64 rows ran MLA 30 % slower) and a ring of two stages (three
-//   measured within 1 %): 137,216 bytes, one block an SM.  At D 64 a block
-//   owns one (batch, kv head, 64-row q tile) and GH of the kv head's g
-//   query heads, 4 warps each (granite's g 3: 12 warps, K and V copied once
-//   where one head a block copied them three times); a larger group is
-//   split over ceil(g / GH_max) blocks of equal GH (GH_max 3 at D 64, 1 at
-//   192, where more warps would spill), a block's heads past g loading
-//   zeros and writing nothing.  Two m16 row tiles a warp, 32- or 128-key
-//   tiles, 3 stages and a launch bound of two blocks an SM measured no
-//   faster at D 64, nor did 128 rows a block there.
+//   measured within 1 %): 137,216 bytes, one block an SM; more warps a
+//   block would spill.
 // - Shared memory: Q's staging and the K / V ring, all bf16, each row
 //   padded by 8 elements (16 bytes), so consecutive rows start 16 bytes
 //   apart modulo 128 and the 8 row addresses of each 8x8 ldmatrix fall in
@@ -144,27 +137,18 @@ __device__ __forceinline__ int b_col(int lane) {
 
 // ---- the Q-register form ------------------------------------------------
 
-// The Q-register form's layout (the header's note): the query rows of a
-// head a block (QT), 64 at D 64 and 128 at (192, 128); the most query
-// heads a block, 3 at D 64 and 1 at (192, 128); 64-key tiles in a
-// two-stage ring; 16 rows a warp.
+// The Q-register form's layout (the header's note): 128 query rows of a
+// head a block, 16 a warp; 64-key tiles in a two-stage ring.
+constexpr int kQRows = 128;
+constexpr int kQThreads = 32 * kQRows / 16;
 constexpr int kQKeys = 64;
 constexpr int kQStages = 2;
-template <int DK> __host__ __device__ constexpr int qreg_rows() {
-  return DK == 64 ? 64 : 128;
-}
-template <int DK> __host__ __device__ constexpr int qreg_max_heads() {
-  return DK == 64 ? 3 : 1;
-}
-template <int DK, int GH> __host__ __device__ constexpr int qreg_threads() {
-  return 32 * GH * qreg_rows<DK>() / 16;
-}
 
-// Q's staging (GH heads x QT rows x Dk) and the ring of K (Dk) and V (Dv)
-// tiles, every row padded by kPad
-template <int DK, int DV, int GH>
+// Q's staging (QT rows x Dk) and the ring of K (Dk) and V (Dv) tiles,
+// every row padded by kPad
+template <int DK, int DV>
 __host__ __device__ constexpr size_t qreg_smem_bytes() {
-  return sizeof(bf16) * (size_t(GH) * qreg_rows<DK>() * (DK + kPad) +
+  return sizeof(bf16) * (size_t(kQRows) * (DK + kPad) +
                          size_t(kQStages) * kQKeys * (DK + kPad + DV + kPad));
 }
 
@@ -203,45 +187,38 @@ __device__ __forceinline__ void load_rows(bf16* s, const bf16* g,
   }
 }
 
-// Block (x: (b * Hkv + hk) * nhb + hb, y: q tile from the last): query
-// heads hk * g + hb * GH + i (i < GH, those below g) against kv head hk;
-// warp w serves head w / WPH, rows 16 (w % WPH) .. of the QT-row q tile.
+// Block (x: b * H + h, y: q tile from the last): query head h against kv
+// head h / g; warp w serves rows 16 w .. of the QT-row q tile.
 // One barrier a key tile: tile j's copies are waited for, the barrier
 // makes them visible and frees the stage tile j - 1 used, and tile j + 1
 // goes into that stage while tile j is computed.  A warp whose rows all
 // sit before a causal tile's first key skips it (exactly: their bands lie
 // in tiles already seen, so it would add p = 0).  The header's note gives
 // the design.
-template <int DK, int DV, int GH>
-__global__ void __launch_bounds__(qreg_threads<DK, GH>(), 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(kQThreads, 1)
 flash_mma_qreg_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
                       const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      Strides qs, Strides ks, Strides vs, int H, int Hkv,
-                      int g, int nhb, int sq, int skv, int causal,
-                      int window, int q_off, float scale,
-                      float* __restrict__ lse) {
+                      Strides qs, Strides ks, Strides vs, int H, int g,
+                      int sq, int skv, int causal, int window, int q_off,
+                      float scale, float* __restrict__ lse) {
   constexpr int NS = kQStages, BK = kQKeys;
-  constexpr int QT = qreg_rows<DK>(), NT = qreg_threads<DK, GH>();
-  constexpr int WPH = QT / 16;             // warps a head
+  constexpr int QT = kQRows, NT = kQThreads;
   constexpr int RSK = DK + kPad, RSV = DV + kPad;
   constexpr int NQ = DK / 16;              // Q's A fragments
   constexpr int NO = DV / 8;               // n8 blocks of the O accumulator
   static_assert(DK % 64 == 0 && DV % 64 == 0, "64-column segments");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [GH][QT][RSK]
-  bf16* sK = sQ + GH * QT * RSK;                  // [NS][BK][RSK]
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [QT][RSK]
+  bf16* sK = sQ + QT * RSK;                       // [NS][BK][RSK]
   bf16* sV = sK + NS * BK * RSK;                  // [NS][BK][RSV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tig = lane & 3;       // fragment row, column pair
-  const int hb = blockIdx.x % nhb, bkv = blockIdx.x / nhb;
-  const int b = bkv / Hkv, hk = bkv % Hkv;
-  const int hw = warp / WPH;                      // the warp's head: in the
-  const int hg = hb * GH + hw;                    // block, in hk's group
-  const int h = hk * g + hg;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / g;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * QT, q1 = min(q0 + QT, sq);
-  const int w0 = q0 + (warp % WPH) * 16;          // the warp's first row
-  const bool busy = hg < g && w0 < sq;
+  const int w0 = q0 + warp * 16;                  // the warp's first row
+  const bool busy = w0 < sq;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
@@ -256,14 +233,7 @@ flash_mma_qreg_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
   }
 
   // Q, then tiles 0 .. NS-2, one copy group each
-#pragma unroll
-  for (int i = 0; i < GH; ++i) {
-    const bool live = hb * GH + i < g;
-    load_rows<DK, RSK, QT, NT>(
-        sQ + i * QT * RSK,
-        live ? q + b * qs.b + (hk * g + hb * GH + i) * qs.h : q, qs.s, q0,
-        live ? sq : 0, tid);
-  }
+  load_rows<DK, RSK, QT, NT>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq, tid);
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) {
@@ -279,8 +249,8 @@ flash_mma_qreg_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
   __syncthreads();
   uint32_t qf[NQ][4];
   {
-    const uint32_t qa = smem_u32(
-        sQ + (hw * QT + (warp % WPH) * 16 + a_row(lane)) * RSK + a_col(lane));
+    const uint32_t qa =
+        smem_u32(sQ + (warp * 16 + a_row(lane)) * RSK + a_col(lane));
 #pragma unroll
     for (int kk = 0; kk < NQ; ++kk) ldsm_x4(qf[kk], qa + kk * 32);
   }
@@ -423,48 +393,24 @@ flash_mma_qreg_kernel(bf16* __restrict__ out, const bf16* __restrict__ q,
 
 }  // namespace mma
 
-template <int DK, int DV, int GH>
+template <int DK, int DV>
 cudaError_t launch_mma_qreg(void* out, const void* q, const void* k,
                             const void* v, Strides qs, Strides ks, Strides vs,
-                            int B, int H, int Hkv, int nhb, int sq, int skv,
+                            int B, int H, int Hkv, int sq, int skv,
                             int causal, int window, int q_off, float scale,
                             float* lse, cudaStream_t stream) {
-  constexpr size_t smem = mma::qreg_smem_bytes<DK, DV, GH>();
+  constexpr size_t smem = mma::qreg_smem_bytes<DK, DV>();
   const cudaError_t err = cudaFuncSetAttribute(
-      mma::flash_mma_qreg_kernel<DK, DV, GH>,
+      mma::flash_mma_qreg_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  constexpr int QT = mma::qreg_rows<DK>();
-  const dim3 grid(B * Hkv * nhb, (sq + QT - 1) / QT, 1);
-  mma::flash_mma_qreg_kernel<DK, DV, GH>
-      <<<grid, mma::qreg_threads<DK, GH>(), smem, stream>>>(
+  const dim3 grid(B * H, (sq + mma::kQRows - 1) / mma::kQRows, 1);
+  mma::flash_mma_qreg_kernel<DK, DV>
+      <<<grid, mma::kQThreads, smem, stream>>>(
           static_cast<mma::bf16*>(out), static_cast<const mma::bf16*>(q),
           static_cast<const mma::bf16*>(k), static_cast<const mma::bf16*>(v),
-          qs, ks, vs, H, Hkv, H / Hkv, nhb, sq, skv, causal, window, q_off,
-          scale, lse);
+          qs, ks, vs, H, H / Hkv, sq, skv, causal, window, q_off, scale, lse);
   return cudaGetLastError();
-}
-
-// the Q-register form for any g: ceil(g / GH_max) head blocks a kv head,
-// each of GH = ceil(g / blocks) heads (GH_max: qreg_max_heads)
-template <int DK, int DV>
-cudaError_t launch_mma_qreg_any_g(void* out, const void* q, const void* k,
-                                  const void* v, Strides qs, Strides ks,
-                                  Strides vs, int B, int H, int Hkv, int sq,
-                                  int skv, int causal, int window, int q_off,
-                                  float scale, float* lse,
-                                  cudaStream_t stream) {
-  constexpr int GHMAX = mma::qreg_max_heads<DK>();
-  const int g = H / Hkv;
-  const int nhb = (g + GHMAX - 1) / GHMAX, gh = (g + nhb - 1) / nhb;
-#define K4_QREG(GH)                                                        \
-  launch_mma_qreg<DK, DV, GH>(out, q, k, v, qs, ks, vs, B, H, Hkv, nhb, sq, \
-                              skv, causal, window, q_off, scale, lse, stream)
-  if (gh == 1) return K4_QREG(1);
-  if constexpr (GHMAX >= 2) if (gh == 2) return K4_QREG(2);
-  if constexpr (GHMAX >= 3) if (gh == 3) return K4_QREG(3);
-#undef K4_QREG
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

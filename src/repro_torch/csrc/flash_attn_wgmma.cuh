@@ -1,12 +1,13 @@
-// K4's bf16 prefill form for Hopper at (Dk, Dv) = (128, 128) and (256,
-// 256): flash_wgmma_kernel<D>, warpgroup products (wgmma.mma_async) on
-// tiles that the tensor memory accelerator (cp.async.bulk.tensor) copies
-// into shared memory.  Included by flash_attn.cu, whose launcher sends
-// every bf16 prefill at those two pairs here; (64, 64) and (192, 128)
-// stay on the Q-register form (flash_attn_mma.cuh), f32 on the SIMT form.
+// K4's bf16 prefill form for Hopper where Dk = Dv, at (64, 64), (128, 128)
+// and (256, 256): flash_wgmma_kernel<D>, warpgroup products
+// (wgmma.mma_async) on tiles that the tensor memory accelerator
+// (cp.async.bulk.tensor) copies into shared memory.  Included by
+// flash_attn.cu, whose launcher sends every bf16 prefill at those pairs
+// here; MLA's (192, 128) stays on the Q-register form (flash_attn_mma.cuh),
+// f32 on the SIMT form.
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
-// for bf16 operands at D 128 and 256, with the function written at the
+// for bf16 operands at D 64, 128 and 256, with the function written at the
 // top of flash_attn.cu (scores in f32, -1e30 where the causal or window
 // band drops a key, no weight past skv, p rounded to bf16 before p . v, l
 // summing the unrounded p, out = acc / max(l, 1e-30) in bf16, the lse as
@@ -14,35 +15,45 @@
 //
 // Bound on an H100: 2 (Dk + Dv) flops a (q, k) pair in the band at the
 // dense bf16 rate, against q, k, v and out's bytes at 3.35 TB/s.  At the
-// paths' prefills (B 4, S 1024, causal) the products bound every call:
-// qwen2-vl's g 7 at D 128 is 30.1 GFLOP (0.0304 ms) against 67.1 MB
-// (0.0200 ms); gemma-2b's MQA at D 256 17.2 GFLOP (0.0174 ms) against 37.7
-// MB (0.0113 ms).  The forms this one replaces issued mma.sync, in which
-// every warp reads the whole K and V tile through ldmatrix for its own 16
-// rows; wgmma reads B from shared memory once for the four warps of a
-// warpgroup and keeps A (Q) in shared memory too, and the copies cost no
-// thread a register or an instruction.
+// paths' prefills (B 4, S 1024, causal): qwen2-vl's g 7 at D 128 is 30.1
+// GFLOP (0.0304 ms) against 67.1 MB (0.0200 ms); gemma-2b's MQA at D 256
+// 17.2 GFLOP (0.0174 ms) against 37.7 MB (0.0113 ms); musicgen's MHA at D
+// 64 12.9 GFLOP (0.0130 ms) against 50.3 MB (0.0150 ms), bound by bytes.
+// The forms this one replaces issued mma.sync, in which every warp reads
+// the whole K and V tile through ldmatrix for its own 16 rows; wgmma reads
+// B from shared memory once for the four warps of a warpgroup and keeps A
+// (Q) in shared memory too, and the copies cost no thread a register or
+// an instruction.  At D 64 the exponentials of a tile take about as long
+// as its products (16 a clock an SM), so the products hide less of the
+// softmax than at D 128.
 //
 // Layout.  A block of 384 threads: warpgroup 0 is the producer (one
 // thread issues every TMA copy; setmaxnreg drops its warps to 40
 // registers), warpgroups 1 and 2 consume (232 registers each, the 168 a
 // thread of the launch moved over: 128 x 40 + 256 x 232 = 384 x 168).
-// A block per (batch, query head, 128-row q tile), each consumer
-// warpgroup owning 64 consecutive rows for the whole softmax, q tiles
-// longest first (blockIdx.y counts from the last) so the causal tiles
-// with the most keys start in the first wave.  Whatever g, no head slot
-// idles (g 7 included).  The head-pair layout (the two warpgroups on the
-// same 64 rows of two query heads of one kv head, each K and V tile
-// serving both) measured faster at some even g and slower at g 7
-// (PERF.md §6; that variant, a text edit of this header, is not kept).
+// The grid is persistent, one block an SM: a work item is a (batch, query
+// head, 128-row q tile), each consumer warpgroup owning 64 consecutive
+// rows for the whole softmax; the list runs longest q tiles first and
+// block x takes item x of each even pass of the grid over it and item
+// gridDim.x - 1 - x of each odd one (snake), so the causal work evens out
+// over the blocks.  A block pays its launch, its barriers' set-up and its
+// first copies once rather than once an item: the next item's Q lands in
+// a second buffer and its first K and V tiles in the ring while this one
+// runs (at D 64 a block per item spent about 4.5 us on those a block,
+// 26 of musicgen's 63 us).  Whatever g, no head slot idles (g 7
+// included).  The head-pair layout (the two warpgroups on the same 64 rows
+// of two query heads of one kv head, each K and V tile serving both)
+// measured faster at some even g and slower at g 7 (PERF.md §6; that
+// variant, a text edit of this header, is not kept).
 //
-// Tiles.  Key tiles of 128 keys at D 128 and 64 at D 256: the S
+// Tiles.  Key tiles of 128 keys at D 64 and 128 and 64 at D 256: the S
 // accumulator (64 x BK f32, BK / 2 registers a thread) sits beside O (64
-// x D f32: 64 registers at D 128, 128 at D 256) and P (BK / 4).  Two
-// stages of K and V.  Shared bytes (smem_bytes, reported by
-// flash_wgmma_smem_bytes): Q 128 x D, 2 x (K + V) BK x D, all bf16, nine
-// mbarriers and 1024 bytes that align the swizzled tiles: 164,936 at D
-// 128, 197,704 at D 256; one block an SM.
+// x D f32: 32 registers at D 64, 64 at D 128, 128 at D 256) and P (BK /
+// 4).  Two stages of K and V.  Shared bytes (smem_bytes, reported by
+// flash_wgmma_smem_bytes): qbufs() Q buffers of 128 x D, 2 x (K + V) BK x
+// D, all bf16, the mbarriers and 1024 bytes that align the swizzled
+// tiles: 99,424 at D 64, 197,728 at D 128, 197,712 at D 256 (one Q
+// buffer: a second does not fit beside the ring).
 //
 // Copies.  Each operand has a 4-D tensor map (d, s, h, b) over its own
 // strides, encoded on the host at every call (cuTensorMapEncodeTiled,
@@ -52,9 +63,11 @@
 // head, so a D-wide tile is D / 64 boxes; rows past sq or skv arrive as
 // zeros.  The strided head views models/layers.py passes need no copy;
 // the wrapper's 16-byte rule (_checks.rows_aligned) is TMA's alignment.
-// Q is copied once; K_j and V_j each complete on their own full barrier
-// and are released on their own empty barrier (256 arrivals), so K_j+1
-// can land while V_j is still read.
+// An item's Q completes on its buffer's full barrier and the buffer is
+// released, once the item's out has been stored from it, on its empty
+// barrier; K_j and V_j each complete on their own full barrier and are
+// released on their own empty barrier (256 arrivals), so K_j+1 can land
+// while V_j is still read.
 //
 // Products.  S = Q K^T: wgmma m64nBKk16 with both operands in shared
 // memory, K-major (a descriptor of the 128-byte swizzle; a k16 step moves
@@ -69,11 +82,11 @@
 // still runs, then waits for PV_{j-1}, rescales O and packs P_j.  The two
 // warpgroups take turns to issue (named barriers 1 and 2: ping-pong), so
 // the tensor cores run one warpgroup's products while the other computes
-// exponentials.  Every warpgroup runs every tile of its block: a wgmma
+// exponentials.  Every warpgroup runs every tile of its item: a wgmma
 // under a per-warpgroup test was serialized by ptxas ("compiler-inserted
 // WG.AR in divergent path"), so a tile outside one warpgroup's band
 // computes p = 0 there rather than being skipped.  Tiles wholly outside
-// the block's band are neither copied nor computed (gemma3-1b's window
+// the item's band are neither copied nor computed (gemma3-1b's window
 // 512, q_offset); a tile inside every row's band skips the masking.
 //
 // Softmax.  Scores scaled to log2 units (x = s * scale * log2(e), so any
@@ -86,14 +99,17 @@
 // Epilogue.  out / l is packed to bf16 into the warpgroup's own Q rows
 // (its last S has read them) in the swizzled layout the Q copy used, and
 // one thread stores each 64-column chunk with a TMA store (rows past sq
-// are not written): the block's stores leave asynchronously, where the
-// threads' own 4-byte stores held the SM to the end of each block.  The
-// lse, when asked for, goes straight from the quad's first thread.
+// are not written), waits until the store has read the rows, and frees
+// the buffer.  The lse, when asked for, goes straight from the quad's
+// first thread.
 //
 // Measured on an H100 and rejected (PERF.md §6; the variants were text
 // edits of this header, not kept): the serial schedule (S, softmax, PV,
 // each waited for), 3 stages at D 128, ping-pong off, the threads' own
-// stores, the head-pair layout.
+// stores, the head-pair layout; at D 64, three consumer warpgroups of 192
+// rows, two blocks an SM of one consumer warpgroup each (level with the
+// persistent grid once it was persistent too), three or four stages,
+// 64-key tiles, the work list in groups of heads.
 #pragma once
 
 #include <cuda.h>               // CUtensorMap and its enums (no libcuda link)
@@ -101,6 +117,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "flash_common.cuh"     // Strides, smem_u32, pack_bf16, kMaskAdd
 
@@ -113,7 +131,8 @@ using mma::pack_bf16;
 using mma::smem_u32;
 
 constexpr int kWGRows = 64;             // query rows a consumer warpgroup
-constexpr int kThreads = 384;           // the producer's warpgroup, 2 consumers
+constexpr int kConsumers = 2;           // consumer warpgroups a block
+constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer's
 constexpr int kChunk = 64;              // bf16 columns of a 128-byte box
 constexpr int kProducerRegs = 40;       // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int kConsumerRegs = 232;      // = 384 x 168, the launch's registers
@@ -124,27 +143,35 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMaskL2 = -1.4426950408889634e30f;
 
 // The tile plan (the header's note): keys a tile, and the shared bytes of
-// both warpgroups' Q rows, stages() K and V tiles, the mbarriers and the
-// slack that aligns the base to the 1024 bytes of a swizzle pattern.
+// the Q buffers (both warpgroups' rows each), stages() K and V tiles, the
+// mbarriers and the slack that aligns the base to the 1024 bytes of a
+// swizzle pattern.
 template <int D> __host__ __device__ constexpr int keys() {
   return D == 256 ? 64 : 128;
 }
-// K and V tiles in flight (a third stage at D 128 measured level with
-// two; at D 256 it does not fit beside Q)
+// K and V tiles in flight (a third stage at D 128, a third or fourth at D
+// 64 measured level with two; at D 256 it does not fit beside Q)
 template <int D> __host__ __device__ constexpr int stages() { return 2; }
 template <int D> __host__ __device__ constexpr uint32_t q_bytes() {
-  return 2u * kWGRows * D * 2;
+  return uint32_t(kConsumers) * kWGRows * D * 2;
+}
+// Q buffers: the next item's Q lands while this one's runs (at D 256 a
+// second does not fit beside the ring)
+template <int D> __host__ __device__ constexpr int qbufs() {
+  return D == 256 ? 1 : 2;
 }
 template <int D> __host__ __device__ constexpr uint32_t tile_bytes() {
   return uint32_t(keys<D>()) * D * 2;
 }
 template <int D> __host__ __device__ constexpr uint32_t bar_offset() {
-  return q_bytes<D>() + 2u * stages<D>() * tile_bytes<D>();
+  return qbufs<D>() * q_bytes<D>() + 2u * stages<D>() * tile_bytes<D>();
 }
 template <int D> __host__ __device__ constexpr size_t smem_bytes() {
-  return size_t(bar_offset<D>()) + 8 * (1 + 4 * stages<D>()) + 1024;
+  return size_t(bar_offset<D>()) + 8 * (2 * qbufs<D>() + 4 * stages<D>()) +
+         1024;
 }
-static_assert(smem_bytes<128>() <= 232448 && smem_bytes<256>() <= 232448,
+static_assert(smem_bytes<64>() <= 232448 && smem_bytes<128>() <= 232448 &&
+                  smem_bytes<256>() <= 232448,
               "a block's shared memory");
 
 // ---- mbarriers, TMA and wgmma in inline PTX -----------------------------
@@ -293,6 +320,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64 f32) += A (64 x 16 bf16 in registers, the m16n8k16 A
+// fragment of each warp's 16 rows) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128 f32) += A (64 x 16 bf16 in registers, the m16n8k16 A
 // fragment of each warp's 16 rows) . B (16 x 128, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -371,59 +419,88 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Block (x: b * H + h, y: q tile from the last): the consumer
-// warpgroups take rows q0 .. q0+63 and q0+64 .. q0+127 of query head h.
-// Warp 0 of warpgroup 0 is the producer: one thread copies Q, then each
-// key tile's K and V into the ring; warpgroups 1 and 2 consume.  The
-// header's note gives the design.
+// A persistent block (one an SM) walks its share of the work items, each
+// a (batch, query head, q tile of NW x 64 rows); consumer warpgroup w takes
+// rows row0 + 64 w .. of the item's head.  Warp 0 of warpgroup 0 is the
+// producer: one thread copies each item's Q into one of qbufs() buffers,
+// then each key tile's K and V into the ring, running ahead into the next
+// item; the other warpgroups consume.  The header's note gives the design.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                    const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv,
                    const __grid_constant__ CUtensorMap tmo,
-                   float* __restrict__ lse, int H, int g, int sq, int skv,
-                   int causal, int window, int q_off, float scale) {
+                   float* __restrict__ lse, int B, int H, int g, int sq,
+                   int skv, int causal, int window, int q_off, float scale) {
   constexpr int BK = keys<D>();
+  constexpr int NW = kConsumers;
+  constexpr int NQ = qbufs<D>();
   constexpr int NC = D / kChunk;           // 128-byte column chunks a row
   constexpr uint32_t QWG = kWGRows * D * 2;  // one warpgroup's Q bytes
   constexpr uint32_t TILE = tile_bytes<D>();
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + 1023) & ~1023u;
   constexpr int NS = stages<D>();
-  const uint32_t sQ = base, sK = base + q_bytes<D>(), sV = sK + NS * TILE;
-  // mbarriers: Q's, then per stage K full, V full, K empty and V empty
+  const uint32_t sQ = base, sK = base + NQ * q_bytes<D>(),
+                 sV = sK + NS * TILE;
+  // mbarriers: per Q buffer full and empty, then per stage K full, V
+  // full, K empty and V empty
   const uint32_t bar = base + bar_offset<D>();
-  const uint32_t q_full = bar;
-  auto k_full = [&](int st) { return bar + 8 * (1 + st); };
-  auto v_full = [&](int st) { return bar + 8 * (1 + NS + st); };
-  auto k_empty = [&](int st) { return bar + 8 * (1 + 2 * NS + st); };
-  auto v_empty = [&](int st) { return bar + 8 * (1 + 3 * NS + st); };
+  auto q_full = [&](int qb) { return bar + 8 * qb; };
+  auto q_empty = [&](int qb) { return bar + 8 * (NQ + qb); };
+  const uint32_t ring = bar + 16 * NQ;
+  auto k_full = [&](int st) { return ring + 8 * st; };
+  auto v_full = [&](int st) { return ring + 8 * (NS + st); };
+  auto k_empty = [&](int st) { return ring + 8 * (2 * NS + st); };
+  auto v_empty = [&](int st) { return ring + 8 * (3 * NS + st); };
 
-  // warpgroup w (0, 1) owns rows row0(w) .. row0(w) + 63 of head h
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / g;
-  auto row0 = [&](int w) { return (2 * qt + w) * kWGRows; };
-  const int lo = row0(0), hi = min(sq, row0(1) + kWGRows);
-
-  // the keys the block's band meets (row i sits at position i + q_off); a
-  // row with no key in its band (only with a window and sq + q_off > skv)
-  // needs every key, at the mask value
-  const int p0 = lo + q_off, p1 = hi + q_off;
-  int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
-  if (window > 0) {
-    if (p1 - window >= skv) kv_hi = skv;
-    else kv_lo = max(0, p0 - window + 1);
-  }
-  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
+  // Work item i of this block: passes of gridDim.x items over the list,
+  // longest q tiles first, in snake order (block x takes item x of an
+  // even pass and gridDim.x - 1 - x of an odd one), so each block's sum
+  // of causal work evens out; -1 past the list.
+  const int nqt = (sq + NW * kWGRows - 1) / (NW * kWGRows);
+  const int nwork = B * H * nqt;
+  auto work = [&](int i) {
+    const int wk = i * int(gridDim.x) +
+                   (i & 1 ? int(gridDim.x) - 1 - int(blockIdx.x)
+                          : int(blockIdx.x));
+    return wk < nwork ? wk : -1;
+  };
+  // an item's head, rows and band: the keys its rows meet (row i sits at
+  // position i + q_off); a row with no key in its band (only with a
+  // window and sq + q_off > skv) needs every key, at the mask value
+  struct Item {
+    int b, h, row0, kv_lo, ntiles;
+  };
+  auto item = [&](int wk) {
+    Item it;
+    const int bh = wk % (B * H);
+    it.b = bh / H;
+    it.h = bh % H;
+    it.row0 = (nqt - 1 - wk / (B * H)) * NW * kWGRows;
+    const int hi = min(sq, it.row0 + NW * kWGRows);
+    const int p0 = it.row0 + q_off, p1 = hi + q_off;
+    int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
+    if (window > 0) {
+      if (p1 - window >= skv) kv_hi = skv;
+      else kv_lo = max(0, p0 - window + 1);
+    }
+    it.kv_lo = kv_lo;
+    it.ntiles = (kv_hi - kv_lo + BK - 1) / BK;   // at least 1: skv >= 1
+    return it;
+  };
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    for (int qb = 0; qb < NQ; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), NW);
+    }
     for (int st = 0; st < NS; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
-      mbar_init(k_empty(st), 2 * 128);
-      mbar_init(v_empty(st), 2 * 128);
+      mbar_init(k_empty(st), NW * 128);
+      mbar_init(v_empty(st), NW * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -434,162 +511,186 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     // ---- producer: one thread issues every copy ----
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      // both warpgroups' rows, those past sq as zeros
-      mbar_expect_tx(q_full, 2 * QWG);
-      for (int w = 0; w < 2; ++w)
-        for (int c = 0; c < NC; ++c)
-          tma_load(sQ + w * QWG + c * (kWGRows * 128), &tmq, q_full,
-                   c * kChunk, row0(w), h, b);
-      for (int j = 0; j < ntiles; ++j) {
-        const int st = j % NS, t0 = kv_lo + j * BK;
-        const int done = ((j / NS) - 1) & 1;   // tile j - NS's release
-        if (j >= NS) mbar_wait(k_empty(st), done);
-        mbar_expect_tx(k_full(st), TILE);
-        for (int c = 0; c < NC; ++c)
-          tma_load(sK + st * TILE + c * (BK * 128), &tmk, k_full(st),
-                   c * kChunk, t0, hk, b);
-        if (j >= NS) mbar_wait(v_empty(st), done);
-        mbar_expect_tx(v_full(st), TILE);
-        for (int c = 0; c < NC; ++c)
-          tma_load(sV + st * TILE + c * (BK * 128), &tmv, v_full(st),
-                   c * kChunk, t0, hk, b);
+      int n = 0;                           // key tiles copied so far
+      for (int i = 0, wk; (wk = work(i)) >= 0; ++i) {
+        const Item it = item(wk);
+        const int qb = i % NQ, hk = it.h / g;
+        // every consumer's rows, those past sq as zeros, once the item
+        // NQ before has stored its out from this buffer
+        if (i >= NQ) mbar_wait(q_empty(qb), (i / NQ - 1) & 1);
+        mbar_expect_tx(q_full(qb), NW * QWG);
+        for (int w = 0; w < NW; ++w)
+          for (int c = 0; c < NC; ++c)
+            tma_load(sQ + qb * q_bytes<D>() + w * QWG + c * (kWGRows * 128),
+                     &tmq, q_full(qb), c * kChunk, it.row0 + w * kWGRows,
+                     it.h, it.b);
+        for (int j = 0; j < it.ntiles; ++j, ++n) {
+          const int st = n % NS, t0 = it.kv_lo + j * BK;
+          const int done = (n / NS - 1) & 1;   // tile n - NS's release
+          if (n >= NS) mbar_wait(k_empty(st), done);
+          mbar_expect_tx(k_full(st), TILE);
+          for (int c = 0; c < NC; ++c)
+            tma_load(sK + st * TILE + c * (BK * 128), &tmk, k_full(st),
+                     c * kChunk, t0, hk, it.b);
+          if (n >= NS) mbar_wait(v_empty(st), done);
+          mbar_expect_tx(v_full(st), TILE);
+          for (int c = 0; c < NC; ++c)
+            tma_load(sV + st * TILE + c * (BK * 128), &tmv, v_full(st),
+                     c * kChunk, t0, hk, it.b);
+        }
       }
     }
   } else {
-    // ---- consumers: warpgroup w owns 64 rows for the whole softmax ----
+    // ---- consumers: warpgroup w owns 64 rows of an item for its whole
+    // softmax ----
     setmaxnreg_inc<kConsumerRegs>();
     const int w = wgi - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int gr = lane / 4, tig = lane % 4;  // fragment row, column pair
-    const int pw0 = row0(w) + q_off;          // the warpgroup's first position
-    const int pw1 = pw0 + kWGRows - 1;        // ... and its last
-    const int pr = pw0 + 16 * warp + gr;      // this thread's row 0 position
     const float c = scale * kLog2e;          // raw scores to log2 units
-    const uint32_t qw = sQ + w * QWG;
 
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m[2] = {kMaskL2, kMaskL2}, l[2] = {0.f, 0.f};
-    float s[BK / 2];                          // S_j, then its p
-    uint32_t pa[BK / 16][4];                  // P_{j-1}: the A operand
-    float corr[2];
-
-    // Every warpgroup runs every key tile of the block, so that each
-    // wgmma sits in control flow the whole warpgroup shares (a wgmma
-    // behind a per-warpgroup test was serialized by ptxas); a tile wholly
-    // outside a warpgroup's band computes p = 0 there.
-    //
-    // S_j = Q K_j^T: D / 16 steps of k16, a step 32 bytes along a 128-byte
-    // chunk, four steps a chunk
-    auto issue_s = [&](int j) {
-      const uint32_t kt = sK + (j % NS) * TILE;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;
-        const uint64_t da =
-            desc(qw + (kk / 4) * (kWGRows * 128) + off, 16, 1024);
-        const uint64_t db = desc(kt + (kk / 4) * (BK * 128) + off, 16, 1024);
-        if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
-        else wgmma_ss_n64(s, da, db, kk > 0);
-      }
-      wgmma_commit();
-    };
-    // O += round_to_bf16(P_j) . V_j: S's accumulator is, block for block,
-    // the A fragment of P; V's [key][d] chunks are the MN-major B operand
-    // (the next 64 columns LBO = BK * 128 bytes on, the next 8 keys 1024)
-    auto issue_pv = [&](int j) {
-      const uint32_t vt = sV + (j % NS) * TILE;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t db = desc(vt + kk * 16 * 128, BK * 128, 1024);
-        if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], db);
-        else wgmma_rs_n256(o, pa[kk], db);
-      }
-      wgmma_commit();
-    };
-    // S_j's p in place, m and l updated, corr the rescale of O
-    auto softmax = [&](int j) {
-      const int t0 = kv_lo + j * BK;
-      // scale to log2 units and mask; a tile inside every row's band of
-      // the warpgroup skips the per-element test
-      const bool inside = t0 + BK <= skv &&
-                          (!causal || t0 + BK - 1 <= pw0) &&
-                          (window <= 0 || t0 > pw1 - window);
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[4 * n + e] * c;
-          if (!inside) {
-            const int row = pr + (e >> 1) * 8;
-            const int key = t0 + n * 8 + tig * 2 + (e & 1);
-            bool keep = !causal || key <= row;
-            if (window > 0) keep = keep && key > row - window;
-            x = key < skv ? (keep ? x : kMaskL2) : -INFINITY;
-          }
-          s[4 * n + e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        corr[r] = exp2_approx(m[r] - mx[r]);
-        m[r] = mx[r];
-        l[r] *= corr[r];
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2_approx(s[4 * n + e] - m[e >> 1]);
-          l[e >> 1] += p;                  // the unrounded p, as the reference
-          s[4 * n + e] = p;
-        }
-      }
-    };
-    // O rescaled to the new row max, and P_j packed over P_{j-1}
-    auto rescale_pack = [&]() {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[4 * n] *= corr[0];
-        o[4 * n + 1] *= corr[0];
-        o[4 * n + 2] *= corr[1];
-        o[4 * n + 3] *= corr[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
-    };
-    auto k_wait = [&](int j) { mbar_wait(k_full(j % NS), (j / NS) & 1); };
-    auto v_wait = [&](int j) { mbar_wait(v_full(j % NS), (j / NS) & 1); };
-
-    // tile j's S = Q K^T goes in while tile j - 1's O += P V still runs,
-    // and j's softmax overlaps that product: iteration j issues S_j, then
-    // PV_{j-1}, waits for S_j alone (wgmma groups complete in order),
-    // computes j's p, then waits for PV_{j-1} before it rescales O and
-    // packs P_j over P_{j-1}.  K_j is released once S_j is done, V_{j-1}
-    // once PV_{j-1} is.
     // Ping-pong: the warpgroups take turns to issue, so the tensor cores
-    // run one warpgroup's products while the other computes its softmax.
+    // run one warpgroup's products while another computes its softmax.
     // Warpgroup w issues after a bar.sync on barrier 1 + w and then
-    // arrives on the other's; warpgroup 1 arrives once first, so 0 goes
-    // first, and skips its last arrival, so each barrier sees as many
-    // arrivals as syncs (ntiles + 1 issue turns a warpgroup).
+    // arrives on the next one's (w + 1 mod NW); the last arrives once
+    // first, so 0 goes first, and skips its block's last arrival, so each
+    // barrier sees as many arrivals as syncs (ntiles + 1 issue turns an
+    // item, the same for every warpgroup).
     auto turn = [&]() { bar_sync(1 + w); };
     auto yield = [&](bool last) {
-      if (!(last && w == 1)) bar_arrive(2 - w);
+      if (!(last && w == NW - 1)) bar_arrive(1 + (w + 1) % NW);
     };
-    if (w == 1) bar_arrive(1);
-    mbar_wait(q_full, 0);
-    if (ntiles > 0) {
+    if (w == NW - 1) bar_arrive(1);
+
+    int n = 0;                             // key tiles consumed so far
+    for (int i = 0, wk; (wk = work(i)) >= 0; ++i) {
+      const Item it = item(wk);
+      const bool last_item = work(i + 1) < 0;
+      const int qb = i % NQ, ntiles = it.ntiles, kv_lo = it.kv_lo;
+      const int rw = it.row0 + w * kWGRows;  // the warpgroup's first row
+      const int pw0 = rw + q_off;            // ... its first position
+      const int pw1 = pw0 + kWGRows - 1;     // ... and its last
+      const int pr = pw0 + 16 * warp + gr;   // this thread's row 0 position
+      const uint32_t qw = sQ + qb * q_bytes<D>() + w * QWG;
+
+      float o[D / 2];
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+      float m[2] = {kMaskL2, kMaskL2}, l[2] = {0.f, 0.f};
+      float s[BK / 2];                        // S_j, then its p
+      uint32_t pa[BK / 16][4];                // P_{j-1}: the A operand
+      float corr[2];
+
+      // Every warpgroup runs every key tile of the item, so that each
+      // wgmma sits in control flow the whole warpgroup shares (a wgmma
+      // behind a per-warpgroup test was serialized by ptxas); a tile
+      // wholly outside a warpgroup's band computes p = 0 there.
+      //
+      // S_j = Q K_j^T: D / 16 steps of k16, a step 32 bytes along a
+      // 128-byte chunk, four steps a chunk
+      auto issue_s = [&](int j) {
+        const uint32_t kt = sK + ((n + j) % NS) * TILE;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          const uint64_t da =
+              desc(qw + (kk / 4) * (kWGRows * 128) + off, 16, 1024);
+          const uint64_t db =
+              desc(kt + (kk / 4) * (BK * 128) + off, 16, 1024);
+          if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
+          else wgmma_ss_n64(s, da, db, kk > 0);
+        }
+        wgmma_commit();
+      };
+      // O += round_to_bf16(P_j) . V_j: S's accumulator is, block for
+      // block, the A fragment of P; V's [key][d] chunks are the MN-major B
+      // operand (the next 64 columns LBO = BK * 128 bytes on, the next 8
+      // keys 1024)
+      auto issue_pv = [&](int j) {
+        const uint32_t vt = sV + ((n + j) % NS) * TILE;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t db = desc(vt + kk * 16 * 128, BK * 128, 1024);
+          if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], db);
+          else if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], db);
+          else wgmma_rs_n256(o, pa[kk], db);
+        }
+        wgmma_commit();
+      };
+      // S_j's p in place, m and l updated, corr the rescale of O
+      auto softmax = [&](int j) {
+        const int t0 = kv_lo + j * BK;
+        // scale to log2 units and mask; a tile inside every row's band of
+        // the warpgroup skips the per-element test
+        const bool inside = t0 + BK <= skv &&
+                            (!causal || t0 + BK - 1 <= pw0) &&
+                            (window <= 0 || t0 > pw1 - window);
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * nb + e] * c;
+            if (!inside) {
+              const int row = pr + (e >> 1) * 8;
+              const int key = t0 + nb * 8 + tig * 2 + (e & 1);
+              bool keep = !causal || key <= row;
+              if (window > 0) keep = keep && key > row - window;
+              x = key < skv ? (keep ? x : kMaskL2) : -INFINITY;
+            }
+            s[4 * nb + e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          corr[r] = exp2_approx(m[r] - mx[r]);
+          m[r] = mx[r];
+          l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int nb = 0; nb < BK / 8; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2_approx(s[4 * nb + e] - m[e >> 1]);
+            l[e >> 1] += p;                // the unrounded p, as the reference
+            s[4 * nb + e] = p;
+          }
+        }
+      };
+      // O rescaled to the new row max, and P_j packed over P_{j-1}
+      auto rescale_pack = [&]() {
+#pragma unroll
+        for (int nb = 0; nb < D / 8; ++nb) {
+          o[4 * nb] *= corr[0];
+          o[4 * nb + 1] *= corr[0];
+          o[4 * nb + 2] *= corr[1];
+          o[4 * nb + 3] *= corr[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+      };
+      auto k_wait = [&](int j) {
+        mbar_wait(k_full((n + j) % NS), ((n + j) / NS) & 1);
+      };
+      auto v_wait = [&](int j) {
+        mbar_wait(v_full((n + j) % NS), ((n + j) / NS) & 1);
+      };
+
+      // tile j's S = Q K^T goes in while tile j - 1's O += P V still runs,
+      // and j's softmax overlaps that product: iteration j issues S_j,
+      // then PV_{j-1}, waits for S_j alone (wgmma groups complete in
+      // order), computes j's p, then waits for PV_{j-1} before it
+      // rescales O and packs P_j over P_{j-1}.  K_j is released once S_j
+      // is done, V_{j-1} once PV_{j-1} is.
+      mbar_wait(q_full(qb), (i / NQ) & 1);
       k_wait(0);
       turn();
       wgmma_fence();
@@ -597,76 +698,79 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       yield(false);
       wgmma_wait<0>();
       fence_regs(s);
-      mbar_arrive(k_empty(0));
+      mbar_arrive(k_empty(n % NS));
       softmax(0);
       rescale_pack();
-    }
-    for (int j = 1; j < ntiles; ++j) {
-      k_wait(j);
-      v_wait(j - 1);
-      fence_regs(o);
-      turn();
-      wgmma_fence();
-      issue_s(j);
-      issue_pv(j - 1);
-      yield(false);
-      wgmma_wait<1>();
-      fence_regs(s);
-      mbar_arrive(k_empty(j % NS));
-      softmax(j);
-      wgmma_wait<0>();
-      fence_regs(o);
-      mbar_arrive(v_empty((j - 1) % NS));
-      rescale_pack();
-    }
-    if (ntiles > 0) {
+      for (int j = 1; j < ntiles; ++j) {
+        k_wait(j);
+        v_wait(j - 1);
+        fence_regs(o);
+        turn();
+        wgmma_fence();
+        issue_s(j);
+        issue_pv(j - 1);
+        yield(false);
+        wgmma_wait<1>();
+        fence_regs(s);
+        mbar_arrive(k_empty((n + j) % NS));
+        softmax(j);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(v_empty((n + j - 1) % NS));
+        rescale_pack();
+      }
       v_wait(ntiles - 1);
       fence_regs(o);
       turn();
       wgmma_fence();
       issue_pv(ntiles - 1);
-      yield(true);
+      yield(last_item);
       wgmma_wait<0>();
       fence_regs(o);
-      mbar_arrive(v_empty((ntiles - 1) % NS));
-    }
-    float inv[2];
+      mbar_arrive(v_empty((n + ntiles - 1) % NS));
+      n += ntiles;
+
+      float inv[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float lr = l[r];
-      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      const float den = fmaxf(lr, 1e-30f);
-      inv[r] = 1.f / den;
-      const int row = row0(w) + 16 * warp + gr + 8 * r;
-      // the row's log-sum-exp of the scaled scores, in natural units; a row
-      // that saw only dropped keys sits at -1e30, as in the plain version
-      if (lse != nullptr && tig == 0 && row < sq)
-        lse[(size_t(b) * H + h) * sq + row] =
-            (m[r] == kMaskL2 ? kMaskAdd : m[r] * kLn2) + logf(den);
-    }
-    // out / l in bf16 over this warpgroup's Q rows (its last S has read
-    // them), in the layout the Q copy used: 64-column chunks of 64 rows
-    // of 128 bytes, a row's 16-byte units XOR-swizzled by row % 8; then
-    // one thread stores each chunk with TMA, rows past sq left out
+      for (int r = 0; r < 2; ++r) {
+        float lr = l[r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const float den = fmaxf(lr, 1e-30f);
+        inv[r] = 1.f / den;
+        const int row = rw + 16 * warp + gr + 8 * r;
+        // the row's log-sum-exp of the scaled scores, in natural units; a
+        // row that saw only dropped keys sits at -1e30, as in the plain
+        // version
+        if (lse != nullptr && tig == 0 && row < sq)
+          lse[(size_t(it.b) * H + it.h) * sq + row] =
+              (m[r] == kMaskL2 ? kMaskAdd : m[r] * kLn2) + logf(den);
+      }
+      // out / l in bf16 over this warpgroup's Q rows (its last S has read
+      // them), in the layout the Q copy used: 64-column chunks of 64 rows
+      // of 128 bytes, a row's 16-byte units XOR-swizzled by row % 8; then
+      // one thread stores each chunk with TMA, rows past sq left out, and
+      // frees the buffer for the item NQ on once the store has read it
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rr = 16 * warp + gr + 8 * r;
+      for (int r = 0; r < 2; ++r) {
+        const int rr = 16 * warp + gr + 8 * r;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        st_shared(qw + (n / 8) * (kWGRows * 128) + rr * 128 +
-                      (((n % 8) ^ (rr % 8)) * 16) + tig * 4,
-                  pack_bf16(o[4 * n + 2 * r] * inv[r],
-                            o[4 * n + 2 * r + 1] * inv[r]));
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(3 + w) : "memory");
-    if (threadIdx.x % 128 == 0) {
-      for (int c = 0; c < NC; ++c)
-        tma_store(&tmo, qw + c * (kWGRows * 128), c * kChunk, row0(w), h,
-                  b);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        for (int nb = 0; nb < D / 8; ++nb)
+          st_shared(qw + (nb / 8) * (kWGRows * 128) + rr * 128 +
+                        (((nb % 8) ^ (rr % 8)) * 16) + tig * 4,
+                    pack_bf16(o[4 * nb + 2 * r] * inv[r],
+                              o[4 * nb + 2 * r + 1] * inv[r]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + NW + w) : "memory");
+      if (threadIdx.x % 128 == 0) {
+        for (int ch = 0; ch < NC; ++ch)
+          tma_store(&tmo, qw + ch * (kWGRows * 128), ch * kChunk, rw, it.h,
+                    it.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(q_empty(qb));
+      }
     }
   }
 }
@@ -742,10 +846,17 @@ cudaError_t launch_wgmma(void* out, const void* q, const void* k,
       wg::flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  constexpr int R = 2 * wg::kWGRows;
-  const dim3 grid(B * H, (sq + R - 1) / R);
+  // one persistent block an SM (one an item where there are fewer)
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  constexpr int R = wg::kConsumers * wg::kWGRows;
+  const long long nwork = (long long)B * H * ((sq + R - 1) / R);
+  const int grid = int(std::min<long long>(nwork, sms));
   wg::flash_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
-      tq, tk, tv, to, lse, H, H / Hkv, sq, skv, causal, window, q_off,
+      tq, tk, tv, to, lse, B, H, H / Hkv, sq, skv, causal, window, q_off,
       scale);
   return cudaGetLastError();
 }

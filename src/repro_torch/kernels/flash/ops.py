@@ -8,12 +8,13 @@ takes the plain version in ref.py; any other device raises.  Operands may
 be strided views (a slice of a KV cache, a head split of a projection):
 only the last dim must be contiguous.  The (dtype, Dk, Dv) of a prefill
 alone picks its form (``prefill_form``, the mirror of the C++ dispatch):
-a bf16 prefill at (128, 128) or (256, 256) goes to the wgmma form
-(``csrc/flash_attn_wgmma.cuh``: warpgroup products on tiles the tensor
-memory accelerator copies, a producer warp and two consumer warpgroups,
-128 query rows of one head a block), at (64, 64) or MLA's unpadded
-(192, 128) to the Q-register form (``csrc/flash_attn_mma.cuh``: mma.sync,
-a kv head's query heads in one block), an f32 prefill to the SIMT form.
+a bf16 prefill at (64, 64), (128, 128) or (256, 256) goes to the wgmma
+form (``csrc/flash_attn_wgmma.cuh``: warpgroup products on tiles the
+tensor memory accelerator copies, one persistent block an SM walking
+work items of 128 query rows of one head, a producer warp and two
+consumer warpgroups), at MLA's unpadded
+(192, 128) to the Q-register form (``csrc/flash_attn_mma.cuh``:
+mma.sync, Q in registers), an f32 prefill to the SIMT form.
 The decode form splits the keys over blocks (``decode_split``) for a
 group of query heads a block (``decode_head_group``); up to MAX_CLUSTER
 splits run as one kernel whose blocks merge in a thread-block cluster
@@ -70,9 +71,9 @@ _DECODE_GROUPS = (8, 6, 4)
 
 # a kernel of the library by its name, mangled (ptxas) or demangled (the
 # profiler): kernel, then its type and integer template arguments (mangled
-# only); the integers are (Dk, Dv, heads a block) for the Q-register form,
-# (D,) for the wgmma form (bf16 alone), (Dk, Dv) for the SIMT form, (D,
-# head group) for the decode form's cluster and split kernels
+# only); the integers are (Dk, Dv) for the Q-register and SIMT forms,
+# (D,) for the wgmma form (bf16 alone), (D, head group) for the decode
+# form's cluster and split kernels
 _ENTRY = re.compile(r"(flash_(?:mma_qreg|wgmma|prefill|decode_cluster"
                     r"|decode_split|decode_merge)_kernel)"
                     r"(?:I(f|13__nv_bfloat16)?"
@@ -103,16 +104,12 @@ def kernel_form(name: str) -> Optional[str]:
 
 
 def _resource_key(kernel: str, dtype: str, ints) -> str:
-    """"bf16_d256", "bf16_d192_128_g1", "f32_d64", "bf16_d64_g4", "bf16":
+    """"bf16_d256", "bf16_d192_128", "f32_d64", "bf16_d64_g4", "bf16":
     the type, the head dims (Dv when it differs from Dk) and the heads a
-    block of a Q-register or decode split kernel."""
+    block of a decode kernel."""
     if kernel == "flash_wgmma_kernel":
         return f"{dtype}_d{ints[0]}"
-    if kernel == "flash_mma_qreg_kernel":
-        dk, dv, heads = ints
-        return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "") \
-            + f"_g{heads}"
-    if kernel == "flash_prefill_kernel":
+    if kernel in ("flash_mma_qreg_kernel", "flash_prefill_kernel"):
         dk, dv = ints
         return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "")
     return dtype + "".join(f"_{p}{i}" for p, i in zip("dg", ints))
@@ -121,7 +118,7 @@ def _resource_key(kernel: str, dtype: str, ints) -> str:
 def resources(*built: _build.Built) -> dict:
     """Per kernel (the three prefill forms, the decode form's cluster,
     split and merge kernels), then per ``_resource_key`` ("bf16_d256",
-    "bf16_d192_128_g1", "bf16_d256_g4", "bf16"): ptxas's registers, stack
+    "bf16_d192_128", "bf16_d256_g4", "bf16"): ptxas's registers, stack
     and spill bytes for each kernel of the built ``flash_attn`` and
     ``flash_decode`` libraries, and each prefill kernel's shared bytes per
     block."""
@@ -200,33 +197,36 @@ def prefill_form(dtype: torch.dtype, dk: int, dv: int) -> str:
     """The prefill form that CUDA operands of ``dtype`` at q and k's head
     dim ``dk`` and v's ``dv`` launch, as ``csrc/flash_attn.cu``'s
     prefill_form picks it: f32 the SIMT form at every pair, bf16 the wgmma
-    form at (128, 128) and (256, 256) and the Q-register form at (64, 64)
-    and (192, 128).  Any other pair or type raises."""
+    form where Dk = Dv ((64, 64), (128, 128), (256, 256)) and the
+    Q-register form at MLA's (192, 128).  Any other pair or type
+    raises."""
     if (dk, dv) not in _checks.ATTENTION_HEAD_DIMS or \
             dtype not in _checks.ATTENTION_DTYPES:
         raise ValueError(f"{KERNEL}: no prefill form for {dtype} at "
                          f"({dk}, {dv})")
     if dtype != torch.bfloat16:
         return "prefill_simt"
-    return "prefill_wgmma" if dk == dv and dk >= 128 else "prefill_mma"
+    return "prefill_wgmma" if dk == dv else "prefill_mma"
 
 
 def wgmma_plan(d: int) -> dict:
-    """The wgmma form's tile plan at head dim ``d`` (128 or 256), as
-    ``csrc/flash_attn_wgmma.cuh`` fixes it: 128 query rows a block (64 a
-    consumer warpgroup), 128 keys a tile at D 128 and 64 at D 256, two
-    stages of K and V, and the block's shared bytes: both
-    warpgroups' Q rows, the K and V ring, 8 bytes an mbarrier (Q's, and
-    each stage's K full, V full, K empty and V empty) and 1024 of slack
-    that aligns the swizzled tiles."""
-    if d not in (128, 256):
-        raise ValueError(f"{KERNEL}: the wgmma form takes D 128 or 256, "
+    """The wgmma form's tile plan at head dim ``d`` (64, 128 or 256), as
+    ``csrc/flash_attn_wgmma.cuh`` fixes it: 128 query rows a work item (64
+    a consumer warpgroup), 128 keys a tile at D 64 and 128 and 64 at D
+    256, two stages of K and V, two Q buffers (one at D 256), and the
+    block's shared bytes: the Q buffers, the K and V ring, 8 bytes an
+    mbarrier (each Q buffer's full and empty, each stage's K full, V full,
+    K empty and V empty) and 1024 of slack that aligns the swizzled
+    tiles."""
+    if d not in (64, 128, 256):
+        raise ValueError(f"{KERNEL}: the wgmma form takes D 64, 128 or 256, "
                          f"got {d}")
-    rows, keys, stages = 128, (128 if d == 128 else 64), 2
-    smem = (2 * rows * d + 2 * stages * 2 * keys * d
-            + 8 * (1 + 4 * stages) + 1024)
+    rows, keys, stages = 128, (64 if d == 256 else 128), 2
+    qbufs = 1 if d == 256 else 2
+    smem = (qbufs * 2 * rows * d + 2 * stages * 2 * keys * d
+            + 8 * (2 * qbufs + 4 * stages) + 1024)
     return {"rows": rows, "keys": keys, "stages": stages,
-            "smem_bytes": smem}
+            "q_buffers": qbufs, "smem_bytes": smem}
 
 
 def form_launches() -> dict:
@@ -292,8 +292,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp of the scaled, masked scores, f32 (B, H, Sq), which the
     kernel writes beside out.  On the card (Dk, Dv) must be a pair of
     ``_checks.ATTENTION_HEAD_DIMS``, and a bf16 call's scale positive at
-    (64, 64) and (192, 128): the Q-register form keeps its row max on the
-    raw scores (the wgmma form scales each score first)."""
+    (192, 128): the Q-register form keeps its row max on the raw scores
+    (the wgmma form scales each score first)."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
     if q_offset < 0:

@@ -8,7 +8,7 @@ model's local and global layer shapes.
         [--iters 50]
 
 The model runs in ``--dtype`` (bfloat16 by default: K4's tensor-core
-forms, the wgmma form at D 128 and 256; float32 takes its SIMT form) with
+forms, the wgmma form where Dk = Dv; float32 takes its SIMT form) with
 the random weights of ``init_params`` (seed 0).  ``--k4-only`` times K4
 alone and skips the model; ``--lse`` times K4 with its row log-sum-exp
 (the training path's call).  Per layer shape, K4's line gives what

@@ -212,11 +212,11 @@ def test_point_fn_probes_on_card_match_cpu(card, probe):
 
 # K4: tests/test_kernels.py's coverage classes (GQA f32, windowed bf16, MHA
 # D=256 f32, ragged bf16) at its tolerances, and the main path's shapes;
-# then bf16 cases for the tensor-core form: D 64/128/256 at a ragged Sq
-# and window, a non-causal ragged Skv, a window with empty-band rows (rows
-# 25.. of Sq 40 see no key of Skv 20), GQA at D 256, and granite's GQA (D
-# 64, 3 query heads a kv head), qwen2-vl's g 7 and command-r-plus's g 12
-# at D 128, in both forms
+# then bf16 cases for the wgmma form: D 64/128/256 at a ragged Sq and
+# window, a non-causal ragged Skv, a window with empty-band rows (rows 25..
+# of Sq 40 see no key of Skv 20), GQA at D 256, and granite's GQA (D 64, 3
+# query heads a kv head), qwen2-vl's g 7 and command-r-plus's g 12 at D
+# 128, in both types
 FLASH_CASES = [
     (2, 48, 48, 4, 2, 128, True, None, torch.float32, 2e-5),
     (2, 48, 48, 4, 4, 128, True, 13, torch.bfloat16, 3e-2),
@@ -264,11 +264,10 @@ def test_flash_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, D, causal,
     assert out.dtype == dtype
     assert (out.float() - want).abs().max().item() <= atol
     assert registry.get_kernel("flash_attention").launches() == 1
-    # bf16 takes the wgmma form at D 128 and 256 and the Q-register form
-    # at D 64, f32 the SIMT form
+    # bf16 takes the wgmma form at D 64, 128 and 256, f32 the SIMT form
     form = prefill_form(dtype, D, D)
     assert form == ("prefill_simt" if dtype == torch.float32
-                    else "prefill_mma" if D == 64 else "prefill_wgmma")
+                    else "prefill_wgmma")
     assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": 0, form: 1}
 
@@ -335,13 +334,12 @@ def test_flash_dk_dv_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, causal,
                                prefill_form(dtype, 192, 128): 1}
 
 
-# the tensor-core forms' grouped heads: (D, g) with g query heads a kv
-# head.  The Q-register form (D 64) holds at most 3 query heads a block: g
-# 2 and 3 share one block, g 4 splits into two blocks of 2, g 5 into two
-# of 3 (one head slot idle) and g 8 into three of 3.  The wgmma form (D
-# 128 and 256) runs 128 rows of one query head a block whatever g: the
-# path's g 7 (qwen2-vl), 8 (qwen2-72b, jamba; gemma-2b's MQA at D 256) and
-# 12 (command-r-plus), and gemma3-1b's g 4 at D 256
+# the wgmma form's grouped heads: (D, g) with g query heads a kv head.  It
+# runs 128 rows of one query head a block whatever g: at D 64 granite's g
+# 3 and g 2, 4, 5 and 8 (the Q-register form before it split these over
+# blocks of up to 3 heads); at D 128 and 256 the path's g 7 (qwen2-vl), 8
+# (qwen2-72b, jamba; gemma-2b's MQA at D 256) and 12 (command-r-plus), and
+# gemma3-1b's g 4 at D 256
 GROUP_CASES = [(64, 2), (64, 3), (64, 4), (64, 5), (64, 8), (128, 3),
                (128, 4), (128, 7), (128, 8), (128, 12), (256, 4), (256, 8)]
 
@@ -386,7 +384,7 @@ def test_flash_grouped_heads_match_plain(card, D, g):
                                "prefill_simt": 0, "decode": 0, form: 4}
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_wgmma_empty_band_rows_match_plain(card, D):
     """The wgmma form on rows with no key in their band (rows 25.. of Sq
     40 against Skv 20 under window 6, and a q tile of 128 rows past 300
@@ -429,27 +427,36 @@ def test_flash_prefill_form_matches_the_kernels_dispatch(card):
             assert lib.flash_prefill_form(code, dk, dv) == -1
     lib.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int]
     lib.flash_wgmma_smem_bytes.restype = ctypes.c_int
-    for d in (128, 256):
+    for d in (64, 128, 256):
         assert lib.flash_wgmma_smem_bytes(d) == wgmma_plan(d)["smem_bytes"]
-    assert lib.flash_wgmma_smem_bytes(64) == 0
+    assert lib.flash_wgmma_smem_bytes(192) == 0
+    # the Q-register form keeps MLA's (192, 128) alone
+    lib.flash_mma_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_mma_smem_bytes.restype = ctypes.c_int
+    assert lib.flash_mma_smem_bytes(192, 128) > 0
+    assert lib.flash_mma_smem_bytes(64, 64) == 0
 
 
 def test_flash_qreg_form_takes_only_a_positive_scale(card):
     """The Q-register form keeps its row max on the raw scores, so a bf16
-    call at (64, 64) with a scale that is not positive raises before any
-    launch; the wgmma form (D 256 here) scales each score first and takes
-    it, against the plain version at 3e-2."""
+    call at (192, 128) with a scale that is not positive raises before any
+    launch; the wgmma form (D 64 and 256 here) scales each score first and
+    takes it, against the plain version at 3e-2."""
     rng = np.random.RandomState(11)
     bf16 = torch.bfloat16
-    q, k, v = (_randn(rng, (1, 40, 2, 64), bf16, card) for _ in range(3))
+    q, k = (_randn(rng, (1, 40, 2, 192), bf16, card) for _ in range(2))
+    v = _randn(rng, (1, 40, 2, 128), bf16, card)
     with pytest.raises(ValueError, match="positive scale"):
         flash_attention(q, k, v, scale=-0.125)
     assert registry.get_kernel("flash_attention").launches() == 0
-    q, k, v = (_randn(rng, (1, 40, 2, 256), bf16, card) for _ in range(3))
-    out = flash_attention(q, k, v, scale=-0.0625)
-    torch.cuda.synchronize()
-    want = attention_ref(q, k, v, scale=-0.0625)
-    assert (out.float() - want).abs().max().item() <= 3e-2
+    for d, scale in ((64, -0.125), (256, -0.0625)):
+        q, k, v = (_randn(rng, (1, 40, 2, d), bf16, card) for _ in range(3))
+        out = flash_attention(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, scale=scale)
+        assert (out.float() - want).abs().max().item() <= 3e-2
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 2,
+                               "prefill_simt": 0, "decode": 0}
 
 
 def test_flash_unbuilt_head_dims_raise(card):
@@ -489,6 +496,48 @@ def test_flash_bf16_strided_head_views(card):
                                             v.contiguous(), causal=True,
                                             window=40))
     assert form_launches()["prefill_wgmma"] == 2
+
+
+@pytest.mark.parametrize("g", [1, 3])
+def test_flash_wgmma_d64_matches_plain(card, g):
+    """The wgmma form at D 64 with g 1 (musicgen's MHA) and g 3 (granite's
+    GQA): causal and under a window, with its lse, at a q_offset, rows with
+    no key in their band, and q, k, v as strided head views of one wider
+    projection (equal to their contiguous copies); 3e-2 on out, 1e-4 on
+    the lse, and every launch on the wgmma form."""
+    rng = np.random.RandomState(64 + g)
+    bf16, D, Hkv = torch.bfloat16, 64, 4
+    H = g * Hkv
+    cases = [(2, 300, 300, None, 0), (2, 300, 300, 90, 0),
+             (1, 130, 500, None, 370), (1, 200, 300, 50, 220)]
+    for B, Sq, Skv, window, off in cases:
+        q = _randn(rng, (B, Sq, H, D), bf16, card)
+        k = _randn(rng, (B, Skv, Hkv, D), bf16, card)
+        v = _randn(rng, (B, Skv, Hkv, D), bf16, card)
+        out, lse = flash_attention(q, k, v, causal=True, window=window,
+                                   q_offset=off, return_lse=True)
+        plain = flash_attention(q, k, v, causal=True, window=window,
+                                q_offset=off)
+        torch.cuda.synchronize()
+        want, want_lse = attention_ref(q, k, v, causal=True, window=window,
+                                       q_offset=off, return_lse=True)
+        # the last case's rows past position 349 see no key of their band
+        assert bool((want_lse < -1e29).any()) == (window == 50)
+        assert (out.float() - want).abs().max().item() <= 3e-2
+        assert (lse - want_lse).abs().max().item() <= 1e-4
+        assert torch.equal(out, plain)
+    qkv = _randn(rng, (2, 150, H + 2 * Hkv, D), bf16, card)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    assert not q.is_contiguous()
+    out = flash_attention(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=True, window=40)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+    assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=True,
+                                            window=40))
+    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 10,
+                               "prefill_simt": 0, "decode": 0}
 
 
 def test_flash_f32_strided_head_views(card):

@@ -350,7 +350,8 @@ def test_decode_cluster_takes_one_to_eight_splits():
 
 def test_prefill_form_by_dtype():
     from repro_torch.kernels.flash.ops import FORMS, prefill_form
-    assert prefill_form(torch.bfloat16, 64, 64) == "prefill_mma"
+    assert prefill_form(torch.bfloat16, 64, 64) == "prefill_wgmma"
+    assert prefill_form(torch.bfloat16, 192, 128) == "prefill_mma"
     assert prefill_form(torch.float32, 64, 64) == "prefill_simt"
     assert set(FORMS) == {"prefill_mma", "prefill_wgmma", "prefill_simt",
                           "decode"}
@@ -359,7 +360,7 @@ def test_prefill_form_by_dtype():
 @pytest.mark.parametrize("dtype,dk,dv,form", [
     (torch.bfloat16, 128, 128, "prefill_wgmma"),
     (torch.bfloat16, 256, 256, "prefill_wgmma"),
-    (torch.bfloat16, 64, 64, "prefill_mma"),
+    (torch.bfloat16, 64, 64, "prefill_wgmma"),
     (torch.bfloat16, 192, 128, "prefill_mma"),
     (torch.float32, 64, 64, "prefill_simt"),
     (torch.float32, 128, 128, "prefill_simt"),
@@ -368,34 +369,37 @@ def test_prefill_form_by_dtype():
 ])
 def test_prefill_form_by_head_dims(dtype, dk, dv, form):
     """The Python mirror of the C++ dispatch: the (dtype, Dk, Dv) of a
-    prefill alone picks its form (bf16 at (128, 128) and (256, 256) the
-    wgmma form, at (64, 64) and (192, 128) the Q-register form, f32 the
-    SIMT form); a pair K4 is not built for has none."""
+    prefill alone picks its form (bf16 at (64, 64), (128, 128) and (256,
+    256) the wgmma form, at (192, 128) the Q-register form, f32 the SIMT
+    form); a pair K4 is not built for has none."""
     from repro_torch.kernels.flash.ops import prefill_form
     assert prefill_form(dtype, dk, dv) == form
     with pytest.raises(ValueError, match="no prefill form"):
         prefill_form(dtype, dk, dk + 64)
 
 
-@pytest.mark.parametrize("d,keys,stages,smem", [(128, 128, 2, 164936),
-                                                (256, 64, 2, 197704)])
-def test_wgmma_plan_fits_a_block(d, keys, stages, smem):
+@pytest.mark.parametrize("d,keys,stages,qbufs,smem", [
+    (64, 128, 2, 2, 99424), (128, 128, 2, 2, 197728),
+    (256, 64, 2, 1, 197712)])
+def test_wgmma_plan_fits_a_block(d, keys, stages, qbufs, smem):
     """The wgmma form's tile plan (the Python mirror of
-    csrc/flash_attn_wgmma.cuh's): 128 query rows a block in two
-    warpgroups of 64, 128 keys a tile at D 128 and 64 at D 256, two stages
-    of K and V, and its shared bytes within the 232,448 a block can
-    have."""
+    csrc/flash_attn_wgmma.cuh's): 128 query rows a work item in two
+    warpgroups of 64, 128 keys a tile at D 64 and 128 and 64 at D 256, two
+    stages of K and V, two Q buffers where they fit (one at D 256), and
+    its shared bytes within the 232,448 a block can have; a head dim the
+    form is not built for raises."""
     from repro_torch.kernels.flash.ops import wgmma_plan
     plan = wgmma_plan(d)
     assert plan == {"rows": 128, "keys": keys, "stages": stages,
-                    "smem_bytes": smem}
-    # Q (128 x d), the stages of K and V (keys x d), all bf16; Q's mbarrier
-    # and four a stage; 1024 bytes of alignment slack
-    assert smem == 2 * (128 * d + 2 * stages * keys * d) \
-        + 8 * (1 + 4 * stages) + 1024
+                    "q_buffers": qbufs, "smem_bytes": smem}
+    # the Q buffers (128 x d each), the stages of K and V (keys x d), all
+    # bf16; two mbarriers a Q buffer and four a stage; 1024 bytes of
+    # alignment slack
+    assert smem == 2 * (qbufs * 128 * d + 2 * stages * keys * d) \
+        + 8 * (2 * qbufs + 4 * stages) + 1024
     assert smem <= 232448
     with pytest.raises(ValueError):
-        wgmma_plan(64)
+        wgmma_plan(192)
 
 
 def test_cpu_route_takes_plain_version():
@@ -537,10 +541,10 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
 
 
 @pytest.mark.parametrize("name,form,key", [
-    ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi192ELi128ELi1EEEvP13"
-     "__nv_bfloat16", "prefill_mma", "bf16_d192_128_g1"),
-    ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi64ELi64ELi3EEEvP13"
-     "__nv_bfloat16", "prefill_mma", "bf16_d64_g3"),
+    ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi192ELi128EEEvP13"
+     "__nv_bfloat16", "prefill_mma", "bf16_d192_128"),
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi64EEEv14CUtensorMap_stS2_"
+     "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d64"),
     ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi256EEEv14CUtensorMap_stS2_"
      "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d256"),
     ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi128EEEv14CUtensorMap_stS2_"
@@ -557,8 +561,12 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
      "decode_cluster", "f32_d128_g6"),
     ("void (anonymous namespace)::dec::flash_decode_cluster_kernel<"
      "__nv_bfloat16, 64, 3>(__nv_bfloat16*)", "decode_cluster", None),
-    ("void (anonymous namespace)::mma::flash_mma_qreg_kernel<64, 64, 3>("
+    ("void (anonymous namespace)::mma::flash_mma_qreg_kernel<192, 128>("
      "__nv_bfloat16*)", "prefill_mma", None),
+    ("void (anonymous namespace)::wg::flash_wgmma_kernel<64>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float*, int, int, int, int, int, int, int, int, float)",
+     "prefill_wgmma", None),
     ("void (anonymous namespace)::conv2d_general_kernel(int*, int const*)",
      None, None),
 ])
@@ -566,8 +574,8 @@ def test_kernel_names_map_to_forms(name, form, key):
     """Profiler (demangled) and ptxas (mangled) names of K4's kernels map
     to their form, the Q-register kernel's to prefill_mma and the wgmma
     kernel's to prefill_wgmma; a mangled name also gives its
-    ``resources`` key (type, head dims, heads a block); a kernel that is
-    not K4's is no form's."""
+    ``resources`` key (type, head dims, a decode kernel's heads a block);
+    a kernel that is not K4's is no form's."""
     from repro_torch.kernels.flash import ops
     assert ops.kernel_form(name) == form
     if key is not None:
