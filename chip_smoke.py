@@ -39,10 +39,10 @@ phase prints one JSON line:
            operations over the SMs' lane rate at the maximum SM clock:
            integer ops on 64 lanes per SM, integer and f32 ops together on
            128; a box sum counts as a sliding sum)
-  kernel   (K4) flash attention's four forms against the plain version:
-           the bf16 prefill forms on the tensor cores (prefill_wgmma at
-           (Dk, Dv) = (64, 64), (128, 128) and (256, 256), prefill_mma at
-           (192, 128)), the f32 SIMT prefill form (prefill_simt) and
+  kernel   (K4) flash attention's three forms against the plain version:
+           the bf16 prefill form on the tensor cores (prefill_wgmma at
+           (Dk, Dv) = (64, 64), (128, 128), (192, 128) and (256, 256)),
+           the f32 SIMT prefill form (prefill_simt) and
            the decode form, at the model's
            shapes (prefill B 4, S 1024, H 4, Hkv 1, D 256 in bf16, with
            window 512 and without, and the f32 check's B 2 local layer;
@@ -57,14 +57,14 @@ phase prints one JSON line:
            ragged Sq and window 70, GQA with g 4 at Sq 130, head views of
            one wider tensor, and a view whose rows are not 16-byte
            aligned), and the families' shapes (granite's GQA, D 64 and
-           g 3, bf16 at 4 x 1024 and f32 at 2 x 128; its decode over
+           g 3, bf16 at 4 x 1024 and f32 at 2 x 64; its decode over
            serving's 4 x 160-slot cache and a 100-slot view of it in bf16
-           and over the f32 loop's 2 x 128 keys, and its rows at an
+           and over the f32 loop's 2 x 64 keys, and its rows at an
            offset with the lse; the served dense archs' shapes (gemma-2b's
            MQA, g 8 at D 256; musicgen's MHA at D 64, Hkv 24; qwen2-vl's
            g 7 at D 128, Hkv 4; qwen2-72b's and jamba's g 8 and
            command-r-plus's g 12 at D 128, Hkv 8): the bf16 prefill at
-           4 x 1024 and the f32 one at 2 x 128, causal, and bf16 decode at
+           4 x 1024 and the f32 one at 2 x 64, causal, and bf16 decode at
            B 4 over serving's 160 keys, with gemma-2b's decode over 1024
            keys too; deepseek's MLA prefill with q, k at 192
            and v at 128 as K4 takes them unpadded, the scale
@@ -197,11 +197,11 @@ phase prints one JSON line:
            head), musicgen-medium (embedding frames, LayerNorm, MHA) and
            qwen2-vl-7b (frames, M-RoPE over (3, B, S) positions, qkv bias)
            uncut; deepseek-v2-236b (MLA + MoE, 160 experts top-6 and a
-           shared one) at 2 layers; qwen2-72b at 4 layers (f32) and 16
-           (bf16), command-r-plus-104b at 2 and 16, jamba-1.5-large-398b
+           shared one) at 2 layers; qwen2-72b at 4 layers, command-r-
+           plus-104b at 2 (both cuts), jamba-1.5-large-398b
            at 4 (its MoE at layer 3 alone in f32, the 16 padded experts
            of two MoE layers being 92 GB there; all of it in bf16): f32
-           decode_fn over a 128-token prompt (64 for deepseek) against
+           decode_fn over a 64-token prompt against
            prefill_fn at capacity factor E/K (no drop; atol 2e-3, rtol
            1e-3), the SIMT and decode forms launched once per GQA layer
            per call and step (MLA decodes without K4, mamba2 has no
@@ -253,10 +253,12 @@ phase prints one JSON line:
            set to 0 before each step and read after it (the tensor-core
            form once per attention layer and once more in the remat
            backward; deepseek's step runs no aten::constant_pad_nd),
-           step ms (host and CUDA events), the device ms of a
-           profiled fifth step, peak memory; then moe_ffn_a2a through a
+           step ms (host and CUDA events), peak memory; then
+           moe_ffn_a2a through a
            one-rank NCCL process group on a (1, 1) mesh, granite cut to 2
            layers in f32, loss and gradients against moe_ffn
+  seconds  after each phase, its wall seconds (``{"phase": "seconds",
+           "of": ..., "s": ...}``); each K4 case's line carries its own
   total    the script's seconds so far
   kernels  one line: every kernel (K3 once per app segment, K4 once per
            form on gemma3-1b's path and once per form on each family's
@@ -302,7 +304,8 @@ LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 1024, 32
 # the families phase: each arch at full width, cut as ``reduced`` says:
 # (arch, the f32 checks' cut, the bf16 serving cut).  The f32 cuts fit
 # the card in f32 (at most 28 GB, jamba's 56), the serving cuts in bf16
-# (at most 57 GB).  jamba's experts pad to 16 whatever their count
+# (jamba's 51 GB the most; qwen2-72b and command-r-plus serve at their f32
+# cuts' depth, which keeps the phase short).  jamba's experts pad to 16 whatever their count
 # (models.model.moe_experts_padded), so its 4 layers with two MoE layers
 # are 92 GB in f32: its f32 cut keeps the MoE at layer 3 alone (every 4th
 # layer from 3; layers 0-2 keep jamba's dense MLP)
@@ -310,8 +313,8 @@ FAMILIES = (("granite-moe-3b-a800m", {}, {}), ("mamba2-1.3b", {}, {}),
             ("deepseek-v2-236b", {"n_layers": 2}, {"n_layers": 2}),
             ("gemma-2b", {}, {}), ("musicgen-medium", {}, {}),
             ("qwen2-vl-7b", {}, {}),
-            ("qwen2-72b", {"n_layers": 4}, {"n_layers": 16}),
-            ("command-r-plus-104b", {"n_layers": 2}, {"n_layers": 16}),
+            ("qwen2-72b", {"n_layers": 4}, {"n_layers": 4}),
+            ("command-r-plus-104b", {"n_layers": 2}, {"n_layers": 2}),
             ("jamba-1.5-large-398b",
              {"n_layers": 4, "moe_every": 4, "moe_offset": 3},
              {"n_layers": 4}))
@@ -322,7 +325,7 @@ FAMILIES = (("granite-moe-3b-a800m", {}, {}), ("mamba2-1.3b", {}, {}),
 FAM_TWO_LAYERS = {"jamba-1.5-large-398b": (2, {
     "pattern": ("mamba", "attn"), "moe_every": 2, "moe_offset": 1})}
 FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 32
-FAM_F32_PROMPT, FAM_F32_PROMPT_MLA = 128, 64
+FAM_F32_PROMPT = 64     # the families' f32 checks' prompt
 # a leaf of more elements is drawn a slice at a time (card_params), so a
 # bf16 leaf's f32 draw stays below 4.3 GB
 DRAW_ELEMS = 1 << 30
@@ -333,15 +336,13 @@ MLA_PADDED = 256
 # K4's row log-sum-exp against the plain version's: f32 sums of up to 1024
 # exponentials of f32 scores (bf16 products are exact in f32)
 LSE_ATOL = 1e-4
-# K4's prefill kernels by ``flash.ops.resources``' keys: the wgmma form at
-# D 64, 128 and 256, the Q-register kernel at MLA's (192, 128), the SIMT
-# form at each (Dk, Dv)
+# K4's prefill kernels by ``flash.ops.resources``' keys: the wgmma form
+# and the SIMT form at each (Dk, Dv), MLA's (192, 128) included
 K4_PREFILL_BUILDS = {
-    "prefill_wgmma": ["bf16_d64", "bf16_d128", "bf16_d256"],
-    "prefill_mma": ["bf16_d192_128"],
+    "prefill_wgmma": ["bf16_d64", "bf16_d128", "bf16_d192_128", "bf16_d256"],
     "prefill_simt": ["f32_d64", "f32_d128", "f32_d192_128", "f32_d256"]}
-# the bf16 prefill forms on the tensor cores
-K4_BF16_FORMS = ("prefill_wgmma", "prefill_mma")
+# the bf16 prefill form on the tensor cores
+K4_BF16_FORMS = ("prefill_wgmma",)
 MK_APPS = ("flow", "descriptor", "pyramid")
 # the served dense archs' K4 shapes, (H, Hkv, D) from their configs, by
 # flash_phase's case key
@@ -356,6 +357,17 @@ FAMILY_K4 = {"granite-moe-3b-a800m": ("granite", True),
              "deepseek-v2-236b": ("mla", False),
              **{arch: (key, True) for key, arch in SERVED_K4.items()},
              "jamba-1.5-large-398b": ("qwen2_72b", True)}
+# the K4 cases that the kernels line reads (each path's shapes) and MLA's
+# rows at an offset, timed; the others are held to the plain version
+# and their launches (a decode case also to the kernels the profiler saw)
+# and not timed
+K4_TIMED_CASES = {"main_local", "main_local_f32", "decode_full",
+                  "mla_offset_lse_bf16", "train_local_bf16",
+                  "train_granite_bf16", "train_mla_bf16",
+                  *(f"{key}_{case}"
+                    for key in ("granite", "mla", *SERVED_K4)
+                    for case in ("prefill_bf16", "prefill_f32",
+                                 "decode_bf16"))}
 # the decode form's cluster and split kernels' builds each: 3 head dims x 2
 # types x head groups of 1, 2, 3, 4, 6 and 8 (ops.decode_head_group); the
 # merge kernel's 2 types
@@ -1831,8 +1843,9 @@ def serve_phase(torch, np, paper):
 
 def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                scale=None, dims=None, lse=False, q_offset=0):
-    """K4 against its plain version on one case, then its time, the plain
-    version's, scaled_dot_product_attention's and the bound.  ``dims`` =
+    """K4 against its plain version on one case, then, for a case of
+    K4_TIMED_CASES, its time, the plain version's,
+    scaled_dot_product_attention's and the bound.  ``dims`` =
     (Dk, Dv) are the real head dims of operands zero-padded to K4's D (MLA):
     the bound counts the unpadded work, 2 (Dk + Dv) flops a (q, k) pair,
     and the library call takes the unpadded operands.  ``lse``: the
@@ -1850,6 +1863,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                                             device_ms, graph_ms)
     from repro_torch.kernels.flash.ref import attention_ref
 
+    t_case = time.perf_counter()
     form = "decode" if decode else prefill_form(q.dtype, q.shape[-1],
                                                 v.shape[-1])
     if decode:
@@ -1906,6 +1920,27 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         line["split"] = {"kc": kc, "nsplit": nsplit,
                          "path": ("cluster" if decode_cluster(nsplit)
                                   else "split + merge")}
+
+    def kernels_seen(iters, whole_calls=True):
+        """The device ms and K4's kernels the profiler saw over ``iters``
+        calls: a decode case must run the cluster kernel alone up to 8
+        splits, the split and merge kernels past a cluster."""
+        ms, by_name = device_events(run, iters, whole_calls=whole_calls)
+        seen = sorted(f for f in map(kernel_form, by_name) if f)
+        if decode:
+            want = (["decode_cluster"] if decode_cluster(nsplit)
+                    else ["decode_merge", "decode_split"])
+            if seen != sorted(want):
+                raise AssertionError(f"flash_attention {name}: the profiler "
+                                     f"saw {seen}, want {sorted(want)}")
+        return ms, seen
+
+    if name not in K4_TIMED_CASES:
+        if decode:
+            # names only: a short window can lose a kernel's records
+            kernels_seen(20, whole_calls=False)
+        line["s"] = time.perf_counter() - t_case
+        return line
     # the library yardstick: one call of scaled_dot_product_attention on
     # (B, H, S, D) copies made outside the timing (at the real head dims),
     # GQA by enable_gqa, the window as a boolean band mask
@@ -1942,16 +1977,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     # work bounds when the kernel is short; the same three for the
     # library.  A kernel's ms is the mean of its recorded events times its
     # launches a call (the profiler can lose records)
-    ms, by_name = device_events(run, iters, whole_calls=True)
-    kernels = sorted(f for f in map(kernel_form, by_name) if f)
-    if decode:
-        # the decode form's kernels: the cluster kernel alone up to 8
-        # splits, the split and merge kernels past a cluster
-        want = (["decode_cluster"] if decode_cluster(nsplit)
-                else ["decode_merge", "decode_split"])
-        if kernels != sorted(want):
-            raise AssertionError(f"flash_attention {name}: the profiler saw "
-                                 f"{kernels}, want {sorted(want)}")
+    ms, kernels = kernels_seen(iters)
     line.update({
         "ms": ms, "kernels": kernels, "graph_ms": graph_ms(run),
         "call_ms": cuda_ms(run, iters),
@@ -1964,8 +1990,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes,
         "flops": flops, "pairs": pairs})
     line["share_of_bound"] = line["bound_ms"] / line["ms"]
-    if not decode and q.dtype == torch.bfloat16:
-        line["sm_clock_mhz"] = sm_clock_mhz(torch, run, reps=50)
+    line["s"] = time.perf_counter() - t_case
     return line
 
 
@@ -2085,7 +2110,7 @@ def flash_phase(torch, np):
     del qkv
     # the families phase's shapes: granite's GQA (D 64, 24 query heads on
     # 8 kv heads, g 3), in bf16 at the serving prefill's 4 x 1024 and in
-    # f32 at the f32 check's 2 x 128, and its last 256 rows at offset 768
+    # f32 at the f32 check's 2 x 64, and its last 256 rows at offset 768
     # with the lse (grouped heads at an offset); deepseek's MLA prefill as
     # models.layers.mla_block hands it over (q, k at 192 and v at 128, the
     # scale 1/sqrt(192), 128 heads), in bf16 at 4 x 1024 and in f32 at the
@@ -2110,7 +2135,7 @@ def flash_phase(torch, np):
     # granite's decode as models.layers.decode_attention hands it over:
     # serving's last step over the whole 4 x 160-slot cache and a step
     # over the first 100 slots (a strided view) in bf16, and the f32
-    # decode loop's last step over 2 x 128 keys
+    # decode loop's last step over 2 x 64 keys
     kc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, g.n_kv_heads, g.hd), bf16)
     vc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, g.n_kv_heads, g.hd), bf16)
     q1 = randn((FAM_BATCH, 1, g.n_heads, g.hd), bf16)
@@ -2129,7 +2154,7 @@ def flash_phase(torch, np):
     # the served dense archs' shapes as their paths hand them over
     # (SERVED_K4; jamba's attention layer is qwen2-72b's): the bf16
     # prefill at serving's 4 x 1024 and the f32 one at the f32 check's
-    # 2 x 128, causal; decode at B 4 over serving's last 160 keys:
+    # 2 x 64, causal; decode at B 4 over serving's last 160 keys:
     # gemma-2b's MQA (g 8 at D 256, Hkv 1), musicgen's MHA (g 1 at D 64,
     # Hkv 24), qwen2-vl's g 7 at D 128 and Hkv 4 (one group of 8, a slot
     # idle), qwen2-72b's g 8 at Hkv 8 and command-r-plus's g 12 (two head
@@ -2157,7 +2182,7 @@ def flash_phase(torch, np):
     dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
     for name, (b, s, dtype, atol) in {
             "mla_prefill_bf16": (FAM_BATCH, FAM_PREFILL, bf16, 3e-2),
-            "mla_prefill_f32": (2, FAM_F32_PROMPT_MLA, f32, 2e-5)}.items():
+            "mla_prefill_f32": (2, FAM_F32_PROMPT, f32, 2e-5)}.items():
         q, k, v = (randn((b, s, m.n_heads, d), dtype) for d in (dk, dk, dv))
         lines[name] = flash_case(
             torch, np, name, q, k, v, causal=True, window=None,
@@ -2171,6 +2196,17 @@ def flash_phase(torch, np):
                 dims=(dk, dv))
             del padded
         del q, k, v
+    # MLA's rows on a context-parallel rank (models.layers._mla_attend
+    # through _on_mesh): the last quarter of serving's 4 x 1024 at its
+    # offset against every key, with the lse
+    q, k, v = (randn((FAM_BATCH, s, m.n_heads, d), bf16)
+               for s, d in ((FAM_PREFILL // 4, dk), (FAM_PREFILL, dk),
+                            (FAM_PREFILL, dv)))
+    lines["mla_offset_lse_bf16"] = flash_case(
+        torch, np, "mla_offset_lse_bf16", q, k, v, causal=True, window=None,
+        decode=False, atol=3e-2, scale=dk ** -0.5, lse=True,
+        q_offset=FAM_PREFILL * 3 // 4)
+    del q, k, v
     # a context-parallel rank's rows (models.layers._on_mesh): the last
     # quarter of a 1024-token sequence against the keys before it, with
     # the lse, and rows at an offset under a window
@@ -2188,8 +2224,7 @@ def flash_phase(torch, np):
     for line in lines.values():
         emit(line)
     # each path's cases by "<form>:<key>", the bf16 prefill's form as the
-    # case launched it (the wgmma form at D 64, 128 and 256, the
-    # Q-register form at MLA's (192, 128))
+    # case launched it (the wgmma form, MLA's (192, 128) included)
     return {lines["main_local"]["form"]: lines["main_local"],
             "prefill_simt": lines["main_local_f32"],
             "decode": lines["decode_full"],
@@ -2688,7 +2723,7 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
     # f32: decode_fn over the prompt against prefill_fn, every MoE route
     # recorded on both paths (the reference's tolerance,
     # tests/test_models.py:83)
-    P = FAM_F32_PROMPT_MLA if cfg.mla else FAM_F32_PROMPT
+    P = FAM_F32_PROMPT
     full_in, step_in = model_batch(torch, cfg32, prompt, 2, P)
     _, prefill_fn, decode_fn = build_forward(cfg32)
     with torch.no_grad():
@@ -2755,10 +2790,14 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
     prefill_fn = build_forward(cfg)[1]
     p_in, p_step = model_batch(torch, cfg, prompt, FAM_BATCH, FAM_PREFILL)
     with torch.no_grad():
-        # the warm call, profiled: MLA hands K4 its operands unpadded, so
-        # the call pads nothing
-        pads = _aten_calls(torch, lambda: prefill_fn(params, p_in),
-                           "aten::constant_pad_nd")
+        # the warm call, profiled for MLA: it hands K4 its operands
+        # unpadded, so the call pads nothing
+        if cfg.mla:
+            pads = _aten_calls(torch, lambda: prefill_fn(params, p_in),
+                               "aten::constant_pad_nd")
+        else:
+            pads = None
+            prefill_fn(params, p_in)
         if cfg.mla and pads:
             raise AssertionError(f"{arch} bf16 prefill_fn ran "
                                  f"aten::constant_pad_nd {pads} times")
@@ -3188,7 +3227,6 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
     from repro_torch.data.pipeline import DataConfig, _batch_at
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash.ops import form_launches
-    from repro_torch.kernels.timing import device_events
     from repro_torch.models import build_forward
     from repro_torch.models.model import moe_experts_padded, tree_leaves
     from repro_torch.optim import adamw_init
@@ -3312,33 +3350,25 @@ def train_family(torch, np, arch: str, cut: dict, batch: int):
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(gnorms))):
         raise AssertionError(f"{arch} training: a non-finite loss or gradient "
                              f"norm: {losses} {gnorms}")
-    b = batch_at(FAM_TRAIN_STEPS)
-    t1 = time.perf_counter()
-    dev_ms, by_name = device_events(lambda: step(params, opt, b), 1,
-                                    warmup=0)
-    profile_s = time.perf_counter() - t1
     # MLA's attention pads nothing under a gradient either
-    pads = _aten_calls(torch, lambda: step(params, opt, b),
-                       "aten::constant_pad_nd")
-    if cfg.mla and pads:
-        raise AssertionError(f"{arch} train step ran aten::constant_pad_nd "
-                             f"{pads} times")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    del params, opt, step, b
+    pads = None
+    if cfg.mla:
+        pads = _aten_calls(torch, lambda: step(params, opt,
+                                               batch_at(FAM_TRAIN_STEPS)),
+                           "aten::constant_pad_nd")
+        if pads:
+            raise AssertionError(f"{arch} train step ran "
+                                 f"aten::constant_pad_nd {pads} times")
+    del params, opt, step
     torch.cuda.empty_cache()
     line.update({
         "batch": batch, "seq": FAM_TRAIN_SEQ,
         "steps": FAM_TRAIN_STEPS, "losses": losses, "gnorms": gnorms,
         "step_ms_host": host_ms, "step_ms_events": event_ms,
         "step_ms_median": float(np.median(host_ms[1:])),
-        "step_device_ms": dev_ms,
-        "device_busy_share": dev_ms / float(np.median(host_ms[1:])),
-        "k4_device_ms": sum(ms for nm, ms in by_name.items()
-                            if kernel_form(nm) in K4_BF16_FORMS),
-        "top": [{"name": nm[:80], "ms": ms} for nm, ms in top[:8]],
         "k4_launches_per_step": launches[0],
         "k4_launches_per_step_want": per_step,
-        "peak_memory_gb": peak, "profile_s": profile_s,
+        "peak_memory_gb": peak,
         "constant_pad_nd_calls": pads,
         "arch_s": time.perf_counter() - t_arch})
     emit(line)
@@ -3482,46 +3512,57 @@ def main() -> int:
           "peak_int32_ops_per_s": peak_int_ops, "nvidia_smi": name_power})
     print(name_power, flush=True)
 
-    paper = paper_designs()
+    def timed(phase, fn, *args):
+        """fn(*args), then a line with the phase's wall seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": "seconds", "of": phase,
+              "s": time.perf_counter() - t0})
+        return out
+
+    paper = timed("compile", paper_designs)
     designs = mk_designs(paper)
     bench = bench_designs()
     ext = external_designs()
-    build_phase(designs, {**{f"bench_{a}": d for a, (_f, d) in bench.items()},
-                          **{f"ext_{k}": d for k, (_u, d, _l) in ext.items()}})
-    hw_phase(paper)
+    timed("build", build_phase, designs,
+          {**{f"bench_{a}": d for a, (_f, d) in bench.items()},
+           **{f"ext_{k}": d for k, (_u, d, _l) in ext.items()}})
+    timed("hw", hw_phase, paper)
     # the cycle kernel's checks and its own path (counters set to 0 just
     # before the path, read just after)
-    kern_cycle = cycle_phase(torch, np, paper, peak_int_ops)
+    kern_cycle = timed("cycle", cycle_phase, torch, np, paper, peak_int_ops)
 
-    kern = kernel_phase(torch, np, peak_int_ops)
-    kern_mk = megakernel_phase(torch, np, designs, peak_int_ops)
-    kern_k4 = flash_phase(torch, np)
+    kern = timed("kernel", kernel_phase, torch, np, peak_int_ops)
+    kern_mk = timed("megakernel", megakernel_phase, torch, np, designs,
+                    peak_int_ops)
+    kern_k4 = timed("flash", flash_phase, torch, np)
     registry.reset_launch_counts()          # the main path's launches only
-    path = path_phase(torch, np, paper)
+    path = timed("path", path_phase, torch, np, paper)
     launches = {n: e.launches() for n, e in registry.KERNELS.items()}
     # each app's bench_case against the executor, then the External
     # pipelines (their own path: counters set to 0 just before it)
-    executor_case(torch, np, bench)
+    timed("executor", executor_case, torch, np, bench)
     registry.reset_launch_counts()
-    external_case(torch, np, ext)
+    timed("external", external_case, torch, np, ext)
     # the static verifier on the card, then the apps' frame server (its
     # counters set to 0 just before the served traffic, read just after)
-    verify_phase(torch, np, paper)
-    serve_phase(torch, np, paper)
+    timed("verify", verify_phase, torch, np, paper)
+    timed("serve", serve_phase, torch, np, paper)
     # the model's paths: llm_phase and each family reset the counters just
     # before the f32 prefill_fn call (the SIMT form's path) and just before
     # the bf16 prefill_fn call and serving (the tensor-core and decode
     # forms'); each K4 entry of the kernels line reports one path's
     # launches beside the case at that path's shapes, so no launch is
     # counted twice
-    _, llm_launches = llm_phase(torch, np)
-    _, fam_launches = families_phase(torch, np)
+    _, llm_launches = timed("llm", llm_phase, torch, np)
+    _, fam_launches = timed("families", families_phase, torch, np)
     # the training path: its counters set to 0 just before launch/train's
     # loop and read just after
-    _, kern_train, train_launches = train_phase(torch, np)
+    _, kern_train, train_launches = timed("train", train_phase, torch, np)
     # the families' training paths: counters set to 0 before each step and
     # read after it
-    kern_fam_train, fam_train_launches = train_families_phase(torch, np)
+    kern_fam_train, fam_train_launches = timed(
+        "train_families", train_families_phase, torch, np)
     from repro_torch.configs import ARCHS
     llm_form = bf16_prefill_form(ARCHS[LLM_ARCH])
     for arch, n in fam_launches.items():
@@ -3545,8 +3586,7 @@ def main() -> int:
 
     def k4_line(name, k, n_launch):
         source = {"decode": "flash_decode.cu",
-                  "prefill_wgmma": "flash_attn_wgmma.cuh",
-                  "prefill_mma": "flash_attn_mma.cuh"}.get(k["form"])
+                  "prefill_wgmma": "flash_attn_wgmma.cuh"}.get(k["form"])
         source = {"source": f"src/repro_torch/csrc/{source}"} \
             if source else {}
         return dict(line(name, registry.get_kernel("flash_attention"), k,

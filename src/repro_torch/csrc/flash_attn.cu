@@ -1,9 +1,8 @@
-// K4: flash attention with an online softmax, in four forms: two bf16
-// prefill forms on the tensor cores (warpgroup products fed by the tensor
-// memory accelerator where Dk = Dv, at (64, 64), (128, 128) and (256,
-// 256), flash_attn_wgmma.cuh; mma.sync with Q in registers at MLA's (192,
-// 128), flash_attn_mma.cuh), a SIMT prefill form for float (below) and a
-// decode form for both (flash_decode.cu).
+// K4: flash attention with an online softmax, in three forms: a bf16
+// prefill form on the tensor cores (warpgroup products fed by the tensor
+// memory accelerator, at (Dk, Dv) = (64, 64), (128, 128), (192, 128) and
+// (256, 256), flash_attn_wgmma.cuh), a SIMT prefill form for float
+// (below) and a decode form for both (flash_decode.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
 // (driver flash_bhsd, wrappers flash_attention_tpu / flash_decode_tpu).
@@ -35,11 +34,12 @@
 // (attention_ref) does.
 //
 // bf16 prefill: flash_attn_wgmma.cuh (wgmma.mma_async on TMA tiles, a
-// producer warp and two consumer warpgroups) at (64, 64), (128, 128) and
-// (256, 256), flash_attn_mma.cuh (mma.sync m16n8k16, ldmatrix, a cp.async
-// ring) at MLA's (192, 128); each header's note gives its design.  The
-// pair alone picks the form (prefill_form below, mirrored by
-// kernels/flash/ops.py's prefill_form).
+// producer warp and two consumer warpgroups, one persistent block an SM)
+// at every pair, MLA's (192, 128) included; its note gives the design.
+// The type alone picks the form (prefill_form below, mirrored by
+// kernels/flash/ops.py's prefill_form).  (Until this form took MLA's
+// pair too, flash_attn_mma.cuh held mma.sync forms with Q in registers;
+// PERF.md keeps their last times.)
 //
 // f32 prefill (the SIMT form, simt::flash_prefill_kernel): one block of 8
 // warps per (b*H + h, 64-row q tile), the q tiles in reverse order,
@@ -70,15 +70,14 @@
 // D 256) the work is about 8.6e9 flops for the causal layers, 8.7 us at the
 // bf16 tensor-core rate, and 21 MB of q, k, v and out (6.3 us): bound by
 // operations.  The f32 SIMT form runs its products on the f32 FMA lanes
-// and can at best reach the 67 TFLOP/s f32 rate; the bf16 forms use the
+// and can at best reach the 67 TFLOP/s f32 rate; the bf16 form uses the
 // tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_attn_mma.cuh"     // Strides, launch_mma_qreg
-#include "flash_attn_wgmma.cuh"   // launch_wgmma
+#include "flash_attn_wgmma.cuh"   // Strides, launch_wgmma
 
 namespace {
 
@@ -436,24 +435,23 @@ cudaError_t launch_prefill(void* out, const void* q, const void* k,
 
 }  // namespace
 
-// The prefill form of a call: 0 the SIMT form (f32), 1 the Q-register
-// form (bf16 at (192, 128)), 2 the wgmma form (bf16 at (64, 64), (128,
-// 128) and (256, 256)); -1 for a pair or type K4 is not built for.
-constexpr int kFormSimt = 0, kFormQreg = 1, kFormWgmma = 2;
+// The prefill form of a call: 0 the SIMT form (f32), 2 the wgmma form
+// (bf16); -1 for a pair or type K4 is not built for.  (1 was the
+// Q-register form's, since retired.)
+constexpr int kFormSimt = 0, kFormWgmma = 2;
 constexpr int prefill_form(int dtype, int Dk, int Dv) {
   const bool built = (Dk == 64 && Dv == 64) || (Dk == 128 && Dv == 128) ||
                      (Dk == 192 && Dv == 128) || (Dk == 256 && Dv == 256);
   if (!built || (dtype != 0 && dtype != 1)) return -1;
-  if (dtype == 0) return kFormSimt;
-  return Dk == Dv ? kFormWgmma : kFormQreg;
+  return dtype == 0 ? kFormSimt : kFormWgmma;
 }
 
 // dtype: 0 float32, 1 bfloat16.  window 0 = none.  q_off: query row i
 // sits at key position i + q_off for the causal and window masks (0: row i
 // aligns with key i).  Strides are in elements, (b, s, h) for each of q,
 // k, v.  Dk, Dv: q and k's head dim and v's, one of the pairs (64, 64),
-// (128, 128), (192, 128), (256, 256); prefill_form picks the form.  The
-// Q-register form's scale must be positive.  lse: null, or f32 (B, H, sq)
+// (128, 128), (192, 128), (256, 256); prefill_form picks the form.  Any
+// scale.  lse: null, or f32 (B, H, sq)
 // for each row's log-sum-exp of the scaled, masked scores, m + log(max(l,
 // 1e-30)) (what the attention backward reads).
 extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
@@ -479,13 +477,14 @@ extern "C" int flash_attn_launch(void* out, const void* q, const void* k,
       return K4_SIMT(256, 256);
 #undef K4_SIMT
     }
-    case kFormQreg:
-      return int(launch_mma_qreg<192, 128>(K4_ARGS, Hkv, K4_BAND, st));
     case kFormWgmma:
-      if (Dk == 64) return int(launch_wgmma<64>(K4_ARGS, Hkv, K4_BAND, st));
-      if (Dk == 128)
-        return int(launch_wgmma<128>(K4_ARGS, Hkv, K4_BAND, st));
-      return int(launch_wgmma<256>(K4_ARGS, Hkv, K4_BAND, st));
+#define K4_WGMMA(DK, DV) \
+  int(launch_wgmma<DK, DV>(K4_ARGS, Hkv, K4_BAND, st))
+      if (Dk == 64) return K4_WGMMA(64, 64);
+      if (Dk == 128) return K4_WGMMA(128, 128);
+      if (Dk == 192) return K4_WGMMA(192, 128);
+      return K4_WGMMA(256, 256);
+#undef K4_WGMMA
   }
   return int(cudaErrorInvalidValue);
 #undef K4_ARGS
@@ -499,19 +498,14 @@ extern "C" int flash_prefill_form(int dtype, int Dk, int Dv) {
   return prefill_form(dtype, Dk, Dv);
 }
 
-// The Q-register form's dynamic shared memory per block at (Dk, Dv) (Q's
-// staging and the ring), or 0 for an instantiation that is not built.
-extern "C" int flash_mma_smem_bytes(int Dk, int Dv) {
-  if (Dk == 192 && Dv == 128) return int(mma::qreg_smem_bytes<192, 128>());
-  return 0;
-}
-
-// The wgmma form's dynamic shared memory per block at D (both warpgroups'
-// Q rows, the K / V ring, the mbarriers and the alignment slack), or 0.
-extern "C" int flash_wgmma_smem_bytes(int D) {
-  if (D == 64) return int(wg::smem_bytes<64>());
-  if (D == 128) return int(wg::smem_bytes<128>());
-  if (D == 256) return int(wg::smem_bytes<256>());
+// The wgmma form's dynamic shared memory per block at (Dk, Dv) (the Q
+// buffers, the K / V ring, the mbarriers and the alignment slack), or 0
+// for a pair that is not built.
+extern "C" int flash_wgmma_smem_bytes(int Dk, int Dv) {
+  if (Dk == 64 && Dv == 64) return int(wg::smem_bytes<64, 64>());
+  if (Dk == 128 && Dv == 128) return int(wg::smem_bytes<128, 128>());
+  if (Dk == 192 && Dv == 128) return int(wg::smem_bytes<192, 128>());
+  if (Dk == 256 && Dv == 256) return int(wg::smem_bytes<256, 256>());
   return 0;
 }
 

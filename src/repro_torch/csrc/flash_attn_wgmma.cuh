@@ -1,31 +1,31 @@
-// K4's bf16 prefill form for Hopper where Dk = Dv, at (64, 64), (128, 128)
-// and (256, 256): flash_wgmma_kernel<D>, warpgroup products
-// (wgmma.mma_async) on tiles that the tensor memory accelerator
-// (cp.async.bulk.tensor) copies into shared memory.  Included by
-// flash_attn.cu, whose launcher sends every bf16 prefill at those pairs
-// here; MLA's (192, 128) stays on the Q-register form (flash_attn_mma.cuh),
-// f32 on the SIMT form.
+// K4's bf16 prefill form for Hopper at (Dk, Dv) = (64, 64), (128, 128),
+// (192, 128) (DeepSeek-V2's MLA, unpadded) and (256, 256):
+// flash_wgmma_kernel<DK, DV>, warpgroup products (wgmma.mma_async) on tiles
+// that the tensor memory accelerator (cp.async.bulk.tensor) copies into
+// shared memory.  Included by flash_attn.cu, whose launcher sends every
+// bf16 prefill here; f32 takes the SIMT form.
 //
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::_flash_kernel
-// for bf16 operands at D 64, 128 and 256, with the function written at the
-// top of flash_attn.cu (scores in f32, -1e30 where the causal or window
-// band drops a key, no weight past skv, p rounded to bf16 before p . v, l
-// summing the unrounded p, out = acc / max(l, 1e-30) in bf16, the lse as
-// m + log(max(l, 1e-30)) in f32 when asked for).
+// for bf16 operands, with the function written at the top of flash_attn.cu
+// (scores in f32, -1e30 where the causal or window band drops a key, no
+// weight past skv, p rounded to bf16 before p . v, l summing the unrounded
+// p, out = acc / max(l, 1e-30) in bf16, the lse as m + log(max(l, 1e-30))
+// in f32 when asked for).
 //
 // Bound on an H100: 2 (Dk + Dv) flops a (q, k) pair in the band at the
 // dense bf16 rate, against q, k, v and out's bytes at 3.35 TB/s.  At the
 // paths' prefills (B 4, S 1024, causal): qwen2-vl's g 7 at D 128 is 30.1
 // GFLOP (0.0304 ms) against 67.1 MB (0.0200 ms); gemma-2b's MQA at D 256
 // 17.2 GFLOP (0.0174 ms) against 37.7 MB (0.0113 ms); musicgen's MHA at D
-// 64 12.9 GFLOP (0.0130 ms) against 50.3 MB (0.0150 ms), bound by bytes.
-// The forms this one replaces issued mma.sync, in which every warp reads
-// the whole K and V tile through ldmatrix for its own 16 rows; wgmma reads
-// B from shared memory once for the four warps of a warpgroup and keeps A
-// (Q) in shared memory too, and the copies cost no thread a register or
-// an instruction.  At D 64 the exponentials of a tile take about as long
-// as its products (16 a clock an SM), so the products hide less of the
-// softmax than at D 128.
+// 64 12.9 GFLOP (0.0130 ms) against 50.3 MB (0.0150 ms), bound by bytes;
+// MLA's 128 heads at (192, 128) 172 GFLOP (0.1739 ms) against 671 MB
+// (0.2003 ms), bound by bytes.  The forms this one replaces issued
+// mma.sync, in which every warp reads the whole K and V tile through
+// ldmatrix for its own 16 rows; wgmma reads B from shared memory once for
+// the four warps of a warpgroup and keeps A (Q) in shared memory too, and
+// the copies cost no thread a register or an instruction.  At D 64 the
+// exponentials of a tile take about as long as its products (16 a clock
+// an SM), so the products hide less of the softmax than at D 128.
 //
 // Layout.  A block of 384 threads: warpgroup 0 is the producer (one
 // thread issues every TMA copy; setmaxnreg drops its warps to 40
@@ -33,49 +33,73 @@
 // thread of the launch moved over: 128 x 40 + 256 x 232 = 384 x 168).
 // The grid is persistent, one block an SM: a work item is a (batch, query
 // head, 128-row q tile), each consumer warpgroup owning 64 consecutive
-// rows for the whole softmax; the list runs longest q tiles first and
-// block x takes item x of each even pass of the grid over it and item
-// gridDim.x - 1 - x of each odd one (snake), so the causal work evens out
-// over the blocks.  A block pays its launch, its barriers' set-up and its
-// first copies once rather than once an item: the next item's Q lands in
-// a second buffer and its first K and V tiles in the ring while this one
-// runs (at D 64 a block per item spent about 4.5 us on those a block,
-// 26 of musicgen's 63 us).  Whatever g, no head slot idles (g 7
-// included).  The head-pair layout (the two warpgroups on the same 64 rows
-// of two query heads of one kv head, each K and V tile serving both)
-// measured faster at some even g and slower at g 7 (PERF.md §6; that
-// variant, a text edit of this header, is not kept).
+// rows for the whole softmax.  A block pays its launch, its barriers'
+// set-up and its first copies once rather than once an item: the next
+// item's first K and V tile land in the ring (and its Q in a second
+// buffer where one fits) while this one runs (at D 64 a block per item
+// spent about 4.5 us on those a block, 26 of musicgen's 63 us).  Whatever
+// g, no head slot idles (g 7 included).  The head-pair layout (the two
+// warpgroups on the same 64 rows of two query heads of one kv head, each
+// K and V tile serving both) measured faster at some even g and slower at
+// g 7 (PERF.md §6; that variant, a text edit of this header, is not
+// kept).
 //
-// Tiles.  Key tiles of 128 keys at D 64 and 128 and 64 at D 256: the S
-// accumulator (64 x BK f32, BK / 2 registers a thread) sits beside O (64
-// x D f32: 32 registers at D 64, 64 at D 128, 128 at D 256) and P (BK /
-// 4).  Two stages of K and V.  Shared bytes (smem_bytes, reported by
-// flash_wgmma_smem_bytes): qbufs() Q buffers of 128 x D, 2 x (K + V) BK x
-// D, all bf16, the mbarriers and 1024 bytes that align the swizzled
-// tiles: 99,424 at D 64, 197,728 at D 128, 197,712 at D 256 (one Q
-// buffer: a second does not fit beside the ring).
+// Work order (work_item).  The work items in head-major order (head by
+// head, each head's q tiles last first) are cut into chunks, the last
+// chunk taking the remainder, and each chunk's items run longest q tile
+// first; block x takes item x of each even pass of the grid over the list
+// and item gridDim.x - 1 - x of each odd one (snake).  Where K and V
+// together exceed half the L2, a chunk is two passes (2 gridDim.x
+// items): each block's two items of a chunk pair a long q tile with a
+// short one, so the causal work evens out, and the blocks work one
+// chunk's heads at a time, so a head's K and V come from device memory
+// about once and then from the L2 for its other q tiles.  At MLA's
+// serving shape (B 4, 128 heads, S 1024, 132 SMs: 8 q tiles a head) a
+// chunk is 33 heads, whose K and V are 33 x 1024 x (192 + 128) x 2 B =
+// 21.6 MB, well inside the 50 MB L2.  The list as one chunk (every head's
+// last q tile first, then the next), the order below half the L2 (every
+// Dk = Dv row of the paths: qwen2-72b's K and V are 16.8 MB), comes back
+// to a head only after all its heads' K and V have passed: at MLA's 512
+// heads 335 MB, so each q tile read its keys from device memory, 36 of a
+// head's 8 x 8 key tiles, 1.51 GB a call, 0.45 ms at 3.35 TB/s.
+// kernels/flash/ops.py mirrors the order (wgmma_chunk, wgmma_item) and
+// counts these bytes under a model of the L2 (kv_read_bytes: 1.49 GB in
+// one chunk, 0.336 GB, the once-bytes, in chunks of two passes).
+//
+// Tiles.  Key tiles of 128 keys at D 64 and 128 and at (192, 128), 64 at
+// D 256: the S accumulator (64 x BK f32, BK / 2 registers a thread) sits
+// beside O (64 x Dv f32: 32 registers at Dv 64, 64 at Dv 128, 128 at Dv
+// 256) and P (BK / 4); at (192, 128) that is D 128's 64 + 64 + 32.  Two
+// stages of K and V.  Shared bytes (smem_bytes, reported by
+// flash_wgmma_smem_bytes): qbufs() Q buffers of 128 x Dk, stages() x (K
+// BK x Dk + V BK x Dv), all bf16, the mbarriers and 1024 bytes that align
+// the swizzled tiles: 99,424 at D 64, 197,728 at D 128, 197,712 at D 256
+// and 214,096 at (192, 128) (one Q buffer where a second does not fit
+// beside the ring: D 256 and (192, 128); there an item's Q waits for the
+// item before to store its out from the buffer).
 //
 // Copies.  Each operand has a 4-D tensor map (d, s, h, b) over its own
 // strides, encoded on the host at every call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint: the library links no
 // libcuda), passed as a __grid_constant__ parameter.  A box is 64 columns
 // (128 bytes, the 128-byte swizzle's width) by 64 q rows or BK keys of one
-// head, so a D-wide tile is D / 64 boxes; rows past sq or skv arrive as
-// zeros.  The strided head views models/layers.py passes need no copy;
-// the wrapper's 16-byte rule (_checks.rows_aligned) is TMA's alignment.
-// An item's Q completes on its buffer's full barrier and the buffer is
-// released, once the item's out has been stored from it, on its empty
-// barrier; K_j and V_j each complete on their own full barrier and are
-// released on their own empty barrier (256 arrivals), so K_j+1 can land
-// while V_j is still read.
+// head, so a tile is Dk / 64 boxes (Q, K) or Dv / 64 (V, out); rows past
+// sq or skv arrive as zeros.  The strided head views models/layers.py
+// passes need no copy; the wrapper's 16-byte rule (_checks.rows_aligned)
+// is TMA's alignment.  An item's Q completes on its buffer's full barrier
+// and the buffer is released, once the item's out has been stored from
+// it, on its empty barrier; K_j and V_j each complete on their own full
+// barrier and are released on their own empty barrier (256 arrivals), so
+// K_j+1 can land while V_j is still read.
 //
 // Products.  S = Q K^T: wgmma m64nBKk16 with both operands in shared
 // memory, K-major (a descriptor of the 128-byte swizzle; a k16 step moves
 // the start address 32 bytes along a 128-byte row, a chunk of 64 columns
-// away every four steps).  O += P V: P from registers (the S accumulator
-// is, element for element, the A fragment of P once packed to bf16
-// pairs), V's [key][d] tile as the MN-major B operand (the next 64 columns
-// a BK x 128-byte chunk on, the next 8 keys 1024 bytes on).
+// away every four steps: Dk / 16 steps, 12 at Dk 192).  O += P V at n =
+// Dv: P from registers (the S accumulator is, element for element, the A
+// fragment of P once packed to bf16 pairs), V's [key][d] tile as the
+// MN-major B operand (the next 64 columns a BK x 128-byte chunk on, the
+// next 8 keys 1024 bytes on).
 //
 // Schedule.  Iteration j issues S_j and then PV_{j-1}, waits for S_j alone
 // (wgmma groups complete in order) and computes its softmax while PV_{j-1}
@@ -97,11 +121,11 @@
 // the unrounded p per thread, over the quad at the end.
 //
 // Epilogue.  out / l is packed to bf16 into the warpgroup's own Q rows
-// (its last S has read them) in the swizzled layout the Q copy used, and
-// one thread stores each 64-column chunk with a TMA store (rows past sq
-// are not written), waits until the store has read the rows, and frees
-// the buffer.  The lse, when asked for, goes straight from the quad's
-// first thread.
+// (its last S has read them; out's Dv / 64 chunks take the first of Q's
+// Dk / 64) in the swizzled layout the Q copy used, and one thread stores
+// each 64-column chunk with a TMA store (rows past sq are not written),
+// waits until the store has read the rows, and frees the buffer.  The
+// lse, when asked for, goes straight from the quad's first thread.
 //
 // Measured on an H100 and rejected (PERF.md §6; the variants were text
 // edits of this header, not kept): the serial schedule (S, softmax, PV,
@@ -109,7 +133,7 @@
 // stores, the head-pair layout; at D 64, three consumer warpgroups of 192
 // rows, two blocks an SM of one consumer warpgroup each (level with the
 // persistent grid once it was persistent too), three or four stages,
-// 64-key tiles, the work list in groups of heads.
+// 64-key tiles, the work list in groups of heads on a 128-block grid.
 #pragma once
 
 #include <cuda.h>               // CUtensorMap and its enums (no libcuda link)
@@ -136,42 +160,60 @@ constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer's
 constexpr int kChunk = 64;              // bf16 columns of a 128-byte box
 constexpr int kProducerRegs = 40;       // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int kConsumerRegs = 232;      // = 384 x 168, the launch's registers
+constexpr size_t kSmemMax = 232448;     // the shared bytes a block can have
+constexpr long long kL2Bytes = 50ll << 20;  // the H100's L2
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // a dropped key's score in log2 units: -1e30 * log2(e), as the plain
 // version's s * scale - 1e30 once both are scaled by log2(e)
 constexpr float kMaskL2 = -1.4426950408889634e30f;
 
-// The tile plan (the header's note): keys a tile, and the shared bytes of
-// the Q buffers (both warpgroups' rows each), stages() K and V tiles, the
-// mbarriers and the slack that aligns the base to the 1024 bytes of a
-// swizzle pattern.
-template <int D> __host__ __device__ constexpr int keys() {
-  return D == 256 ? 64 : 128;
+// The tile plan (the header's note) at q and k's head dim DK and v's DV:
+// keys a tile, and the shared bytes of the Q buffers (both warpgroups'
+// rows each), stages() K and V tiles, the mbarriers and the slack that
+// aligns the base to the 1024 bytes of a swizzle pattern.
+template <int DK, int DV> __host__ __device__ constexpr int keys() {
+  return DK == 256 ? 64 : 128;
 }
 // K and V tiles in flight (a third stage at D 128, a third or fourth at D
-// 64 measured level with two; at D 256 it does not fit beside Q)
-template <int D> __host__ __device__ constexpr int stages() { return 2; }
-template <int D> __host__ __device__ constexpr uint32_t q_bytes() {
-  return uint32_t(kConsumers) * kWGRows * D * 2;
+// 64 measured level with two; at D 256 and (192, 128) it does not fit
+// beside Q)
+template <int DK, int DV> __host__ __device__ constexpr int stages() {
+  return 2;
 }
-// Q buffers: the next item's Q lands while this one's runs (at D 256 a
-// second does not fit beside the ring)
-template <int D> __host__ __device__ constexpr int qbufs() {
-  return D == 256 ? 1 : 2;
+template <int DK, int DV> __host__ __device__ constexpr uint32_t q_bytes() {
+  return uint32_t(kConsumers) * kWGRows * DK * 2;
 }
-template <int D> __host__ __device__ constexpr uint32_t tile_bytes() {
-  return uint32_t(keys<D>()) * D * 2;
+template <int DK, int DV> __host__ __device__ constexpr uint32_t k_tile() {
+  return uint32_t(keys<DK, DV>()) * DK * 2;
 }
-template <int D> __host__ __device__ constexpr uint32_t bar_offset() {
-  return qbufs<D>() * q_bytes<D>() + 2u * stages<D>() * tile_bytes<D>();
+template <int DK, int DV> __host__ __device__ constexpr uint32_t v_tile() {
+  return uint32_t(keys<DK, DV>()) * DV * 2;
 }
-template <int D> __host__ __device__ constexpr size_t smem_bytes() {
-  return size_t(bar_offset<D>()) + 8 * (2 * qbufs<D>() + 4 * stages<D>()) +
-         1024;
+// the block's shared bytes with nq Q buffers
+template <int DK, int DV>
+__host__ __device__ constexpr size_t plan_bytes(int nq) {
+  return size_t(nq) * q_bytes<DK, DV>() +
+         size_t(stages<DK, DV>()) * (k_tile<DK, DV>() + v_tile<DK, DV>()) +
+         8 * (2 * nq + 4 * stages<DK, DV>()) + 1024;
 }
-static_assert(smem_bytes<64>() <= 232448 && smem_bytes<128>() <= 232448 &&
-                  smem_bytes<256>() <= 232448,
+// Q buffers: two where they fit beside the ring (the next item's Q lands
+// while this one's runs), else one (D 256, and (192, 128) at 128-key
+// tiles)
+template <int DK, int DV> __host__ __device__ constexpr int qbufs() {
+  return plan_bytes<DK, DV>(2) <= kSmemMax ? 2 : 1;
+}
+template <int DK, int DV> __host__ __device__ constexpr uint32_t bar_offset() {
+  return qbufs<DK, DV>() * q_bytes<DK, DV>() +
+         stages<DK, DV>() * (k_tile<DK, DV>() + v_tile<DK, DV>());
+}
+template <int DK, int DV> __host__ __device__ constexpr size_t smem_bytes() {
+  return plan_bytes<DK, DV>(qbufs<DK, DV>());
+}
+static_assert(smem_bytes<64, 64>() <= kSmemMax &&
+                  smem_bytes<128, 128>() <= kSmemMax &&
+                  smem_bytes<192, 128>() <= kSmemMax &&
+                  smem_bytes<256, 256>() <= kSmemMax,
               "a block's shared memory");
 
 // ---- mbarriers, TMA and wgmma in inline PTX -----------------------------
@@ -419,34 +461,73 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// Work item wk of the list: (batch x head, q tile).  The head-major list
+// (head by head, each head's q tiles last first) is cut into chunks of
+// `chunk` items, the last chunk taking the remainder, and each chunk's
+// items run longest q tile first (the last tile of every head in the
+// chunk, then the one before), heads in order.  One chunk over the whole
+// list is every head's last q tile first, then the next.  A chunk's items
+// at one q tile: the heads h with s <= h nqt + (nqt - 1 - qt) < e.
+// kernels/flash/ops.py's wgmma_item mirrors it.
+__device__ __forceinline__ void work_item(int wk, int bh_count, int nqt,
+                                          int chunk, int& bh, int& qt) {
+  const int nwork = bh_count * nqt;
+  // one chunk: two divisions (a lookup of more divisions, which every
+  // consumer thread runs for every item, cost the rows of one chunk 2-6 %
+  // on an H100)
+  if (chunk >= nwork) {
+    bh = wk % bh_count;
+    qt = nqt - 1 - wk / bh_count;
+    return;
+  }
+  const int last = max(0, nwork / chunk - 1);
+  const int c = min(wk / chunk, last);
+  const int s = c * chunk, e = c == last ? nwork : s + chunk;
+  int r = wk - s;
+  for (int u = 0; u < nqt; ++u) {        // u: q tiles before the last
+    const int h0 = (s - u + nqt - 1) / nqt;          // s - u + nqt - 1 >= 0
+    const int n = e - 1 - u < 0 ? 0 : max(0, (e - 1 - u) / nqt - h0 + 1);
+    if (r < n) {
+      bh = h0 + r;
+      qt = nqt - 1 - u;
+      return;
+    }
+    r -= n;
+  }
+  bh = qt = 0;                           // not reached: r < e - s
+}
+
 // A persistent block (one an SM) walks its share of the work items, each
 // a (batch, query head, q tile of NW x 64 rows); consumer warpgroup w takes
 // rows row0 + 64 w .. of the item's head.  Warp 0 of warpgroup 0 is the
 // producer: one thread copies each item's Q into one of qbufs() buffers,
 // then each key tile's K and V into the ring, running ahead into the next
-// item; the other warpgroups consume.  The header's note gives the design.
-template <int D>
+// item; the other warpgroups consume.  q and
+// k are DK wide, v and out DV.  The header's note gives the design.
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                    const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv,
                    const __grid_constant__ CUtensorMap tmo,
                    float* __restrict__ lse, int B, int H, int g, int sq,
-                   int skv, int causal, int window, int q_off, float scale) {
-  constexpr int BK = keys<D>();
+                   int skv, int causal, int window, int q_off, float scale,
+                   int chunk) {
+  constexpr int BK = keys<DK, DV>();
   constexpr int NW = kConsumers;
-  constexpr int NQ = qbufs<D>();
-  constexpr int NC = D / kChunk;           // 128-byte column chunks a row
-  constexpr uint32_t QWG = kWGRows * D * 2;  // one warpgroup's Q bytes
-  constexpr uint32_t TILE = tile_bytes<D>();
+  constexpr int NQ = qbufs<DK, DV>();
+  constexpr int NCK = DK / kChunk;         // 128-byte column chunks of q, k
+  constexpr int NCV = DV / kChunk;         // ... of v and out
+  constexpr uint32_t QWG = kWGRows * DK * 2;  // one warpgroup's Q bytes
+  constexpr uint32_t KT = k_tile<DK, DV>(), VT = v_tile<DK, DV>();
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + 1023) & ~1023u;
-  constexpr int NS = stages<D>();
-  const uint32_t sQ = base, sK = base + NQ * q_bytes<D>(),
-                 sV = sK + NS * TILE;
+  constexpr int NS = stages<DK, DV>();
+  const uint32_t sQ = base, sK = base + NQ * q_bytes<DK, DV>(),
+                 sV = sK + NS * KT;
   // mbarriers: per Q buffer full and empty, then per stage K full, V
   // full, K empty and V empty
-  const uint32_t bar = base + bar_offset<D>();
+  const uint32_t bar = base + bar_offset<DK, DV>();
   auto q_full = [&](int qb) { return bar + 8 * qb; };
   auto q_empty = [&](int qb) { return bar + 8 * (NQ + qb); };
   const uint32_t ring = bar + 16 * NQ;
@@ -455,10 +536,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   auto k_empty = [&](int st) { return ring + 8 * (2 * NS + st); };
   auto v_empty = [&](int st) { return ring + 8 * (3 * NS + st); };
 
-  // Work item i of this block: passes of gridDim.x items over the list,
-  // longest q tiles first, in snake order (block x takes item x of an
-  // even pass and gridDim.x - 1 - x of an odd one), so each block's sum
-  // of causal work evens out; -1 past the list.
+  // Work item i of this block: passes of gridDim.x items over the list
+  // (work_item), in snake order (block x takes item x of an even pass and
+  // gridDim.x - 1 - x of an odd one), so that a chunk's longest items
+  // pair with its shortest and each block's sum of causal work evens out;
+  // -1 past the list.
   const int nqt = (sq + NW * kWGRows - 1) / (NW * kWGRows);
   const int nwork = B * H * nqt;
   auto work = [&](int i) {
@@ -475,10 +557,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   };
   auto item = [&](int wk) {
     Item it;
-    const int bh = wk % (B * H);
+    int bh, qt;
+    work_item(wk, B * H, nqt, chunk, bh, qt);
     it.b = bh / H;
     it.h = bh % H;
-    it.row0 = (nqt - 1 - wk / (B * H)) * NW * kWGRows;
+    it.row0 = qt * NW * kWGRows;
     const int hi = min(sq, it.row0 + NW * kWGRows);
     const int p0 = it.row0 + q_off, p1 = hi + q_off;
     int kv_lo = 0, kv_hi = causal ? min(skv, p1) : skv;
@@ -520,22 +603,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
         if (i >= NQ) mbar_wait(q_empty(qb), (i / NQ - 1) & 1);
         mbar_expect_tx(q_full(qb), NW * QWG);
         for (int w = 0; w < NW; ++w)
-          for (int c = 0; c < NC; ++c)
-            tma_load(sQ + qb * q_bytes<D>() + w * QWG + c * (kWGRows * 128),
+          for (int c = 0; c < NCK; ++c)
+            tma_load(sQ + qb * q_bytes<DK, DV>() + w * QWG +
+                         c * (kWGRows * 128),
                      &tmq, q_full(qb), c * kChunk, it.row0 + w * kWGRows,
                      it.h, it.b);
         for (int j = 0; j < it.ntiles; ++j, ++n) {
           const int st = n % NS, t0 = it.kv_lo + j * BK;
           const int done = (n / NS - 1) & 1;   // tile n - NS's release
           if (n >= NS) mbar_wait(k_empty(st), done);
-          mbar_expect_tx(k_full(st), TILE);
-          for (int c = 0; c < NC; ++c)
-            tma_load(sK + st * TILE + c * (BK * 128), &tmk, k_full(st),
+          mbar_expect_tx(k_full(st), KT);
+          for (int c = 0; c < NCK; ++c)
+            tma_load(sK + st * KT + c * (BK * 128), &tmk, k_full(st),
                      c * kChunk, t0, hk, it.b);
           if (n >= NS) mbar_wait(v_empty(st), done);
-          mbar_expect_tx(v_full(st), TILE);
-          for (int c = 0; c < NC; ++c)
-            tma_load(sV + st * TILE + c * (BK * 128), &tmv, v_full(st),
+          mbar_expect_tx(v_full(st), VT);
+          for (int c = 0; c < NCV; ++c)
+            tma_load(sV + st * VT + c * (BK * 128), &tmv, v_full(st),
                      c * kChunk, t0, hk, it.b);
         }
       }
@@ -571,11 +655,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       const int pw0 = rw + q_off;            // ... its first position
       const int pw1 = pw0 + kWGRows - 1;     // ... and its last
       const int pr = pw0 + 16 * warp + gr;   // this thread's row 0 position
-      const uint32_t qw = sQ + qb * q_bytes<D>() + w * QWG;
+      const uint32_t qw = sQ + qb * q_bytes<DK, DV>() + w * QWG;
 
-      float o[D / 2];
+      float o[DV / 2];
 #pragma unroll
-      for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+      for (int k = 0; k < DV / 2; ++k) o[k] = 0.f;
       float m[2] = {kMaskL2, kMaskL2}, l[2] = {0.f, 0.f};
       float s[BK / 2];                        // S_j, then its p
       uint32_t pa[BK / 16][4];                // P_{j-1}: the A operand
@@ -586,12 +670,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       // behind a per-warpgroup test was serialized by ptxas); a tile
       // wholly outside a warpgroup's band computes p = 0 there.
       //
-      // S_j = Q K_j^T: D / 16 steps of k16, a step 32 bytes along a
+      // S_j = Q K_j^T: DK / 16 steps of k16, a step 32 bytes along a
       // 128-byte chunk, four steps a chunk
       auto issue_s = [&](int j) {
-        const uint32_t kt = sK + ((n + j) % NS) * TILE;
+        const uint32_t kt = sK + ((n + j) % NS) * KT;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;
           const uint64_t da =
               desc(qw + (kk / 4) * (kWGRows * 128) + off, 16, 1024);
@@ -602,17 +686,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
         }
         wgmma_commit();
       };
-      // O += round_to_bf16(P_j) . V_j: S's accumulator is, block for
-      // block, the A fragment of P; V's [key][d] chunks are the MN-major B
-      // operand (the next 64 columns LBO = BK * 128 bytes on, the next 8
-      // keys 1024)
+      // O += round_to_bf16(P_j) . V_j at n = DV: S's accumulator is, block
+      // for block, the A fragment of P; V's [key][d] chunks are the
+      // MN-major B operand (the next 64 columns LBO = BK * 128 bytes on,
+      // the next 8 keys 1024)
       auto issue_pv = [&](int j) {
-        const uint32_t vt = sV + ((n + j) % NS) * TILE;
+        const uint32_t vt = sV + ((n + j) % NS) * VT;
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t db = desc(vt + kk * 16 * 128, BK * 128, 1024);
-          if constexpr (D == 64) wgmma_rs_n64(o, pa[kk], db);
-          else if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], db);
+          if constexpr (DV == 64) wgmma_rs_n64(o, pa[kk], db);
+          else if constexpr (DV == 128) wgmma_rs_n128(o, pa[kk], db);
           else wgmma_rs_n256(o, pa[kk], db);
         }
         wgmma_commit();
@@ -663,7 +747,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       // O rescaled to the new row max, and P_j packed over P_{j-1}
       auto rescale_pack = [&]() {
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb) {
+        for (int nb = 0; nb < DV / 8; ++nb) {
           o[4 * nb] *= corr[0];
           o[4 * nb + 1] *= corr[0];
           o[4 * nb + 2] *= corr[1];
@@ -747,15 +831,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
               (m[r] == kMaskL2 ? kMaskAdd : m[r] * kLn2) + logf(den);
       }
       // out / l in bf16 over this warpgroup's Q rows (its last S has read
-      // them), in the layout the Q copy used: 64-column chunks of 64 rows
-      // of 128 bytes, a row's 16-byte units XOR-swizzled by row % 8; then
-      // one thread stores each chunk with TMA, rows past sq left out, and
-      // frees the buffer for the item NQ on once the store has read it
+      // them; out's DV / 64 chunks take the first of Q's DK / 64), in the
+      // layout the Q copy used: 64-column chunks of 64 rows of 128 bytes,
+      // a row's 16-byte units XOR-swizzled by row % 8; then one thread
+      // stores each chunk with TMA, rows past sq left out, and frees the
+      // buffer for the item NQ on once the store has read it
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rr = 16 * warp + gr + 8 * r;
 #pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb)
+        for (int nb = 0; nb < DV / 8; ++nb)
           st_shared(qw + (nb / 8) * (kWGRows * 128) + rr * 128 +
                         (((nb % 8) ^ (rr % 8)) * 16) + tig * 4,
                     pack_bf16(o[4 * nb + 2 * r] * inv[r],
@@ -764,7 +849,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + NW + w) : "memory");
       if (threadIdx.x % 128 == 0) {
-        for (int ch = 0; ch < NC; ++ch)
+        for (int ch = 0; ch < NCV; ++ch)
           tma_store(&tmo, qw + ch * (kWGRows * 128), ch * kChunk, rw, it.h,
                     it.b);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -827,24 +912,26 @@ inline bool encode_operand(CUtensorMap* map, const void* p, int D, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// flash_wgmma_kernel<D> on one call, its four tensor maps encoded here
-template <int D>
+// flash_wgmma_kernel<DK, DV> on one call, its four tensor maps encoded
+// here (q and k at DK, v and out at DV)
+template <int DK, int DV>
 cudaError_t launch_wgmma(void* out, const void* q, const void* k,
                          const void* v, Strides qs, Strides ks, Strides vs,
                          int B, int H, int Hkv, int sq, int skv, int causal,
                          int window, int q_off, float scale, float* lse,
                          cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  const Strides os{(long long)sq * H * D, (long long)H * D, D};
-  if (!encode_operand(&tq, q, D, sq, H, B, qs, wg::kWGRows) ||
-      !encode_operand(&tk, k, D, skv, Hkv, B, ks, wg::keys<D>()) ||
-      !encode_operand(&tv, v, D, skv, Hkv, B, vs, wg::keys<D>()) ||
-      !encode_operand(&to, out, D, sq, H, B, os, wg::kWGRows))
+  constexpr int BK = wg::keys<DK, DV>();
+  const Strides os{(long long)sq * H * DV, (long long)H * DV, DV};
+  if (!encode_operand(&tq, q, DK, sq, H, B, qs, wg::kWGRows) ||
+      !encode_operand(&tk, k, DK, skv, Hkv, B, ks, BK) ||
+      !encode_operand(&tv, v, DV, skv, Hkv, B, vs, BK) ||
+      !encode_operand(&to, out, DV, sq, H, B, os, wg::kWGRows))
     return cudaErrorInvalidValue;
-  constexpr size_t smem = wg::smem_bytes<D>();
+  constexpr size_t smem = wg::smem_bytes<DK, DV>();
   const cudaError_t err = cudaFuncSetAttribute(
-      wg::flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      wg::flash_wgmma_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   // one persistent block an SM (one an item where there are fewer)
   int dev = 0, sms = 0;
@@ -855,9 +942,13 @@ cudaError_t launch_wgmma(void* out, const void* q, const void* k,
   constexpr int R = wg::kConsumers * wg::kWGRows;
   const long long nwork = (long long)B * H * ((sq + R - 1) / R);
   const int grid = int(std::min<long long>(nwork, sms));
-  wg::flash_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+  // the work list in chunks of two passes where K and V exceed half the
+  // L2, else one chunk (the header's note; ops.wgmma_chunk mirrors it)
+  const long long kv_bytes = (long long)B * Hkv * skv * (DK + DV) * 2;
+  const int chunk = kv_bytes > wg::kL2Bytes / 2 ? 2 * grid : int(nwork);
+  wg::flash_wgmma_kernel<DK, DV><<<grid, wg::kThreads, smem, stream>>>(
       tq, tk, tv, to, lse, B, H, H / Hkv, sq, skv, causal, window, q_off,
-      scale);
+      scale, chunk);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-// Shared by K4's sources (flash_attn.cu with flash_attn_mma.cuh, and
+// Shared by K4's sources (flash_attn.cu with flash_attn_wgmma.cuh, and
 // flash_decode.cu): operand strides, the f32 conversions and roundings of
 // the online softmax, warp reductions, and the 16-byte copies into shared
 // memory.

@@ -92,9 +92,9 @@ def attention(kernel: str, q: torch.Tensor, k: torch.Tensor,
     return dev
 
 
-# K4's bf16 prefill forms (csrc/flash_attn_mma.cuh; csrc/flash_attn_wgmma.cuh,
-# whose tensor maps need 16-byte aligned addresses and strides) and its
-# decode form (csrc/flash_decode.cu) move rows 16 bytes at a time
+# K4's bf16 prefill form (csrc/flash_attn_wgmma.cuh, whose tensor maps need
+# 16-byte aligned addresses and strides) and its decode form
+# (csrc/flash_decode.cu) move rows 16 bytes at a time
 ROW_ALIGN_BYTES = 16
 
 

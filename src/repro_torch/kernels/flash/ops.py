@@ -8,13 +8,12 @@ takes the plain version in ref.py; any other device raises.  Operands may
 be strided views (a slice of a KV cache, a head split of a projection):
 only the last dim must be contiguous.  The (dtype, Dk, Dv) of a prefill
 alone picks its form (``prefill_form``, the mirror of the C++ dispatch):
-a bf16 prefill at (64, 64), (128, 128) or (256, 256) goes to the wgmma
-form (``csrc/flash_attn_wgmma.cuh``: warpgroup products on tiles the
-tensor memory accelerator copies, one persistent block an SM walking
-work items of 128 query rows of one head, a producer warp and two
-consumer warpgroups), at MLA's unpadded
-(192, 128) to the Q-register form (``csrc/flash_attn_mma.cuh``:
-mma.sync, Q in registers), an f32 prefill to the SIMT form.
+a bf16 prefill at (64, 64), (128, 128), (192, 128) (MLA's unpadded heads)
+or (256, 256) goes to the wgmma form (``csrc/flash_attn_wgmma.cuh``:
+warpgroup products on tiles the tensor memory accelerator copies, one
+persistent block an SM walking work items of 128 query rows of one head
+in ``wgmma_item``'s order, a producer warp and two consumer warpgroups),
+an f32 prefill to the SIMT form.
 The decode form splits the keys over blocks (``decode_split``) for a
 group of query heads a block (``decode_head_group``); up to MAX_CLUSTER
 splits run as one kernel whose blocks merge in a thread-block cluster
@@ -51,7 +50,7 @@ from torch.utils.flop_counter import register_flop_formula
 from .ref import attention_ref
 
 KERNEL = "flash_attention"
-FORMS = ("prefill_mma", "prefill_wgmma", "prefill_simt", "decode")
+FORMS = ("prefill_wgmma", "prefill_simt", "decode")
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PREFILL_ARGTYPES = ((_P,) * 4 + (_I,) * 8 + (_LL,) * 9
                      + (_I, _I, _I, ctypes.c_float, _P, _P))
@@ -71,15 +70,14 @@ _DECODE_GROUPS = (8, 6, 4)
 
 # a kernel of the library by its name, mangled (ptxas) or demangled (the
 # profiler): kernel, then its type and integer template arguments (mangled
-# only); the integers are (Dk, Dv) for the Q-register and SIMT forms,
-# (D,) for the wgmma form (bf16 alone), (D, head group) for the decode
-# form's cluster and split kernels
-_ENTRY = re.compile(r"(flash_(?:mma_qreg|wgmma|prefill|decode_cluster"
+# only); the integers are (Dk, Dv) for the prefill forms (the wgmma form
+# bf16 alone), (D, head group) for the decode form's cluster and split
+# kernels
+_ENTRY = re.compile(r"(flash_(?:wgmma|prefill|decode_cluster"
                     r"|decode_split|decode_merge)_kernel)"
                     r"(?:I(f|13__nv_bfloat16)?"
                     r"((?:Li\d+E)*))?")
-_FORM_OF = {"flash_mma_qreg_kernel": "prefill_mma",
-            "flash_wgmma_kernel": "prefill_wgmma",
+_FORM_OF = {"flash_wgmma_kernel": "prefill_wgmma",
             "flash_prefill_kernel": "prefill_simt",
             "flash_decode_cluster_kernel": "decode_cluster",
             "flash_decode_split_kernel": "decode_split",
@@ -107,16 +105,14 @@ def _resource_key(kernel: str, dtype: str, ints) -> str:
     """"bf16_d256", "bf16_d192_128", "f32_d64", "bf16_d64_g4", "bf16":
     the type, the head dims (Dv when it differs from Dk) and the heads a
     block of a decode kernel."""
-    if kernel == "flash_wgmma_kernel":
-        return f"{dtype}_d{ints[0]}"
-    if kernel in ("flash_mma_qreg_kernel", "flash_prefill_kernel"):
+    if kernel in ("flash_wgmma_kernel", "flash_prefill_kernel"):
         dk, dv = ints
         return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "")
     return dtype + "".join(f"_{p}{i}" for p, i in zip("dg", ints))
 
 
 def resources(*built: _build.Built) -> dict:
-    """Per kernel (the three prefill forms, the decode form's cluster,
+    """Per kernel (the two prefill forms, the decode form's cluster,
     split and merge kernels), then per ``_resource_key`` ("bf16_d256",
     "bf16_d192_128", "bf16_d256_g4", "bf16"): ptxas's registers, stack
     and spill bytes for each kernel of the built ``flash_attn`` and
@@ -124,8 +120,7 @@ def resources(*built: _build.Built) -> dict:
     block."""
     out = {}
     for b in built:
-        smem = {"flash_mma_qreg_kernel": "flash_mma_smem_bytes",
-                "flash_wgmma_kernel": "flash_wgmma_smem_bytes",
+        smem = {"flash_wgmma_kernel": "flash_wgmma_smem_bytes",
                 "flash_prefill_kernel": "flash_simt_smem_bytes"}
         for name, use in _build.ptxas_usage(b.log).items():
             e = _entry(name)
@@ -196,37 +191,170 @@ def decode_head_group(g: int) -> int:
 def prefill_form(dtype: torch.dtype, dk: int, dv: int) -> str:
     """The prefill form that CUDA operands of ``dtype`` at q and k's head
     dim ``dk`` and v's ``dv`` launch, as ``csrc/flash_attn.cu``'s
-    prefill_form picks it: f32 the SIMT form at every pair, bf16 the wgmma
-    form where Dk = Dv ((64, 64), (128, 128), (256, 256)) and the
-    Q-register form at MLA's (192, 128).  Any other pair or type
-    raises."""
+    prefill_form picks it: f32 the SIMT form, bf16 the wgmma form, at
+    every pair of ``_checks.ATTENTION_HEAD_DIMS`` ((64, 64), (128, 128),
+    MLA's (192, 128), (256, 256)).  Any other pair or type raises."""
     if (dk, dv) not in _checks.ATTENTION_HEAD_DIMS or \
             dtype not in _checks.ATTENTION_DTYPES:
         raise ValueError(f"{KERNEL}: no prefill form for {dtype} at "
                          f"({dk}, {dv})")
-    if dtype != torch.bfloat16:
-        return "prefill_simt"
-    return "prefill_wgmma" if dk == dv else "prefill_mma"
+    return "prefill_simt" if dtype != torch.bfloat16 else "prefill_wgmma"
 
 
-def wgmma_plan(d: int) -> dict:
-    """The wgmma form's tile plan at head dim ``d`` (64, 128 or 256), as
+# the H100's L2 bytes: the launcher's chunk rule (wgmma_chunk) and
+# kv_read_bytes' model
+L2_BYTES = 50 * 2 ** 20
+_WG_ROWS = 128           # query rows a work item of the wgmma form
+_SMEM_MAX = 232448       # the shared bytes a block can have
+
+
+def wgmma_plan(dk: int, dv: int) -> dict:
+    """The wgmma form's tile plan at q and k's head dim ``dk`` and v's
+    ``dv`` (a pair of ``_checks.ATTENTION_HEAD_DIMS``), as
     ``csrc/flash_attn_wgmma.cuh`` fixes it: 128 query rows a work item (64
-    a consumer warpgroup), 128 keys a tile at D 64 and 128 and 64 at D
-    256, two stages of K and V, two Q buffers (one at D 256), and the
-    block's shared bytes: the Q buffers, the K and V ring, 8 bytes an
-    mbarrier (each Q buffer's full and empty, each stage's K full, V full,
-    K empty and V empty) and 1024 of slack that aligns the swizzled
-    tiles."""
-    if d not in (64, 128, 256):
-        raise ValueError(f"{KERNEL}: the wgmma form takes D 64, 128 or 256, "
-                         f"got {d}")
-    rows, keys, stages = 128, (64 if d == 256 else 128), 2
-    qbufs = 1 if d == 256 else 2
-    smem = (qbufs * 2 * rows * d + 2 * stages * 2 * keys * d
-            + 8 * (2 * qbufs + 4 * stages) + 1024)
-    return {"rows": rows, "keys": keys, "stages": stages,
-            "q_buffers": qbufs, "smem_bytes": smem}
+    a consumer warpgroup), 128 keys a tile (64 at D 256), two stages of K
+    and V, two Q buffers where they fit beside the ring (else one: D 256
+    and (192, 128)), and the block's shared bytes: the Q buffers (128 x
+    dk), the K (keys x dk) and V (keys x dv) ring, 8 bytes an mbarrier
+    (each Q buffer's full and empty, each stage's K full, V full, K empty
+    and V empty) and 1024 of slack that aligns the swizzled tiles."""
+    if (dk, dv) not in _checks.ATTENTION_HEAD_DIMS:
+        raise ValueError(f"{KERNEL}: the wgmma form takes (Dk, Dv) of "
+                         f"{_checks.ATTENTION_HEAD_DIMS}, got ({dk}, {dv})")
+    keys, stages = (64 if dk == 256 else 128), 2
+
+    def smem(qbufs):
+        return (qbufs * 2 * _WG_ROWS * dk + stages * 2 * keys * (dk + dv)
+                + 8 * (2 * qbufs + 4 * stages) + 1024)
+    qbufs = 2 if smem(2) <= _SMEM_MAX else 1
+    return {"rows": _WG_ROWS, "keys": keys, "stages": stages,
+            "q_buffers": qbufs, "smem_bytes": smem(qbufs)}
+
+
+def wgmma_grid(batch: int, heads: int, sq: int, sms: int = SMS) -> int:
+    """The wgmma form's persistent grid: one block an SM, or one a work
+    item where there are fewer."""
+    return min(batch * heads * -(-sq // _WG_ROWS), sms)
+
+
+def wgmma_chunk(batch: int, heads: int, kv_heads: int, sq: int, skv: int,
+                dk: int, dv: int, sms: int = SMS) -> int:
+    """Work items a chunk of the wgmma form's list, as its launcher picks
+    it: two passes of the grid where K and V together exceed half the L2
+    (a chunk's heads' K and V then stay in the L2 for their q tiles), else
+    the whole list in one."""
+    grid = wgmma_grid(batch, heads, sq, sms)
+    if batch * kv_heads * skv * (dk + dv) * 2 > L2_BYTES // 2:
+        return 2 * grid
+    return batch * heads * -(-sq // _WG_ROWS)
+
+
+def wgmma_item(wk: int, bh_count: int, nqt: int, chunk: int):
+    """(batch x head, q tile) of work item ``wk``, the mirror of the
+    kernel's ``work_item``: the head-major list (head by head, each
+    head's q tiles last first) cut into chunks of ``chunk`` items, the
+    last chunk taking the remainder, each chunk's items longest q tile
+    first, heads in order."""
+    nwork = bh_count * nqt
+    if chunk >= nwork:                # one chunk
+        return wk % bh_count, nqt - 1 - wk // bh_count
+    last = max(0, nwork // chunk - 1)
+    c = min(wk // chunk, last)
+    s = c * chunk
+    e = nwork if c == last else s + chunk
+    r = wk - s
+    for u in range(nqt):              # u: q tiles before the last
+        h0 = (s - u + nqt - 1) // nqt
+        n = 0 if e - 1 - u < 0 else max(0, (e - 1 - u) // nqt - h0 + 1)
+        if r < n:
+            return h0 + r, nqt - 1 - u
+        r -= n
+    raise ValueError(f"{KERNEL}: work item {wk} past the list of {nwork}")
+
+
+def wgmma_blocks(batch: int, heads: int, sq: int, chunk: int,
+                 sms: int = SMS) -> list:
+    """Each block's work items in the order it runs them, (batch x head,
+    q tile) each: pass i of the grid over ``wgmma_item``'s list gives
+    block x item i grid + x (even i) or i grid + grid - 1 - x (odd i, the
+    snake)."""
+    nqt = -(-sq // _WG_ROWS)
+    grid = wgmma_grid(batch, heads, sq, sms)
+    nwork = batch * heads * nqt
+    return [[wgmma_item(wk, batch * heads, nqt, chunk)
+             for i in range(-(-nwork // grid))
+             for wk in (i * grid + (grid - 1 - x if i & 1 else x),)
+             if wk < nwork]
+            for x in range(grid)]
+
+
+def item_band(qt: int, sq: int, skv: int, causal: bool, window, q_offset:
+              int = 0, keys: int = 128):
+    """(first key, key tiles) of the wgmma form's q tile ``qt``: the keys
+    its rows' bands meet, as the kernel's ``item`` finds them."""
+    row0 = qt * _WG_ROWS
+    p0, p1 = row0 + q_offset, min(sq, row0 + _WG_ROWS) + q_offset
+    lo, hi = 0, (min(skv, p1) if causal else skv)
+    if window:
+        if p1 - window >= skv:
+            hi = skv
+        else:
+            lo = max(0, p0 - window + 1)
+    return lo, -(-(hi - lo) // keys)
+
+
+def kv_read_bytes(batch: int, heads: int, kv_heads: int, sq: int, skv: int,
+                  dk: int, dv: int, causal: bool = True, window=None,
+                  q_offset: int = 0, chunk: Optional[int] = None,
+                  sms: int = SMS, l2_bytes: int = L2_BYTES):
+    """(K and V bytes the wgmma form reads from device memory, their
+    once-bytes) for a work list in chunks of ``chunk`` items
+    (``wgmma_chunk``'s unless given), under a model of the L2: the blocks
+    start their items in the order a run of equal-cost key tiles gives
+    (each block's items one after another, an item's cost its key tiles),
+    every item reads its key tiles of K and V when it starts, and the L2
+    keeps the last ``l2_bytes`` of tiles (least recently used out).  A
+    tile found in the L2 costs nothing; one that is not costs its rows'
+    bytes (none past skv).  The once-bytes read every key once: B Hkv skv
+    (dk + dv) 2."""
+    import heapq
+    from collections import OrderedDict
+    keys = wgmma_plan(dk, dv)["keys"]
+    if chunk is None:
+        chunk = wgmma_chunk(batch, heads, kv_heads, sq, skv, dk, dv, sms)
+    g = heads // kv_heads
+    starts = []                      # (start, block, head, first key, tiles)
+    clock = [(0, x) for x in range(wgmma_grid(batch, heads, sq, sms))]
+    blocks = wgmma_blocks(batch, heads, sq, chunk, sms)
+    nxt = [0] * len(blocks)
+    heapq.heapify(clock)
+    while clock:
+        t, x = heapq.heappop(clock)
+        if nxt[x] == len(blocks[x]):
+            continue
+        bh, qt = blocks[x][nxt[x]]
+        nxt[x] += 1
+        lo, nt = item_band(qt, sq, skv, causal, window, q_offset, keys)
+        starts.append((t, x, bh, lo, nt))
+        heapq.heappush(clock, (t + nt, x))
+    starts.sort()
+    cache, held, read = OrderedDict(), 0, 0
+    for _, _, bh, lo, nt in starts:
+        b, h = divmod(bh, heads)
+        hk = h // g
+        for j in range(nt):
+            key = (b, hk, lo + j * keys)
+            rows = min(keys, skv - key[2])
+            if key in cache:
+                cache.move_to_end(key)
+                continue
+            nbytes = rows * (dk + dv) * 2
+            read += nbytes
+            cache[key] = nbytes
+            held += nbytes
+            while held > l2_bytes:
+                held -= cache.popitem(last=False)[1]
+    return read, batch * kv_heads * skv * (dk + dv) * 2
 
 
 def form_launches() -> dict:
@@ -291,9 +419,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sq, H, Dv) in q's dtype, and with ``return_lse`` also each row's
     log-sum-exp of the scaled, masked scores, f32 (B, H, Sq), which the
     kernel writes beside out.  On the card (Dk, Dv) must be a pair of
-    ``_checks.ATTENTION_HEAD_DIMS``, and a bf16 call's scale positive at
-    (192, 128): the Q-register form keeps its row max on the raw scores
-    (the wgmma form scales each score first)."""
+    ``_checks.ATTENTION_HEAD_DIMS``; any scale."""
     if window is not None and window < 1:
         raise ValueError(f"{KERNEL}: window {window} must be at least 1")
     if q_offset < 0:
@@ -308,9 +434,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     form = prefill_form(q.dtype, Dk, Dv)
     if form != "prefill_simt":
         _checks.rows_aligned(KERNEL, "bf16 prefill", q=q, k=k, v=v)
-    if form == "prefill_mma" and not scale > 0:
-        raise ValueError(f"{KERNEL}: the Q-register form takes a "
-                         f"positive scale, got {scale}")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)

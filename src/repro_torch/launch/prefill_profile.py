@@ -3,9 +3,9 @@ call, where one call's device time goes, and K4's prefill alone at the
 model's local and global layer shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.prefill_profile \\
-        [--arch gemma3-1b] [--batch 4] [--prompt-len 1024] [--calls 5] \\
-        [--dtype bfloat16|float32] [--k4-only] [--lse] [--padded] \\
-        [--iters 50]
+        [--arch gemma3-1b[,musicgen-medium,...]] [--batch 4] \\
+        [--prompt-len 1024] [--calls 5] [--dtype bfloat16|float32] \\
+        [--k4-only] [--lse] [--padded] [--iters 50]
 
 The model runs in ``--dtype`` (bfloat16 by default: K4's tensor-core
 forms, the wgmma form where Dk = Dv; float32 takes its SIMT form) with
@@ -35,7 +35,9 @@ script uses only the package's public model API (``init_params``,
 and ``kernels/timing.py``, so the same file can time an earlier revision
 of the package put first on ``PYTHONPATH``, with this revision's
 ``timing.py`` copied into it: two revisions compare within one run on
-one card.  Prints one JSON line, then the card's name and power limit.
+one card.  ``--arch`` takes a comma-separated list, run one after
+another in one process.  Prints one JSON line an arch, then the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -113,7 +115,9 @@ def k4_case(q, k, v, window, scale, lse: bool, iters: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="gemma3-1b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="gemma3-1b",
+                    help="an arch of configs.ARCHS, or several, comma-"
+                         "separated")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--calls", type=int, default=5)
@@ -124,9 +128,24 @@ def main(argv=None) -> int:
     ap.add_argument("--padded", action="store_true")
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
+    archs = args.arch.split(",")
+    unknown = sorted(set(archs) - set(ARCHS))
+    if unknown:
+        ap.error(f"unknown arch {unknown}: choose from {sorted(ARCHS)}")
     if not torch.cuda.is_available():
         raise SystemExit("prefill_profile: needs a CUDA card")
-    cfg = ARCHS[args.arch].replace(dtype=args.dtype)
+    for arch in archs:
+        print(json.dumps(profile(args, arch)), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+def profile(args, arch: str) -> dict:
+    """One arch's line: K4 alone at its layer shapes and, without
+    ``--k4-only``, its ``prefill_fn``."""
+    cfg = ARCHS[arch].replace(dtype=args.dtype)
     B, S = args.batch, args.prompt_len
     out = {"arch": cfg.name, "dtype": cfg.dtype, "batch": B, "prompt": S}
 
@@ -156,7 +175,7 @@ def main(argv=None) -> int:
         out[f"k4_{layer}"] = case
     del q, k, v
     if args.k4_only:
-        return _report(out)
+        return out
 
     # the model: wall of warm calls (host clock), then one profiled call
     t0 = time.perf_counter()
@@ -185,15 +204,9 @@ def main(argv=None) -> int:
         "k4_device_ms": sum(ms for name, ms in events.items()
                             if "flash_" in name),
         "top": [{"name": name[:80], "ms": ms} for name, ms in top[:8]]})
-    return _report(out)
-
-
-def _report(out: dict) -> int:
-    print(json.dumps(out), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
-    return 0
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

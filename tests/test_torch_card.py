@@ -268,7 +268,7 @@ def test_flash_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, D, causal,
     form = prefill_form(dtype, D, D)
     assert form == ("prefill_simt" if dtype == torch.float32
                     else "prefill_wgmma")
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": 0, form: 1}
 
 
@@ -297,11 +297,13 @@ def test_flash_padded_mla_prefill_matches_plain(card, dtype, atol):
 # (Dk, Dv) = (192, 128): DeepSeek-V2's MLA unpadded, in both prefill forms.
 # (B, Sq, Skv, H, Hkv, causal, q_offset, window, lse): a ragged Sq, Skv
 # past Sq with the rows at its end, a window, GQA over a ragged Skv
-# without a mask
+# without a mask, and the serving path's shape (4 x 1024, 128 heads: the
+# wgmma form's list in chunks of two passes, K and V past half the L2)
 DKDV_CASES = [(2, 200, 200, 4, 4, True, 0, None, False),
               (1, 100, 333, 4, 4, True, 233, None, True),
               (2, 150, 150, 8, 8, True, 0, 40, True),
-              (2, 77, 130, 4, 2, False, 0, None, False)]
+              (2, 77, 130, 4, 2, False, 0, None, False),
+              (4, 1024, 1024, 128, 128, True, 0, None, False)]
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2),
@@ -329,7 +331,7 @@ def test_flash_dk_dv_kernel_matches_plain(card, B, Sq, Skv, H, Hkv, causal,
         assert (got_lse - want_lse).abs().max().item() <= 1e-4
     assert got.shape == (B, Sq, H, 128) and got.dtype == dtype
     assert (got.float() - want).abs().max().item() <= atol
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": 0,
                                prefill_form(dtype, 192, 128): 1}
 
@@ -380,7 +382,7 @@ def test_flash_grouped_heads_match_plain(card, D, g):
                                             v.contiguous(), causal=True,
                                             window=40))
     form = prefill_form(bf16, D, D)
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": 0, form: 4}
 
 
@@ -411,51 +413,44 @@ def test_flash_wgmma_empty_band_rows_match_plain(card, D):
 
 def test_flash_prefill_form_matches_the_kernels_dispatch(card):
     """ops.prefill_form, which the wrapper and tests read, against the C
-    dispatch's own choice (flash_prefill_form: 0 SIMT, 1 Q-register, 2
-    wgmma) for both types and every pair, -1 for a pair K4 is not built
-    for; the wgmma form's shared bytes against ops.wgmma_plan, the Python
-    plan."""
+    dispatch's own choice (flash_prefill_form: 0 SIMT, 2 wgmma) for both
+    types and every pair, -1 for a pair K4 is not built for; the wgmma
+    form's shared bytes against ops.wgmma_plan, the Python plan, at every
+    pair, MLA's (192, 128) included."""
     lib = _build.build_all(["flash_attn"])["flash_attn"].lib
     lib.flash_prefill_form.argtypes = [ctypes.c_int] * 3
     lib.flash_prefill_form.restype = ctypes.c_int
-    codes = {"prefill_simt": 0, "prefill_mma": 1, "prefill_wgmma": 2}
+    codes = {"prefill_simt": 0, "prefill_wgmma": 2}
     for code, dtype in enumerate((torch.float32, torch.bfloat16)):
         for dk, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
             assert lib.flash_prefill_form(code, dk, dv) == \
                 codes[prefill_form(dtype, dk, dv)]
         for dk, dv in ((96, 96), (128, 64), (256, 128)):
             assert lib.flash_prefill_form(code, dk, dv) == -1
-    lib.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_wgmma_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.flash_wgmma_smem_bytes.restype = ctypes.c_int
-    for d in (64, 128, 256):
-        assert lib.flash_wgmma_smem_bytes(d) == wgmma_plan(d)["smem_bytes"]
-    assert lib.flash_wgmma_smem_bytes(192) == 0
-    # the Q-register form keeps MLA's (192, 128) alone
-    lib.flash_mma_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.flash_mma_smem_bytes.restype = ctypes.c_int
-    assert lib.flash_mma_smem_bytes(192, 128) > 0
-    assert lib.flash_mma_smem_bytes(64, 64) == 0
+    for dk, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
+        assert lib.flash_wgmma_smem_bytes(dk, dv) == \
+            wgmma_plan(dk, dv)["smem_bytes"]
+    assert lib.flash_wgmma_smem_bytes(192, 192) == 0
 
 
-def test_flash_qreg_form_takes_only_a_positive_scale(card):
-    """The Q-register form keeps its row max on the raw scores, so a bf16
-    call at (192, 128) with a scale that is not positive raises before any
-    launch; the wgmma form (D 64 and 256 here) scales each score first and
-    takes it, against the plain version at 3e-2."""
+def test_flash_wgmma_form_takes_any_scale(card):
+    """The wgmma form scales each score before its row max, so a bf16
+    prefill takes a scale that is not positive at every pair it is built
+    for (MLA's (192, 128), D 64 and D 256 here), against the plain version
+    at 3e-2."""
     rng = np.random.RandomState(11)
     bf16 = torch.bfloat16
-    q, k = (_randn(rng, (1, 40, 2, 192), bf16, card) for _ in range(2))
-    v = _randn(rng, (1, 40, 2, 128), bf16, card)
-    with pytest.raises(ValueError, match="positive scale"):
-        flash_attention(q, k, v, scale=-0.125)
-    assert registry.get_kernel("flash_attention").launches() == 0
-    for d, scale in ((64, -0.125), (256, -0.0625)):
-        q, k, v = (_randn(rng, (1, 40, 2, d), bf16, card) for _ in range(3))
+    for dk, dv, scale in ((192, 128, -0.125), (64, 64, -0.125),
+                          (256, 256, -0.0625)):
+        q, k = (_randn(rng, (1, 40, 2, dk), bf16, card) for _ in range(2))
+        v = _randn(rng, (1, 40, 2, dv), bf16, card)
         out = flash_attention(q, k, v, scale=scale)
         torch.cuda.synchronize()
         want = attention_ref(q, k, v, scale=scale)
         assert (out.float() - want).abs().max().item() <= 3e-2
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 2,
+    assert form_launches() == {"prefill_wgmma": 3,
                                "prefill_simt": 0, "decode": 0}
 
 
@@ -536,7 +531,7 @@ def test_flash_wgmma_d64_matches_plain(card, g):
     assert torch.equal(out, flash_attention(q.contiguous(), k.contiguous(),
                                             v.contiguous(), causal=True,
                                             window=40))
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 10,
+    assert form_launches() == {"prefill_wgmma": 10,
                                "prefill_simt": 0, "decode": 0}
 
 
@@ -560,7 +555,7 @@ def test_flash_f32_strided_head_views(card):
         assert torch.equal(out, flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
             window=40))
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 4, "decode": 0}
 
 
@@ -578,7 +573,7 @@ def test_flash_bf16_misaligned_raises(card):
     q_off = flat[1:].view(1, 32, H, D)                 # 2 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(q_off, kv, kv)
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": 0}
     assert registry.get_kernel("flash_attention").launches() == 0
 
@@ -617,7 +612,7 @@ def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
                 err = (out.float() - want).abs().max().item()
                 assert err <= atol, (g, skv, err)
     assert registry.get_kernel("flash_attention").launches() == calls
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": calls}
 
 
@@ -687,7 +682,7 @@ def test_flash_decode_cluster_at_every_split(card, pairs, D, dtype, atol):
                 assert out.dtype == dtype and out.shape == q.shape
                 err = (out.float() - want).abs().max().item()
                 assert err <= atol, (n, skv, err)
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": calls}
 
 
@@ -754,7 +749,7 @@ def test_flash_decode_misaligned_raises(card):
                   kv.to(torch.bfloat16), kv.to(torch.bfloat16))):
         with pytest.raises(ValueError, match="decode form needs 16-byte"):
             flash_decode(*args)
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": 0, "decode": 0}
     assert registry.get_kernel("flash_attention").launches() == 0
 
@@ -805,7 +800,7 @@ def test_model_forwards_on_card_match_cpu(card, arch):
         assert torch.allclose(a, b, atol=2e-4, rtol=1e-4)
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     n_decode = 0 if cfg.mla else n_attn * S
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
+    assert form_launches() == {"prefill_wgmma": 0,
                                "prefill_simt": n_attn, "decode": n_decode}
     assert registry.get_kernel("flash_attention").launches() == \
         n_attn + n_decode
@@ -980,7 +975,7 @@ def test_train_step_on_card_matches_cpu(card, arch):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item() \
             + 1e-12
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    assert k1 == {"prefill_mma": 0, "prefill_wgmma": 0, "prefill_simt": n_attn,
+    assert k1 == {"prefill_wgmma": 0, "prefill_simt": n_attn,
                   "decode": 0}
 
 

@@ -351,17 +351,16 @@ def test_decode_cluster_takes_one_to_eight_splits():
 def test_prefill_form_by_dtype():
     from repro_torch.kernels.flash.ops import FORMS, prefill_form
     assert prefill_form(torch.bfloat16, 64, 64) == "prefill_wgmma"
-    assert prefill_form(torch.bfloat16, 192, 128) == "prefill_mma"
+    assert prefill_form(torch.bfloat16, 192, 128) == "prefill_wgmma"
     assert prefill_form(torch.float32, 64, 64) == "prefill_simt"
-    assert set(FORMS) == {"prefill_mma", "prefill_wgmma", "prefill_simt",
-                          "decode"}
+    assert set(FORMS) == {"prefill_wgmma", "prefill_simt", "decode"}
 
 
 @pytest.mark.parametrize("dtype,dk,dv,form", [
     (torch.bfloat16, 128, 128, "prefill_wgmma"),
     (torch.bfloat16, 256, 256, "prefill_wgmma"),
     (torch.bfloat16, 64, 64, "prefill_wgmma"),
-    (torch.bfloat16, 192, 128, "prefill_mma"),
+    (torch.bfloat16, 192, 128, "prefill_wgmma"),
     (torch.float32, 64, 64, "prefill_simt"),
     (torch.float32, 128, 128, "prefill_simt"),
     (torch.float32, 192, 128, "prefill_simt"),
@@ -369,37 +368,99 @@ def test_prefill_form_by_dtype():
 ])
 def test_prefill_form_by_head_dims(dtype, dk, dv, form):
     """The Python mirror of the C++ dispatch: the (dtype, Dk, Dv) of a
-    prefill alone picks its form (bf16 at (64, 64), (128, 128) and (256,
-    256) the wgmma form, at (192, 128) the Q-register form, f32 the SIMT
-    form); a pair K4 is not built for has none."""
+    prefill alone picks its form (bf16 the wgmma form at every pair,
+    MLA's (192, 128) included, f32 the SIMT form); a pair K4 is not built
+    for has none."""
     from repro_torch.kernels.flash.ops import prefill_form
     assert prefill_form(dtype, dk, dv) == form
     with pytest.raises(ValueError, match="no prefill form"):
         prefill_form(dtype, dk, dk + 64)
 
 
-@pytest.mark.parametrize("d,keys,stages,qbufs,smem", [
-    (64, 128, 2, 2, 99424), (128, 128, 2, 2, 197728),
-    (256, 64, 2, 1, 197712)])
-def test_wgmma_plan_fits_a_block(d, keys, stages, qbufs, smem):
+@pytest.mark.parametrize("dk,dv,keys,stages,qbufs,smem", [
+    (64, 64, 128, 2, 2, 99424), (128, 128, 128, 2, 2, 197728),
+    (256, 256, 64, 2, 1, 197712), (192, 128, 128, 2, 1, 214096)])
+def test_wgmma_plan_fits_a_block(dk, dv, keys, stages, qbufs, smem):
     """The wgmma form's tile plan (the Python mirror of
     csrc/flash_attn_wgmma.cuh's): 128 query rows a work item in two
-    warpgroups of 64, 128 keys a tile at D 64 and 128 and 64 at D 256, two
-    stages of K and V, two Q buffers where they fit (one at D 256), and
-    its shared bytes within the 232,448 a block can have; a head dim the
-    form is not built for raises."""
+    warpgroups of 64, 128 keys a tile at D 64 and 128 and at MLA's (192,
+    128), 64 at D 256, two stages of K and V, two Q buffers where they fit
+    beside the ring (one at D 256 and (192, 128)), and its shared bytes
+    within the 232,448 a block can have; a pair the form is not built for
+    raises."""
     from repro_torch.kernels.flash.ops import wgmma_plan
-    plan = wgmma_plan(d)
+    plan = wgmma_plan(dk, dv)
     assert plan == {"rows": 128, "keys": keys, "stages": stages,
                     "q_buffers": qbufs, "smem_bytes": smem}
-    # the Q buffers (128 x d each), the stages of K and V (keys x d), all
-    # bf16; two mbarriers a Q buffer and four a stage; 1024 bytes of
-    # alignment slack
-    assert smem == 2 * (qbufs * 128 * d + 2 * stages * keys * d) \
+    # the Q buffers (128 x dk each), the stages of K (keys x dk) and V
+    # (keys x dv), all bf16; two mbarriers a Q buffer and four a stage;
+    # 1024 bytes of alignment slack
+    assert smem == 2 * (qbufs * 128 * dk + stages * keys * (dk + dv)) \
         + 8 * (2 * qbufs + 4 * stages) + 1024
     assert smem <= 232448
+    # a second Q buffer would not fit where the plan keeps one
+    assert qbufs == 2 or smem + 2 * 128 * dk + 16 > 232448
     with pytest.raises(ValueError):
-        wgmma_plan(192)
+        wgmma_plan(192, 192)
+
+
+# (B, H, Hkv, S, Dk, Dv): deepseek-v2's MLA serving and training (B 2),
+# qwen2-vl, command-r-plus, musicgen, qwen2-72b at the paths' 1024, and
+# longer or ragged prompts (q tiles that do not divide a pass pair)
+WORK_CASES = [(4, 128, 128, 1024, 192, 128), (2, 128, 128, 1024, 192, 128),
+              (4, 28, 4, 1024, 128, 128), (4, 96, 8, 1024, 128, 128),
+              (4, 24, 24, 1024, 64, 64), (4, 64, 8, 1024, 128, 128),
+              (1, 28, 4, 4096, 128, 128), (2, 32, 32, 2048, 128, 128),
+              (4, 128, 128, 640, 192, 128), (2, 128, 128, 3000, 192, 128)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,dk,dv", WORK_CASES)
+def test_wgmma_work_order_takes_each_item_once_and_evens_the_blocks(
+        B, H, Hkv, S, dk, dv):
+    """The wgmma form's work list (``ops.wgmma_item``, the kernel's
+    ``work_item``), in its launcher's chunks (``wgmma_chunk``: two passes
+    of the grid where K and V exceed half the L2) and as one chunk: every
+    (batch x head, q tile) comes exactly once, and each block's causal key
+    tiles are within 5 % of the mean over the blocks."""
+    from repro_torch.kernels.flash import ops
+    nqt = -(-S // 128)
+    grid = ops.wgmma_grid(B, H, S)
+    chunked = B * Hkv * S * (dk + dv) * 2 > ops.L2_BYTES // 2
+    assert ops.wgmma_chunk(B, H, Hkv, S, S, dk, dv) == \
+        (2 * grid if chunked else B * H * nqt)
+    for chunk in (2 * grid, B * H * nqt):
+        blocks = ops.wgmma_blocks(B, H, S, chunk)
+        assert len(blocks) == grid == min(B * H * nqt, 132)
+        items = [it for b in blocks for it in b]
+        assert sorted(items) == [(bh, t) for bh in range(B * H)
+                                 for t in range(nqt)]
+        tiles = [sum(ops.item_band(t, S, S, True, None)[1] for _, t in b)
+                 for b in blocks]
+        assert max(tiles) <= 1.05 * sum(tiles) / grid
+
+
+def test_wgmma_work_order_reads_mla_keys_about_once():
+    """At deepseek-v2's MLA serving shape (B 4, 128 heads, S 1024, (192,
+    128)) the chunked list reads K and V from device memory at most twice
+    over (0.336 GB once) under ``kv_read_bytes``' model of the 50 MB L2,
+    where the list as one chunk (every head's last q tile first) reads
+    nearly every q tile's keys anew: 36 of a head's 8 x 8 key tiles, 1.51
+    GB."""
+    from repro_torch.kernels.flash import ops
+    B, H, S, dk, dv = 4, 128, 1024, 192, 128
+    once = B * H * S * (dk + dv) * 2
+    every = B * H * 36 * 128 * (dk + dv) * 2       # 1.51 GB
+    read, got_once = ops.kv_read_bytes(B, H, H, S, S, dk, dv)
+    assert got_once == once == 335544320
+    assert read <= 2 * once
+    one, _ = ops.kv_read_bytes(B, H, H, S, S, dk, dv, chunk=B * H * 8)
+    assert 0.95 * every <= one <= every and abs(every - 1.51e9) < 0.01e9
+    # the same with its lse at B 2 (training), and a shape whose K and V
+    # fit half the L2 keeps one chunk and reads them once
+    read, once = ops.kv_read_bytes(2, H, H, S, S, dk, dv)
+    assert read <= 2 * once
+    read, once = ops.kv_read_bytes(4, 28, 4, S, S, 128, 128)
+    assert read == once
 
 
 def test_cpu_route_takes_plain_version():
@@ -418,8 +479,8 @@ def test_cpu_route_takes_plain_version():
     out = flash_attention(q, kv, kv, causal=True, window=7)
     want = attention_ref(q, kv, kv, causal=True, window=7).to(torch.bfloat16)
     assert torch.equal(out, want)
-    assert form_launches() == {"prefill_mma": 0, "prefill_wgmma": 0,
-                               "prefill_simt": 0, "decode": 0}
+    assert form_launches() == {"prefill_wgmma": 0, "prefill_simt": 0,
+                               "decode": 0}
     assert registry.get_kernel("flash_attention").launches() == 0
 
 
@@ -429,18 +490,18 @@ def test_form_counts_sit_beside_the_registry_count():
     from repro_torch.kernels import _build, registry
     from repro_torch.kernels.flash.ops import KERNEL, form_launches
     registry.reset_launch_counts()
-    for form in ("prefill_mma", "prefill_mma", "decode", "prefill_wgmma"):
+    for form in ("prefill_wgmma", "prefill_wgmma", "decode"):
         _build.launch(KERNEL, lambda: 0, form=form)
-    assert form_launches() == {"prefill_mma": 2, "prefill_wgmma": 1,
-                               "prefill_simt": 0, "decode": 1}
+    assert form_launches() == {"prefill_wgmma": 2, "prefill_simt": 0,
+                               "decode": 1}
     entry = registry.get_kernel(KERNEL)
-    assert entry.launches() == 4
+    assert entry.launches() == 3
     _build.launch(KERNEL, lambda: 0, form="prefill_simt")
-    assert form_launches()["prefill_simt"] == 1 and entry.launches() == 5
+    assert form_launches()["prefill_simt"] == 1 and entry.launches() == 4
     registry.reset_launch_counts()
     assert entry.launches() == 0 and sum(form_launches().values()) == 0
-    with pytest.raises(RuntimeError, match="prefill_mma"):
-        _build.launch(KERNEL, lambda: 2, form="prefill_mma")
+    with pytest.raises(RuntimeError, match="prefill_wgmma"):
+        _build.launch(KERNEL, lambda: 2, form="prefill_wgmma")
     assert entry.launches() == 0
 
 
@@ -541,16 +602,16 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
 
 
 @pytest.mark.parametrize("name,form,key", [
-    ("_ZN12_GLOBAL__N_13mma21flash_mma_qreg_kernelILi192ELi128EEEvP13"
-     "__nv_bfloat16", "prefill_mma", "bf16_d192_128"),
-    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi64EEEv14CUtensorMap_stS2_"
-     "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d64"),
-    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi256EEEv14CUtensorMap_stS2_"
-     "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d256"),
-    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi128EEEv14CUtensorMap_stS2_"
-     "S2_P13__nv_bfloat16Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d128"),
-    ("void (anonymous namespace)::wg::flash_wgmma_kernel<128>("
-     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi192ELi128EEEv14CUtensorMap"
+     "_stS2_S2_S2_Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d192_128"),
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi64ELi64EEEv14CUtensorMap_st"
+     "S2_S2_S2_Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d64"),
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi256ELi256EEEv14CUtensorMap"
+     "_stS2_S2_S2_Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d256"),
+    ("_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelILi128ELi128EEEv14CUtensorMap"
+     "_stS2_S2_S2_Pfiiiiiiiiifi", "prefill_wgmma", "bf16_d128"),
+    ("void (anonymous namespace)::wg::flash_wgmma_kernel<128, 128>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "float*, int, int, int, int, int, int, int, int, float, int)",
      "prefill_wgmma", None),
     ("_ZN12_GLOBAL__N_14simt20flash_prefill_kernelIfLi192ELi128EEEvPT_",
@@ -561,20 +622,22 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
      "decode_cluster", "f32_d128_g6"),
     ("void (anonymous namespace)::dec::flash_decode_cluster_kernel<"
      "__nv_bfloat16, 64, 3>(__nv_bfloat16*)", "decode_cluster", None),
-    ("void (anonymous namespace)::mma::flash_mma_qreg_kernel<192, 128>("
-     "__nv_bfloat16*)", "prefill_mma", None),
-    ("void (anonymous namespace)::wg::flash_wgmma_kernel<64>("
+    ("void (anonymous namespace)::wg::flash_wgmma_kernel<192, 128>("
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
-     "float*, int, int, int, int, int, int, int, int, float)",
+     "float*, int, int, int, int, int, int, int, int, float, int)",
+     "prefill_wgmma", None),
+    ("void (anonymous namespace)::wg::flash_wgmma_kernel<64, 64>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float*, int, int, int, int, int, int, int, int, float, int)",
      "prefill_wgmma", None),
     ("void (anonymous namespace)::conv2d_general_kernel(int*, int const*)",
      None, None),
 ])
 def test_kernel_names_map_to_forms(name, form, key):
     """Profiler (demangled) and ptxas (mangled) names of K4's kernels map
-    to their form, the Q-register kernel's to prefill_mma and the wgmma
-    kernel's to prefill_wgmma; a mangled name also gives its
-    ``resources`` key (type, head dims, a decode kernel's heads a block);
+    to their form, the wgmma kernel's (at every (Dk, Dv)) to
+    prefill_wgmma; a mangled name also gives its ``resources`` key (type,
+    head dims, Dv where it differs, a decode kernel's heads a block);
     a kernel that is not K4's is no form's."""
     from repro_torch.kernels.flash import ops
     assert ops.kernel_form(name) == form
