@@ -18,9 +18,11 @@ phase prints one JSON line:
            over every streamable op), all built from the checkout in one
            parallel batch, with each segment's tile and shared bytes; K4's
            registers and spills per kernel, type and head dim (and head
-           group for the decode form's cluster and split kernels: 36
-           builds each, 3 head dims x 2 types x groups of 1, 2, 3, 4, 6
-           and 8, beside its 2 merge kernels), with each prefill form's shared bytes, and
+           group for the decode form's cluster and split kernels: the
+           split kernel's 36 builds, 3 head dims x 2 types x groups of 1,
+           2, 3, 4, 6 and 8, the cluster kernel's 30, its bf16 groups of 6
+           and 8 left to the mma kernel; the mma kernel's 3, bf16 at D 64,
+           128 and 256; the 2 merge kernels), with each prefill form's shared bytes, and
            K1's per form; K1, every K4 kernel, K2 and every generated
            segment must not spill
   kernel   per kernel: the CUDA kernel against its plain PyTorch version
@@ -74,8 +76,13 @@ phase prints one JSON line:
            (Dk + Dv) flops a pair, the library given the unpadded
            operands)); each case
            must launch its own form, and a decode case exactly the
-           cluster kernel (up to 8 splits, merged in a cluster) or the
-           split and merge kernels (more) by the profiler's events; per case the
+           kernels ``flash.ops.decode_kernel`` names by the profiler's
+           events: up to 8 splits (merged in a cluster) the mma kernel for
+           bf16 at g >= 5 (qwen2-vl's, qwen2-72b's, jamba's and
+           command-r-plus's decodes over serving's 160 keys, and
+           command-r-plus's and gemma-2b's over a 100-slot view), else the
+           cluster kernel, more the split and merge kernels (gemma-2b's
+           decodes over 160 and 1024 keys); per case the
            max abs error, K4's device ms (the profiler's kernel time),
            graph ms (CUDA events around replays of a CUDA graph of 20
            back-to-back calls: every kernel and gap, no host work) and
@@ -368,10 +375,13 @@ K4_TIMED_CASES = {"main_local", "main_local_f32", "decode_full",
                     for key in ("granite", "mla", *SERVED_K4)
                     for case in ("prefill_bf16", "prefill_f32",
                                  "decode_bf16"))}
-# the decode form's cluster and split kernels' builds each: 3 head dims x 2
+# the decode form's builds by kernel: the split kernel's 3 head dims x 2
 # types x head groups of 1, 2, 3, 4, 6 and 8 (ops.decode_head_group); the
-# merge kernel's 2 types
-K4_DECODE_BUILDS = 36
+# cluster kernel's the same but bf16 at 6 and 8, which the mma kernel takes
+# (ops.decode_kernel); the mma kernel's 3 head dims in bf16; the merge
+# kernel's 2 types
+K4_DECODE_BUILDS = {"decode_split": 36, "decode_cluster": 30,
+                    "decode_mma": 3, "decode_merge": 2}
 # odd sizes that no tile divides (PYRAMID's strides must divide its frame)
 MK_ODD = {"flow": (37, 13), "descriptor": (45, 19), "pyramid": (36, 20)}
 
@@ -771,14 +781,11 @@ def build_phase(designs, extra):
         for fn, use in _build.ptxas_usage(b.log).items():
             if use.get("spill_stores", 1) or use.get("spill_loads", 1):
                 raise AssertionError(f"{name} spills in {fn}: {use}")
-    if len(k4.get("decode_cluster", {})) != K4_DECODE_BUILDS or \
-            len(k4.get("decode_split", {})) != K4_DECODE_BUILDS or \
-            len(k4.get("decode_merge", {})) != 2:
-        raise AssertionError(f"K4's decode kernels built as "
-                             f"{k4.get('decode_cluster')}, "
-                             f"{k4.get('decode_split')}, "
-                             f"{k4.get('decode_merge')}")
-    for form in ("decode_cluster", "decode_split", "decode_merge"):
+    built_decode = {form: len(k4.get(form, {})) for form in K4_DECODE_BUILDS}
+    if built_decode != K4_DECODE_BUILDS:
+        raise AssertionError(f"K4's decode kernels built {built_decode} "
+                             f"times, want {K4_DECODE_BUILDS}")
+    for form in K4_DECODE_BUILDS:
         for key, use in k4[form].items():
             if use.get("spill_stores", 1) or use.get("spill_loads", 1):
                 raise AssertionError(f"K4's {form} kernel spills at {key}: "
@@ -1857,7 +1864,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
     from repro_torch.kernels.flash.ops import (
-        attention_pairs, decode_cluster, decode_split, form_launches,
+        attention_pairs, decode_kernel, decode_split, form_launches,
         prefill_form)
     from repro_torch.kernels.timing import (bound_ms, device_events,
                                             device_ms, graph_ms)
@@ -1917,19 +1924,19 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                      "lse_tolerance": LSE_ATOL})
     if decode:
         kc, nsplit = decode_split(skv, B * hkv)
-        line["split"] = {"kc": kc, "nsplit": nsplit,
-                         "path": ("cluster" if decode_cluster(nsplit)
-                                  else "split + merge")}
+        kernel = decode_kernel(q.dtype, H // hkv, nsplit)
+        line["split"] = {"kc": kc, "nsplit": nsplit, "kernel": kernel}
 
     def kernels_seen(iters, whole_calls=True):
         """The device ms and K4's kernels the profiler saw over ``iters``
-        calls: a decode case must run the cluster kernel alone up to 8
-        splits, the split and merge kernels past a cluster."""
+        calls: a decode case must run the kernels decode_kernel names, the
+        mma or the cluster kernel alone up to 8 splits, the split and
+        merge kernels past a cluster."""
         ms, by_name = device_events(run, iters, whole_calls=whole_calls)
         seen = sorted(f for f in map(kernel_form, by_name) if f)
         if decode:
-            want = (["decode_cluster"] if decode_cluster(nsplit)
-                    else ["decode_merge", "decode_split"])
+            want = (["decode_merge", "decode_split"]
+                    if kernel == "decode_split" else [kernel])
             if seen != sorted(want):
                 raise AssertionError(f"flash_attention {name}: the profiler "
                                      f"saw {seen}, want {sorted(want)}")
@@ -1938,7 +1945,7 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     if name not in K4_TIMED_CASES:
         if decode:
             # names only: a short window can lose a kernel's records
-            kernels_seen(20, whole_calls=False)
+            line["kernels"] = kernels_seen(20, whole_calls=False)[1]
         line["s"] = time.perf_counter() - t_case
         return line
     # the library yardstick: one call of scaled_dot_product_attention on
@@ -2158,7 +2165,9 @@ def flash_phase(torch, np):
     # gemma-2b's MQA (g 8 at D 256, Hkv 1), musicgen's MHA (g 1 at D 64,
     # Hkv 24), qwen2-vl's g 7 at D 128 and Hkv 4 (one group of 8, a slot
     # idle), qwen2-72b's g 8 at Hkv 8 and command-r-plus's g 12 (two head
-    # groups of 6); and gemma-2b's decode over 1024 keys (the merge kernel)
+    # groups of 6); and gemma-2b's decode over 1024 keys (the merge kernel);
+    # command-r-plus's and gemma-2b's over a 100-slot view of serving's
+    # cache (the mma kernel at 5 and 6 splits), held but not timed
     for key, arch in SERVED_K4.items():
         c = ARCHS[arch]
         H, Hkv, D = c.n_heads, c.n_kv_heads, c.hd
@@ -2172,12 +2181,20 @@ def flash_phase(torch, np):
         decodes = {f"{key}_decode_bf16": FAM_PROMPT + FAM_GEN}
         if key == "gemma_2b":
             decodes["gemma_2b_decode_1024_bf16"] = LLM_PROMPT
+        q1 = randn((FAM_BATCH, 1, H, D), bf16)
         for name, keys in decodes.items():
             lines[name] = flash_case(
-                torch, np, name, randn((FAM_BATCH, 1, H, D), bf16),
-                randn((FAM_BATCH, keys, Hkv, D), bf16),
+                torch, np, name, q1, randn((FAM_BATCH, keys, Hkv, D), bf16),
                 randn((FAM_BATCH, keys, Hkv, D), bf16), causal=False,
                 window=None, decode=True, atol=3e-2)
+        if key in ("command_r_plus", "gemma_2b"):
+            kc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, Hkv, D), bf16)
+            vc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, Hkv, D), bf16)
+            lines[f"{key}_decode_span_bf16"] = flash_case(
+                torch, np, f"{key}_decode_span_bf16", q1, kc[:, :100],
+                vc[:, :100], causal=False, window=None, decode=True,
+                atol=3e-2)
+            del kc, vc
     m = ARCHS["deepseek-v2-236b"]
     dk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
     for name, (b, s, dtype, atol) in {
@@ -2265,14 +2282,15 @@ def prefill_device(torch, call, wall_ms: float) -> dict:
 
 
 def decode_step_profile(torch, cfg, params, step_in, index: int,
-                        merge_calls: int) -> dict:
+                        kernel: str, layers: int) -> dict:
     """Where a decode step's time goes: one warm step on ``step_in`` (a
     decode_fn batch at position ``index``), then 3 steps at ``index``
     under the profiler (CPU and CUDA activity): the wall and device ms a
-    step, K4's split and merge kernels' share and calls a step, the
-    host's aten operators a step and the top device kernels.  A step must
-    run the merge kernel ``merge_calls`` times (once per layer whose span
-    takes more splits than a cluster merges, else never)."""
+    step, K4's decode kernels' share and calls a step, the host's aten
+    operators a step and the top device kernels.  A step's ``layers``
+    K4 decodes must run exactly the kernels ``kernel`` (a
+    ``flash.ops.decode_kernel`` name) stands for, and the merge kernel
+    once a layer where that is the split kernel, else never."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_forward
     from repro_torch.models.model import zero_cache
@@ -2298,11 +2316,16 @@ def decode_step_profile(torch, cfg, params, step_in, index: int,
     k4_ms = sum(e.self_device_time_total for e in events
                 if "flash_decode" in e.key) / 1e3 / 3
     k4_calls = {f: sum(e.count for e in events if kernel_form(e.key) == f)
-                / 3 for f in ("decode_cluster", "decode_split",
+                / 3 for f in ("decode_mma", "decode_cluster", "decode_split",
                               "decode_merge")}
-    if k4_calls["decode_merge"] != merge_calls:
+    split = kernel == "decode_split"
+    want = (set() if layers == 0 else {"decode_split", "decode_merge"}
+            if split else {kernel})
+    if {f for f, n in k4_calls.items() if n} != want or \
+            k4_calls["decode_merge"] != (layers if split else 0):
         raise AssertionError(f"a decode step ran K4's kernels {k4_calls} "
-                             f"times, want {merge_calls} merges")
+                             f"times, want {sorted(want)} over {layers} "
+                             f"layers")
     host_ops = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.key.startswith("aten::")) / 3
@@ -2468,7 +2491,7 @@ def llm_phase(torch, np):
     line["decode_step_profile"] = decode_step_profile(
         torch, cfg, params, {"tokens": toks[:, :1], "positions": torch.full(
             (LLM_BATCH, 1), LLM_PROMPT - 1, device="cuda")},
-        LLM_PROMPT - 1, merge_calls=cfg.n_layers)
+        LLM_PROMPT - 1, kernel="decode_split", layers=cfg.n_layers)
     emit(line)
     return line, form_counts(**{form: n_prefill}, prefill_simt=n_simt,
                              decode=n_decode)
@@ -2677,7 +2700,7 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
     prefill_fn)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import registry
-    from repro_torch.kernels.flash.ops import (decode_cluster, decode_split,
+    from repro_torch.kernels.flash.ops import (decode_kernel, decode_split,
                                                form_launches)
     from repro_torch.launch.serve import Prompt, make_prompt, serve
     from repro_torch.models import build_forward
@@ -2818,10 +2841,12 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
                                             res.prompt_logits)):
         raise AssertionError(f"{arch} bf16 serving: bad shapes or "
                              f"non-finite logits")
-    # a profiled step's spans (128 keys) merge in a cluster unless they
-    # take more splits than one holds
-    merges = 0 if decode_cluster(decode_split(
-        FAM_PROMPT, FAM_BATCH * cfg.n_kv_heads)[1]) else n_gqa
+    # a profiled step's spans (128 keys) take the kernel decode_kernel
+    # names at their split: the mma kernel at bf16 g >= 5 (gemma-2b,
+    # qwen2-vl, qwen2-72b, command-r-plus, jamba), else the cluster kernel
+    step_kernel = decode_kernel(torch.bfloat16, cfg.n_heads // cfg.n_kv_heads,
+                                decode_split(FAM_PROMPT,
+                                             FAM_BATCH * cfg.n_kv_heads)[1])
     line.update({
         "bf16_prefill": dict(
             {"batch": FAM_BATCH, "prompt": FAM_PREFILL, "ms": prefill_ms,
@@ -2840,7 +2865,7 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
                        "sampled_ids": res.tokens[:2, :8].tolist()},
         "decode_step_profile": decode_step_profile(
             torch, cfg, params, p_step(FAM_PROMPT - 1), FAM_PROMPT - 1,
-            merge_calls=merges),
+            kernel=step_kernel, layers=n_gqa),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "arch_s": time.perf_counter() - t_arch})
     del params
@@ -3589,8 +3614,12 @@ def main() -> int:
                   "prefill_wgmma": "flash_attn_wgmma.cuh"}.get(k["form"])
         source = {"source": f"src/repro_torch/csrc/{source}"} \
             if source else {}
+        # a decode entry's split and the kernels the profiler saw run it
+        # (decode_kernel's: the mma kernel at the wide groups)
+        decode = {"split": k["split"]} if "split" in k else {}
         return dict(line(name, registry.get_kernel("flash_attention"), k,
-                         n_launch), **source,
+                         n_launch), **source, **decode,
+                    kernels=k["kernels"],
                     equal=False, tolerance=k["tolerance"], case=k["case"],
                     share_of_bound=k["share_of_bound"],
                     graph_ms=k["graph_ms"],

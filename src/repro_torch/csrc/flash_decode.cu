@@ -25,15 +25,20 @@
 // group) on a grid (nsplit, B*Hkv, head groups), block (c, b*Hkv + hk, z)
 // taking keys [c*kc, min((c+1)*kc, skv)) for a group of GT query heads of
 // kv head hk, so each K and V row leaves device memory once however many
-// heads share it.  GT is sized to g (dec::head_group,
-// ops.decode_head_group): g itself up to 4, 6 for g 5-6, 8 for 7-8, and
-// above 8 the largest of 8, 6, 4 that divides g (granite's g 3 runs 3
-// heads a block, command-r-plus's 12 two groups of 6, qwen2-vl's 7 one
-// group of 8 with one idle slot).  The Python wrapper picks kc and nsplit
+// heads share it.  The cluster and split kernels size GT to g
+// (dec::head_group, ops.decode_head_group): g itself up to 4, 6 for g 5-6,
+// 8 for 7-8, and above 8 the largest of 8, 6, 4 that divides g (granite's
+// g 3 runs 3 heads a block; in f32 or past 8 splits command-r-plus's 12
+// two groups of 6, qwen2-vl's 7 one group of 8 with one idle slot); the
+// mma kernel takes 16.  The Python wrapper picks kc and nsplit
 // (ops.decode_split: about one block per SM, chunks of at least 16 keys,
-// at most 8 splits from 16 (b, kv head) pairs on).  Two kernels serve it:
-//  - up to 8 splits (every span at 16 or more pairs; short spans at
-//    fewer): dec::flash_decode_cluster_kernel, one launch whose nsplit
+// at most 8 splits from 16 (b, kv head) pairs on).  Three kernels serve
+// it, by dec::decode_kernel (mirrored by ops.decode_kernel):
+//  - up to 8 splits in bf16 at g >= 5: dec::flash_decode_mma_kernel, all
+//    g <= 16 query heads of a kv head as the 16 rows of an mma.sync tile
+//    (its note gives the design), merged in a cluster as below;
+//  - up to 8 splits otherwise (every span at 16 or more pairs; short spans
+//    at fewer): dec::flash_decode_cluster_kernel, one launch whose nsplit
 //    blocks of a group form one thread-block cluster (cudaLaunchKernelEx,
 //    cluster (nsplit, 1, 1)).  Each warp runs its own online softmax over
 //    its rows, read straight into registers, with no block barrier; the
@@ -50,7 +55,7 @@
 //    formula over the splits.
 // Rows move with 16-byte cp.async / vector loads, so every row start must
 // be 16-byte aligned (the wrapper raises otherwise).  The notes on the
-// two kernels give their tiles.  What bounds the short spans is not bytes
+// three kernels give their tiles.  What bounds the short spans is not bytes
 // (granite's 160 keys are 1.3 MB, 0.4 us at 3.35 TB/s) but latency: a
 // launch, a round trip to L2 or DRAM, and one warp a scheduler issuing
 // every dependent step; the cluster kernel has one round trip for q, K and
@@ -65,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"     // Strides, to_f, round_to, cp_async16, ...
 
@@ -665,6 +672,389 @@ flash_decode_cluster_kernel(T* __restrict__ out, const T* __restrict__ q,
 #undef K4_MERGE
 }
 
+// ---- the wide head groups in bf16: one kv head's query heads as the rows
+// of an mma.sync tile --------------------------------------------------------
+//
+// dec::flash_decode_mma_kernel<D> replaces, for bf16 decodes at g >= 5
+// query heads a kv head and up to kMaxCluster splits (decode_kernel), the
+// same TPU kernel as the rest of this file: the decode of
+// src/repro/kernels/flash/kernel.py::_flash_kernel through
+// flash_decode_tpu, with the function at the top of this file.
+//
+// What bounds it: the span's bytes are few (qwen2-72b's 8 kv heads at B 4
+// over 160 keys: 2.8 MB, 0.84 us at 3.35 TB/s), so latency and issue set
+// the time, as in the cluster kernel.  That kernel keeps q and acc of all
+// its GT heads in f32 on every lane (about 250 registers at GT 6-8, two
+// blocks an SM), sums each score over 16 lanes by shuffles, and runs
+// command-r-plus's g 12 as two groups of 6 whose blocks both read every K
+// and V row, in two waves.  Here all g <= 16 query heads of a kv head are
+// the 16 rows of one m16n8k16 tile: the D reduction happens inside the
+// instruction, O lives in fragments (64 registers at D 128; 127 in all,
+// so four blocks fit an SM), each K and V row leaves memory once a split,
+// and a group of up to 16 heads is one block (command-r-plus's grid is 160
+// blocks, one wave).  mma.sync, not wgmma: wgmma takes 64 rows, of which a
+// kv head's 7-16 heads would fill a quarter, and the kernel is not bound
+// by the products.  On an H100 at the paths' shapes (about 4.5 us a call)
+// the copies, products and the block's combine take about 3.3 us, the
+// exchange's stores and wait 0.1-0.3 us and the merge 0.4-0.8 us: one pass
+// of dependent loads, exponentials and divisions a thread, with 4 warps an
+// SM.  One bulk copy a peer (cp.async.bulk) in place of the st.async
+// stores ran 5-8 % slower, its closing cluster barrier included.
+//
+// Block (c, b*Hkv + hk, z) of a cluster of the nsplit blocks of one (b, kv
+// head, z) takes keys [c*kc, min((c+1)*kc, skv)) for query heads hk*g +
+// 16z + r (r < 16; rows at or past g hold zero q and are never stored):
+//  1. Q's 16 rows go to shared memory by 16-byte cp.async; each warp takes
+//     the chunk's 16-key groups w, w + 4, ..., each group's K and V rows
+//     copied by cp.async into the warp's own ring (all of a warp's first
+//     two groups in flight at once: kc <= 32 keys at the paths' spans; a
+//     second stage only where the chunk holds more than 4 groups), rows
+//     padded by 8 elements, so ldmatrix (K, Q) and ldmatrix.trans (V) are
+//     free of bank conflicts.  One block barrier, for Q; the warps' loops
+//     have none.
+//  2. Per group, S = Q K^T: 16 heads x 16 keys from ldmatrix'd fragments
+//     (Q's read from shared memory a k-step: held in registers they took
+//     32 more at D 128 and ran no faster), the even and odd k-steps into
+//     two accumulators; the scaled scores' row max and sum cross a
+//     quad by two shuffles (the online softmax in f32, l summing the f32
+//     p); P rounded to bf16 is repacked from the C fragments into A
+//     fragments in registers, and O += P V takes V's fragments from
+//     ldmatrix.trans.
+//  3. The warps' (m, l, O) are combined in shared memory (each warp's O
+//     over its own first stage) and exchanged as in the cluster kernel:
+//     each split's partial of item f (four columns of one head) goes by
+//     st.async into the shared memory of block f / per of the cluster,
+//     completing on its mbarrier, and merge_items writes out.  Only the
+//     group's live heads are exchanged.
+constexpr int kMmaRows = 16;      // a block's query heads: the tile's rows
+constexpr int kMmaKeys = 16;      // a warp's key group: P's k16
+constexpr int kMmaPad = 8;        // bf16 elements of padding a shared row
+constexpr int kMmaMinGroup = 5;   // the least g the kernel takes
+
+// The kernel a decode launch takes (ops.decode_kernel mirrors it): past
+// kMaxCluster splits the split and merge kernels; up to it, a bf16 decode
+// at g >= kMmaMinGroup the mma kernel, any other the cluster kernel.
+enum { kSplitKernel = 0, kClusterKernel = 1, kMmaKernel = 2 };
+__host__ __device__ constexpr int decode_kernel(int dtype, int g,
+                                                int nsplit) {
+  return nsplit > kMaxCluster ? kSplitKernel
+         : dtype == 1 && g >= kMmaMinGroup ? kMmaKernel
+                                           : kClusterKernel;
+}
+
+// A warp's ring: two stages where a chunk of kc keys holds more than one
+// group a warp, else one.  Shared bytes: Q's 16 rows, then each warp's
+// stages of K and V (16 rows each), all padded bf16 rows.
+__host__ __device__ constexpr int mma_stages(int kc) {
+  return (kc + kMmaKeys - 1) / kMmaKeys > kWarps ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int mma_smem_bytes(int stages) {
+  return 2 * (D + kMmaPad) * (kMmaRows + kWarps * stages * 2 * kMmaKeys);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// a lane's row and column in the 16x16 block that ldmatrix.x4 reads for an
+// A fragment (Q), or for V's B fragments with .trans: matrices (rows 0-7,
+// cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+// ... and for K's B fragments of two n8 key blocks: (keys 0-7, d 0-7),
+// (keys 0-7, d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15)
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int b_col(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
+
+// rows [r0, r0 + 16) of one head of a cache into a warp's [16][D + 8]
+// tile, 16 bytes a lane a copy; rows at or past j1 are zero-filled
+template <int D>
+__device__ __forceinline__ void load_group(__nv_bfloat16* s,
+                                           const __nv_bfloat16* g,
+                                           long long stride, int r0, int j1,
+                                           int lane) {
+  constexpr int NV = D / 8, RS = D + kMmaPad;
+#pragma unroll
+  for (int i = lane; i < kMmaKeys * NV; i += 32) {
+    const int r = i / NV, cv = i % NV;
+    const bool in = r0 + r < j1;
+    mma::cp_async16(mma::smem_u32(s + r * RS + cv * 8),
+                    in ? g + (r0 + r) * stride + cv * 8 : g, in);
+  }
+}
+
+// The note above gives the design; the cluster kernel's (its steps 2-3)
+// gives the exchange, whose barriers and byte counts this kernel keeps.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_mma_kernel(__nv_bfloat16* __restrict__ out,
+                        const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, Strides qs,
+                        Strides ks, Strides vs, int H, int Hkv, int g,
+                        int skv, int kc, int nsplit, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int GT = kMmaRows, RS = D + kMmaPad;
+  constexpr int NK = D / 16;             // k16 steps of S = Q K^T
+  constexpr int NO = D / 8;              // n8 blocks of O
+  constexpr int NV = D / 8;              // 16-byte vectors a row
+  constexpr int C4 = D / 4;              // four-column items of a head
+  constexpr int WS = 2 * kMmaKeys * RS;  // a warp's stage: K, then V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);          // [16][RS]
+  // split c's acc of this block's item fl at [c*per + fl], its (m, l)
+  __shared__ __align__(16) float4 sAcc[GT * C4 + kMaxCluster - 1];
+  __shared__ float2 sML[kMaxCluster][GT];
+  __shared__ float2 sMLw[kWarps][GT];                    // warps' (m, l)
+  __shared__ uint64_t sBar;              // the splits' partials are in
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tig = lane & 3;  // fragment row, column pair
+  const int c = blockIdx.x, b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int hg = blockIdx.z * GT;        // first head of the block in hk's
+  const int heads = min(GT, g - hg);     // its live heads
+  // items f = c*per .. of the block's live heads' are its to merge
+  const int items = heads * C4;
+  const int per = (items + nsplit - 1) / nsplit;
+  const int cnt = max(0, min(per, items - c * per));
+  if (tid == 0) {
+    mbar_init(&sBar);
+    mbar_expect(&sBar, uint32_t(nsplit) * (16 * cnt + 8 * heads));
+  }
+  cluster_arrive_relaxed();              // started, its mbarrier set
+  const int j0 = c * kc, j1 = min(j0 + kc, skv);
+  const int groups = (j1 - j0 + kMmaKeys - 1) / kMmaKeys;
+  const int stages = mma_stages(kc);
+  bf16* sW = sQ + GT * RS + warp * stages * WS;          // the warp's ring
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  // Q (one copy group), then the warp's groups w and w + 4 into its
+  // stages, K and V a copy group each (empty where there is no group)
+  const bf16* qb = q + b * qs.b + (hk * g + hg) * qs.h;
+  for (int i = tid; i < GT * NV; i += kThreads) {
+    const int r = i / NV, cv = i % NV;
+    mma::cp_async16(mma::smem_u32(sQ + r * RS + cv * 8),
+                    r < heads ? qb + r * qs.h + cv * 8 : qb, r < heads);
+  }
+  mma::cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int grp = warp + s * kWarps;
+    const bool has = s < stages && grp < groups;
+    if (has)
+      load_group<D>(sW + s * WS, kb, ks.s, j0 + grp * kMmaKeys, j1, lane);
+    mma::cp_async_commit();
+    if (has)
+      load_group<D>(sW + s * WS + kMmaKeys * RS, vb, vs.s,
+                    j0 + grp * kMmaKeys, j1, lane);
+    mma::cp_async_commit();
+  }
+  mma::cp_async_wait<4>();               // Q has landed
+  __syncthreads();                       // ... for every thread
+
+  const uint32_t qa = mma::smem_u32(sQ + a_row(lane) * RS + a_col(lane));
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kMaskAdd, kMaskAdd}, l[2] = {0.f, 0.f};  // rows gr, gr + 8
+  const uint32_t kfrag = 2 * (b_row(lane) * RS + b_col(lane));
+  const uint32_t vfrag = 2 * ((kMmaKeys + a_row(lane)) * RS + a_col(lane));
+
+  int st = 0;                            // the group's stage
+  for (int grp = warp; grp < groups; grp += kWarps) {
+    mma::cp_async_wait<3>();             // the group's K
+    __syncwarp();
+    const uint32_t base = mma::smem_u32(sW + st * WS);
+    float s[2][2][4];                    // even and odd k-steps, two n8
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[h][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t a[4], bk[4];
+      ldsm_x4(a, qa + kk * 32);
+      ldsm_x4(bk, base + kfrag + kk * 32);
+      mma_bf16(s[kk & 1][0], a, bk[0], bk[1]);
+      mma_bf16(s[kk & 1][1], a, bk[2], bk[3]);
+    }
+    // the scaled scores (keys at or past j1 at -inf), the quad's row max,
+    // p = exp(s - m) summed unrounded into l, and O's correction
+    const int key0 = j0 + grp * kMmaKeys + 2 * tig;
+    float x[2][4], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[n][e] = key0 + n * 8 + (e & 1) < j1
+                      ? (s[0][n][e] + s[1][n][e]) * scale
+                      : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x[n][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[n][e] = expf(x[n][e] - m[e >> 1]);
+        l[e >> 1] += x[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // O += round_to_bf16(P) . V: S's C fragments are P's A fragment
+    const uint32_t pa[4] = {mma::pack_bf16(x[0][0], x[0][1]),
+                            mma::pack_bf16(x[0][2], x[0][3]),
+                            mma::pack_bf16(x[1][0], x[1][1]),
+                            mma::pack_bf16(x[1][2], x[1][3])};
+    mma::cp_async_wait<2>();             // the group's V
+    __syncwarp();
+#pragma unroll
+    for (int nb = 0; nb < D / 16; ++nb) {
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, base + vfrag + nb * 32);
+      mma_bf16(o[2 * nb], pa, bv[0], bv[1]);
+      mma_bf16(o[2 * nb + 1], pa, bv[2], bv[3]);
+    }
+    __syncwarp();                        // the stage is read: refill it
+    const int nxt = grp + 2 * kWarps;    // (only where there are 2 stages)
+    if (nxt < groups)
+      load_group<D>(sW + st * WS, kb, ks.s, j0 + nxt * kMmaKeys, j1, lane);
+    mma::cp_async_commit();
+    if (nxt < groups)
+      load_group<D>(sW + st * WS + kMmaKeys * RS, vb, vs.s,
+                    j0 + nxt * kMmaKeys, j1, lane);
+    mma::cp_async_commit();
+    st ^= stages - 1;
+  }
+  mma::cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {          // the warp's l: its quad's sums
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // the warp's O (f32, rows of RS floats) over its first stage, its (m, l)
+  // beside; a warp with no group writes zeros at m = -1e30, weight 0
+  __syncwarp();
+  float* sP = reinterpret_cast<float*>(sW);
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(sP + (gr + 8 * r) * RS + n * 8 + 2 * tig) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+  if (tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sMLw[warp][gr + 8 * r] = make_float2(m[r], l[r]);
+  }
+  __syncthreads();
+  cluster_wait();                        // every block's mbarrier is set
+  // item f (four columns of head i) combines the warps' with w_w =
+  // exp(m_w - m_b) into the split's partial and goes to block f / per;
+  // the last nsplit*heads threads take each head's (m_b, l_b) to every
+  // block
+  for (int f = tid; f < items; f += kThreads) {
+    const int i = f / C4, r = f / per;
+    float2 mlw[kWarps];
+    float mb = kMaskAdd;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mlw[w] = sMLw[w][i];
+      mb = fmaxf(mb, mlw[w].x);
+    }
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float ww = expf(mlw[w].x - mb);
+      const float4 t = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(sQ + GT * RS + w * stages * WS) +
+          i * RS + (f % C4) * 4);
+      a.x += t.x * ww;
+      a.y += t.y * ww;
+      a.z += t.z * ww;
+      a.w += t.w * ww;
+    }
+    st_async(cluster_map(&sAcc[c * per + f - r * per], r), a,
+             cluster_map(&sBar, r));
+  }
+  for (int t = kThreads - 1 - tid; t < nsplit * heads; t += kThreads) {
+    const int i = t % heads, rr = t / heads;
+    float2 mlw[kWarps];
+    float mb = kMaskAdd, lb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mlw[w] = sMLw[w][i];
+      mb = fmaxf(mb, mlw[w].x);
+    }
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) lb += mlw[w].y * expf(mlw[w].x - mb);
+    st_async(cluster_map(&sML[c][i], rr), make_float2(mb, lb),
+             cluster_map(&sBar, rr));
+  }
+
+  int lp = nsplit > 4 ? 8 : nsplit > 2 ? 4 : nsplit;
+  while (lp > 1 && cnt * lp > kThreads) lp >>= 1;
+  mbar_wait0(&sBar);
+  const size_t row0 = size_t(b) * H + hk * g + hg;
+#define K4_MERGE(LP)                                                       \
+  case LP:                                                                 \
+    merge_items<bf16, D, GT, LP>(out, sAcc, sML, row0, heads, c * per, cnt, \
+                                 per, nsplit, warp, lane);                 \
+    break
+  switch (lp) {
+    K4_MERGE(1);
+    K4_MERGE(2);
+    K4_MERGE(4);
+    K4_MERGE(8);
+  }
+#undef K4_MERGE
+}
+
 // More than kMaxCluster splits: block (c, b*Hkv + hk, z) takes keys
 // [c*kc, min((c+1)*kc, skv)) of kv head hk for query heads hk*g + z*GT + i
 // (i < GT, those below g).  K and V go through shared memory in tiles of
@@ -870,6 +1260,58 @@ flash_decode_merge_kernel(T* __restrict__ out,
   out[size_t(row) * D + d] = from_f<T>(o / fmaxf(l, 1e-30f));
 }
 
+// A launch of clusters of nsplit blocks along x (cudaLaunchKernelEx)
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(dim3 grid, int nsplit, size_t smem, cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nsplit;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The mma kernel: one launch of clusters of nsplit blocks, a cluster the
+// splits of one (b, kv head, 16 query heads).  Its shared bytes pass 48 KB
+// at two stages and at D 256, so it opts in to two stages' bytes once a
+// device.
+template <int D>
+cudaError_t launch_decode_mma(void* out, const void* q, const void* k,
+                              const void* v, Strides qs, Strides ks,
+                              Strides vs, int B, int H, int Hkv, int skv,
+                              int kc, int nsplit, float scale,
+                              cudaStream_t stream) {
+  constexpr int kDevices = 64;
+  static bool opted[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kDevices || !opted[dev]) {
+    err = cudaFuncSetAttribute(flash_decode_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               mma_smem_bytes<D>(2));
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices) opted[dev] = true;
+  }
+  const int g = H / Hkv;
+  const ClusterLaunch cl(dim3(nsplit, B * Hkv, (g + kMmaRows - 1) / kMmaRows),
+                         nsplit, mma_smem_bytes<D>(mma_stages(kc)), stream);
+  using bf16 = __nv_bfloat16;
+  err = cudaLaunchKernelEx(
+      &cl.cfg, flash_decode_mma_kernel<D>, static_cast<bf16*>(out),
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), qs, ks, vs, H, Hkv, g, skv, kc, nsplit,
+      scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // Up to kMaxCluster splits: the cluster kernel as one launch of clusters
 // of nsplit blocks (cudaLaunchKernelEx), each cluster the splits of one
 // (b, kv head, head group).  More: the split kernel writing the
@@ -886,22 +1328,17 @@ cudaError_t launch_decode(void* out, float* ws, const void* q, const void* k,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   if (nsplit <= kMaxCluster) {
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = nsplit;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, flash_decode_cluster_kernel<T, D, GT>, o, qt, kt, vt, qs, ks,
-        vs, H, Hkv, g, skv, kc, nsplit, scale);
-    return err != cudaSuccess ? err : cudaGetLastError();
+    // the cluster kernel is not built where the mma kernel takes every
+    // launch (decode_kernel: bf16 at g >= 5, whose groups are 6 or 8)
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && GT > 4) {
+      return cudaErrorInvalidValue;
+    } else {
+      const ClusterLaunch cl(grid, nsplit, 0, stream);
+      const cudaError_t err = cudaLaunchKernelEx(
+          &cl.cfg, flash_decode_cluster_kernel<T, D, GT>, o, qt, kt, vt, qs,
+          ks, vs, H, Hkv, g, skv, kc, nsplit, scale);
+      return err != cudaSuccess ? err : cudaGetLastError();
+    }
   }
   float2* ws_ml = reinterpret_cast<float2*>(ws + size_t(B) * H * nsplit * D);
   flash_decode_split_kernel<T, D, GT><<<grid, kThreads, 0, stream>>>(
@@ -973,6 +1410,13 @@ extern "C" int flash_decode_launch(void* out, void* ws, const void* q,
   const Strides qs{qsb, 0, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  if (dec::decode_kernel(dtype, H / Hkv, nsplit) == dec::kMmaKernel) {
+#define K4_DECODE_MMA(T, DD)                                               \
+  dec::launch_decode_mma<DD>(out, q, k, v, qs, ks, vs, B, H, Hkv, skv, kc, \
+                             nsplit, scale, st)
+    K4_DISPATCH_D(K4_DECODE_MMA, __nv_bfloat16);
+#undef K4_DECODE_MMA
+  }
 #define K4_DECODE(T, DD)                                                   \
   dec::launch_decode_any_g<T, DD>(out, w, q, k, v, qs, ks, vs, B, H, Hkv,  \
                                   skv, kc, nsplit, scale, st)
@@ -983,8 +1427,14 @@ extern "C" int flash_decode_launch(void* out, void* ws, const void* q,
 }
 
 // The decode form's head-group width for g query heads a kv head (the
-// split kernel's GT; ops.decode_head_group is its mirror), and the most
-// splits it merges in one cluster.
+// split and cluster kernels' GT; ops.decode_head_group is its mirror), the
+// most splits it merges in one cluster, and the kernel a launch of dtype
+// (0 float32, 1 bfloat16) at g query heads a kv head over nsplit splits
+// takes (dec::decode_kernel, mirrored by ops.decode_kernel): 0 the split
+// and merge kernels, 1 the cluster kernel, 2 the mma kernel.
 extern "C" int flash_decode_head_group(int g) { return dec::head_group(g); }
 extern "C" int flash_decode_max_cluster() { return dec::kMaxCluster; }
+extern "C" int flash_decode_kernel(int dtype, int g, int nsplit) {
+  return dec::decode_kernel(dtype, g, nsplit);
+}
 

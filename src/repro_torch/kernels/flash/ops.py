@@ -14,11 +14,14 @@ warpgroup products on tiles the tensor memory accelerator copies, one
 persistent block an SM walking work items of 128 query rows of one head
 in ``wgmma_item``'s order, a producer warp and two consumer warpgroups),
 an f32 prefill to the SIMT form.
-The decode form splits the keys over blocks (``decode_split``) for a
-group of query heads a block (``decode_head_group``); up to MAX_CLUSTER
-splits run as one kernel whose blocks merge in a thread-block cluster
-(``decode_cluster``), more as a split kernel writing a workspace and a
-merge kernel, behind one launcher.  The tensor-core
+The decode form splits the keys over blocks (``decode_split``); up to
+MAX_CLUSTER splits run as one kernel whose blocks merge in a thread-block
+cluster (``decode_cluster``): in bf16 at g >= MMA_MIN_GROUP query heads a
+kv head the mma kernel, all g <= 16 heads of a kv head as the rows of one
+``mma.sync`` tile, else the cluster kernel, a group of query heads a
+block (``decode_head_group``); more run as a split kernel writing a
+workspace and a merge kernel, behind one launcher (``decode_kernel``
+names the kernel a launch takes).  The tensor-core
 and decode forms copy 16-byte rows: their operands must also meet
 ``_checks.row_misalignment``'s rule, or the wrapper raises (there is no
 other form to fall back to); the wgmma form encodes a tensor map per
@@ -67,21 +70,27 @@ MIN_CHUNK = 16
 MAX_CLUSTER = 8
 CLUSTER_PAIRS = 16
 _DECODE_GROUPS = (8, 6, 4)
+# the least g (query heads a kv head) whose bf16 decode takes the mma
+# kernel up to MAX_CLUSTER splits (dec::kMmaMinGroup)
+MMA_MIN_GROUP = 5
+# the decode kernels by the C++ dispatch's codes (flash_decode_kernel)
+DECODE_KERNELS = ("decode_split", "decode_cluster", "decode_mma")
 
 # a kernel of the library by its name, mangled (ptxas) or demangled (the
 # profiler): kernel, then its type and integer template arguments (mangled
 # only); the integers are (Dk, Dv) for the prefill forms (the wgmma form
 # bf16 alone), (D, head group) for the decode form's cluster and split
-# kernels
+# kernels, D for its mma kernel (bf16 alone)
 _ENTRY = re.compile(r"(flash_(?:wgmma|prefill|decode_cluster"
-                    r"|decode_split|decode_merge)_kernel)"
+                    r"|decode_split|decode_merge|decode_mma)_kernel)"
                     r"(?:I(f|13__nv_bfloat16)?"
                     r"((?:Li\d+E)*))?")
 _FORM_OF = {"flash_wgmma_kernel": "prefill_wgmma",
             "flash_prefill_kernel": "prefill_simt",
             "flash_decode_cluster_kernel": "decode_cluster",
             "flash_decode_split_kernel": "decode_split",
-            "flash_decode_merge_kernel": "decode_merge"}
+            "flash_decode_merge_kernel": "decode_merge",
+            "flash_decode_mma_kernel": "decode_mma"}
 
 
 def _entry(name: str):
@@ -104,7 +113,7 @@ def kernel_form(name: str) -> Optional[str]:
 def _resource_key(kernel: str, dtype: str, ints) -> str:
     """"bf16_d256", "bf16_d192_128", "f32_d64", "bf16_d64_g4", "bf16":
     the type, the head dims (Dv when it differs from Dk) and the heads a
-    block of a decode kernel."""
+    block of the cluster and split kernels (the mma kernel's are 16)."""
     if kernel in ("flash_wgmma_kernel", "flash_prefill_kernel"):
         dk, dv = ints
         return f"{dtype}_d{dk}" + (f"_{dv}" if dv != dk else "")
@@ -112,8 +121,8 @@ def _resource_key(kernel: str, dtype: str, ints) -> str:
 
 
 def resources(*built: _build.Built) -> dict:
-    """Per kernel (the two prefill forms, the decode form's cluster,
-    split and merge kernels), then per ``_resource_key`` ("bf16_d256",
+    """Per kernel (the two prefill forms, the decode form's mma,
+    cluster, split and merge kernels), then per ``_resource_key`` ("bf16_d256",
     "bf16_d192_128", "bf16_d256_g4", "bf16"): ptxas's registers, stack
     and spill bytes for each kernel of the built ``flash_attn`` and
     ``flash_decode`` libraries, and each prefill kernel's shared bytes per
@@ -173,8 +182,25 @@ def decode_cluster(nsplit: int) -> bool:
     return 1 <= nsplit <= MAX_CLUSTER
 
 
+def decode_kernel(dtype: torch.dtype, g: int, nsplit: int) -> str:
+    """The decode kernel a launch of ``dtype`` at g query heads a kv head
+    over nsplit splits takes, as ``csrc/flash_decode.cu``'s
+    ``dec::decode_kernel`` picks it (exported as ``flash_decode_kernel``):
+    past MAX_CLUSTER splits "decode_split" (the split kernel and the merge
+    kernel); up to it "decode_mma" for bf16 at g >= MMA_MIN_GROUP, else
+    "decode_cluster"."""
+    if g < 1 or nsplit < 1:
+        raise ValueError(f"{KERNEL}: no decode kernel at g {g} over "
+                         f"{nsplit} splits")
+    if not decode_cluster(nsplit):
+        return "decode_split"
+    if dtype == torch.bfloat16 and g >= MMA_MIN_GROUP:
+        return "decode_mma"
+    return "decode_cluster"
+
+
 def decode_head_group(g: int) -> int:
-    """The decode form's query heads a block (the split kernel's GT; the
+    """The cluster and split kernels' query heads a block (their GT; the
     C++ dispatch ``dec::head_group`` mirrors it) for g query heads a kv
     head: g itself up to 4, 6 for 5-6, 8 for 7-8; above 8 the largest of
     8, 6, 4 that divides g, else 8 (ceil(g / 8) groups, the last part
@@ -458,8 +484,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     (B, S, Hkv, D) caches it is given, no mask.  As in the reference, the
     query sits at position 0, so ``window`` drops no key: a caller passes
     the span of the cache it wants seen.  On the card, over
-    ``decode_split``'s chunks, one counted launch: up to MAX_CLUSTER
-    splits the cluster kernel alone (``decode_cluster``), more the split
+    ``decode_split``'s chunks, one counted launch of the kernels
+    ``decode_kernel`` names: up to MAX_CLUSTER splits the mma kernel (bf16
+    at g >= MMA_MIN_GROUP) or the cluster kernel alone, more the split
     kernel and the merge kernel through an f32 workspace of the splits'
     (m, l, acc) allocated here."""
     if q.dim() != 4 or q.shape[1] != 1:

@@ -5,7 +5,8 @@ paths: gemma3-1b's and the families' served at width.
     PYTHONPATH=src python -m repro_torch.launch.decode_profile \\
         [--cases granite_decode_bf16,decode_full] [--iters 200]
 
-Per case, one JSON line: the split (``decode_split``), K4's max abs error
+Per case, one JSON line: the split (``decode_split``) and the kernel it
+takes (``decode_kernel``, where the revision has it), K4's max abs error
 against the plain version, its device ms (the profiler's kernel events,
 ``kernels/timing.py``) with the ms of each kernel it ran, its
 ``graph_ms`` (CUDA events around replays of a CUDA graph of 20
@@ -16,11 +17,11 @@ D) copies (GQA by ``enable_gqa``), and the bound: the bytes of q, the
 span's K and V and out over 3.35 TB/s.  Operands are random from seed 4,
 made on the card; a ``span`` case reads a strided view of a longer cache,
 as ``models.layers.decode_attention`` passes it.  The script uses only
-``kernels.flash.flash_decode``, ``decode_split`` and ``kernels/timing.py``,
-so an earlier revision put first on ``PYTHONPATH`` (with this revision's
-``timing.py`` copied into it) is timed by the same file: two revisions
-compare within one run on one card.  Ends with the card's name and power
-limit.
+``kernels.flash.flash_decode``, ``decode_split``, ``kernels/timing.py`` and,
+where the revision has it, ``decode_kernel``, so an earlier revision put
+first on ``PYTHONPATH`` (with this revision's ``timing.py`` copied into it)
+is timed by the same file: two revisions compare within one run on one
+card.  Ends with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -33,6 +34,10 @@ import torch
 
 from repro_torch.kernels.flash import flash_decode
 from repro_torch.kernels.flash.ops import decode_split
+try:                        # a revision before the mma kernel has none
+    from repro_torch.kernels.flash.ops import decode_kernel
+except ImportError:
+    decode_kernel = None
 from repro_torch.kernels.flash.ref import attention_ref
 from repro_torch.kernels.timing import (HBM_BYTES_PER_S, device_events,
                                         graph_ms)
@@ -52,12 +57,18 @@ CASES = {
     "decode_window_span": (4, 1, 4, 256, 512, 1056, "bfloat16"),
     "decode_short": (4, 1, 4, 256, 64, 1024, "bfloat16"),
     # the dense archs' serve paths (chip_smoke's families phase): the last
-    # step over 4 x 160 slots (jamba's attention layer is qwen2-72b's),
-    # and gemma-2b over a 1024-token prompt's keys
+    # step over 4 x 160 slots (jamba's attention layer is qwen2-72b's) and
+    # a step over the first 100 (a view; serving's steps cover 129-160
+    # keys), and gemma-2b over a 1024-token prompt's keys
     "jamba_qwen2_72b_decode": (4, 8, 8, 128, 160, 160, "bfloat16"),
     "command_r_plus_decode": (4, 8, 12, 128, 160, 160, "bfloat16"),
     "qwen2_vl_decode": (4, 4, 7, 128, 160, 160, "bfloat16"),
+    "jamba_qwen2_72b_decode_span": (4, 8, 8, 128, 100, 160, "bfloat16"),
+    "command_r_plus_decode_span": (4, 8, 12, 128, 100, 160, "bfloat16"),
+    "qwen2_vl_decode_span": (4, 4, 7, 128, 100, 160, "bfloat16"),
     "musicgen_decode": (4, 24, 1, 64, 160, 160, "bfloat16"),
+    "gemma_2b_decode_160": (4, 1, 8, 256, 160, 160, "bfloat16"),
+    "gemma_2b_decode_span": (4, 1, 8, 256, 100, 160, "bfloat16"),
     "gemma_2b_decode": (4, 1, 8, 256, 1024, 1024, "bfloat16"),
 }
 
@@ -91,6 +102,8 @@ def profile_case(name: str, rng, iters: int) -> dict:
            "contiguous_span": k.is_contiguous(),
            "split": dict(zip(("kc", "nsplit"), decode_split(keys, B * hkv))),
            "max_abs_err": err}
+    out["kernel"] = decode_kernel and decode_kernel(
+        q.dtype, H // hkv, out["split"]["nsplit"])
     for key, fn in (("", run), ("library_", lib)):
         ms, by_name = device_events(fn, iters, whole_calls=True)
         start = torch.cuda.Event(enable_timing=True)

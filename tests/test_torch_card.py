@@ -36,8 +36,9 @@ from repro_torch.kernels.megakernel.ref import megakernel_ref  # noqa: E402
 from repro_torch.kernels.sad.ref import sad_ref  # noqa: E402
 from repro_torch.kernels.flash import flash_attention, flash_decode  # noqa: E402
 from repro_torch.kernels.flash.ops import (  # noqa: E402
-    MAX_CLUSTER, decode_cluster, decode_head_group, decode_launch,
-    decode_split, form_launches, kernel_form, prefill_form, wgmma_plan)
+    DECODE_KERNELS, MAX_CLUSTER, decode_cluster, decode_head_group,
+    decode_kernel, decode_launch, decode_split, form_launches, kernel_form,
+    prefill_form, wgmma_plan)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.timing import device_events  # noqa: E402
 from repro_torch.kernels.flash.ref import attention_ref  # noqa: E402
@@ -588,11 +589,12 @@ DECODE_G = (1, 3, 4, 6, 7, 8, 12, 16)
 def test_flash_decode_kernel_matches_plain(card, D, dtype, atol):
     """The split-KV decode form over one chunk and many (skv 1 .. 1056:
     up to 8 splits merged in a cluster, more by the merge kernel), GQA
-    groups of 1, 3, 4, 6 and 8 query heads per kv head (one head group
-    each), 7 (a group of 8, one slot idle), 12 (two groups of 6) and 16
-    (two of 8), each on a contiguous cache and on a cache slice (a
-    strided view, as the model passes it); one counted launch per
-    call."""
+    groups of 1, 3, 4, 6 and 8 query heads per kv head, 7, 12 and 16 (in
+    f32, and in bf16 past 8 splits, head groups of 6 and 8 with a slot
+    idle at 7; in bf16 up to 8 splits from g 6 on, all of a kv head's
+    heads one mma kernel block), each on a contiguous cache and on a
+    cache slice (a strided view, as the model passes it); one counted
+    launch per call."""
     rng = np.random.RandomState(D)
     calls = 0
     for g in DECODE_G:
@@ -711,6 +713,90 @@ def test_flash_decode_granite_is_one_kernel(card, keys, dtype, atol):
         assert _allocations(lambda: flash_decode(q, k, v)) == 1
         assert _decode_kernels(lambda: flash_decode(q, k, v)) == \
             ["decode_cluster"]
+
+
+def test_flash_decode_kernel_matches_the_kernels_dispatch(card):
+    """ops.decode_kernel, which the wrapper's callers and chip_smoke read,
+    against the launcher's own choice (dec::decode_kernel, exported as
+    flash_decode_kernel) for both types, g 1 .. 96 and nsplit 1 .. 132."""
+    lib = _build.build_all(["flash_decode"])["flash_decode"].lib
+    lib.flash_decode_kernel.argtypes = [ctypes.c_int] * 3
+    lib.flash_decode_kernel.restype = ctypes.c_int
+    for code, dtype in enumerate((torch.float32, torch.bfloat16)):
+        got = [DECODE_KERNELS[lib.flash_decode_kernel(code, g, n)]
+               for g in range(1, 97) for n in range(1, 133)]
+        assert got == [decode_kernel(dtype, g, n)
+                       for g in range(1, 97) for n in range(1, 133)]
+
+
+# the wide groups' serving decodes: (Hkv, g) at B 4, D 128
+WIDE_GROUPS = {"qwen2-vl": (4, 7), "qwen2-72b": (8, 8),
+               "command-r-plus": (8, 12)}
+
+
+@pytest.mark.parametrize("keys", [160, 100])
+@pytest.mark.parametrize("arch", list(WIDE_GROUPS))
+def test_flash_decode_wide_groups_are_one_kernel(card, arch, keys):
+    """qwen2-vl-7b's (Hkv 4, g 7), qwen2-72b's and jamba's (8, 8) and
+    command-r-plus-104b's (8, 12) serving decode in bf16 (B 4, D 128) over
+    160 and 100 keys, on a contiguous cache and on a strided view of a
+    longer one: the mma kernel alone (all of a kv head's query heads one
+    block, no second head group, no merge kernel), one allocation (out),
+    within 3e-2 of the plain version."""
+    Hkv, g = WIDE_GROUPS[arch]
+    rng = np.random.RandomState(keys + g)
+    B, D = 4, 128
+    q = _randn(rng, (B, 1, g * Hkv, D), torch.bfloat16, card)
+    cache = _randn(rng, (B, 176, Hkv, D), torch.bfloat16, card)
+    vcache = _randn(rng, (B, 176, Hkv, D), torch.bfloat16, card)
+    kc, nsplit = decode_split(keys, B * Hkv)
+    assert decode_kernel(torch.bfloat16, g, nsplit) == "decode_mma"
+    for k, v in ((cache[:, :keys].contiguous(),
+                  vcache[:, :keys].contiguous()),
+                 (cache[:, :keys], vcache[:, :keys])):
+        err = (flash_decode(q, k, v).float()
+               - attention_ref(q, k, v, causal=False)).abs().max().item()
+        assert err <= 3e-2
+        assert _allocations(lambda: flash_decode(q, k, v)) == 1
+        assert _decode_kernels(lambda: flash_decode(q, k, v)) == \
+            ["decode_mma"]
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_decode_mma_at_every_split(card, D):
+    """The mma kernel at every nsplit from 1 to 8, forced through
+    decode_launch over chunks of 37 keys (three groups of 16, the last
+    short: one stage a warp) and of 150 (ten groups: two stages, a warp
+    taking up to three), for g 7, 8, 12, 16 and 20 (two blocks of heads,
+    the second of 4), on a contiguous cache and on a strided view of a
+    longer one; bf16 within 3e-2 of the plain version, one counted launch
+    a call."""
+    rng = np.random.RandomState(D + 1)
+    B, Hkv = 2, 2
+    calls = 0
+    for g in (7, 8, 12, 16, 20):
+        q = _randn(rng, (B, 1, g * Hkv, D), torch.bfloat16, card)
+        for n in range(1, MAX_CLUSTER + 1):
+            assert decode_kernel(torch.bfloat16, g, n) == "decode_mma"
+            for kc in (37, 150):
+                skv = kc * n - 5 if n > 1 else kc
+                cache = _randn(rng, (B, skv + 9, Hkv, D), torch.bfloat16,
+                               card)
+                vcache = _randn(rng, (B, skv + 9, Hkv, D), torch.bfloat16,
+                                card)
+                for k, v in ((cache[:, :skv].contiguous(),
+                              vcache[:, :skv].contiguous()),
+                             (cache[:, 9:], vcache[:, 9:])):
+                    out = decode_launch(q, k, v, kc, n)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    want = attention_ref(q, k, v, causal=False)
+                    assert out.dtype == torch.bfloat16
+                    assert out.shape == q.shape
+                    err = (out.float() - want).abs().max().item()
+                    assert err <= 3e-2, (g, n, kc, err)
+    assert form_launches() == {"prefill_wgmma": 0,
+                               "prefill_simt": 0, "decode": calls}
 
 
 def test_flash_decode_long_span_keeps_the_merge_kernel(card):

@@ -74,18 +74,28 @@ def test_flash_attention_matches_reference(B, S, H, Hkv, D, window, dtype):
                        _f32(oracle), atol=2e-5)
 
 
-@pytest.mark.parametrize("window", [None, 5])
-def test_flash_decode_matches_reference(window):
-    """tests/test_kernels.py's decode case; the window drops no key, in
-    the reference (the query sits at position 0) and in the port."""
-    B, S, H, Hkv, D = 2, 64, 8, 2, 128
-    (jq, jk, jv), (q, k, v) = _inputs(7, B, 1, S, H, Hkv, D, "float32")
+@pytest.mark.parametrize("g,window,dtype", [
+    pytest.param(4, None, "float32", id="None"),
+    pytest.param(4, 5, "float32", id="5"),
+    pytest.param(7, None, "bfloat16", id="g7"),
+    pytest.param(8, None, "bfloat16", id="g8"),
+    pytest.param(12, None, "bfloat16", id="g12"),
+])
+def test_flash_decode_matches_reference(g, window, dtype):
+    """tests/test_kernels.py's decode case (g 4, f32); the window drops no
+    key, in the reference (the query sits at position 0) and in the port.
+    Then the wide head groups whose bf16 decode takes the card's mma
+    kernel (qwen2-vl's g 7, qwen2-72b's g 8, command-r-plus's g 12) at D
+    128 over a ragged 100 keys."""
+    B, Hkv, D = 2, 2, 128
+    S = 64 if g == 4 else 100
+    (jq, jk, jv), (q, k, v) = _inputs(7 + g, B, 1, S, g * Hkv, Hkv, D, dtype)
     out = flash_decode(q, k, v, window=window)
     pallas = flash_decode_tpu(jq, jk, jv, window=window, bk=32)
     oracle = jax_attention_ref(jq, jk, jv, causal=False)
-    assert out.shape == (B, 1, H, D)
-    assert np.allclose(_f32(out), _f32(pallas), atol=2e-5)
-    assert np.allclose(_f32(out), _f32(oracle), atol=2e-5)
+    assert out.shape == (B, 1, g * Hkv, D) and out.dtype == _TORCH[dtype]
+    assert np.allclose(_f32(out), _f32(pallas), atol=ATOL[dtype])
+    assert np.allclose(_f32(out), _f32(oracle), atol=ATOL[dtype])
 
 
 @pytest.mark.parametrize("Sq,Skv,causal,window", [
@@ -321,6 +331,59 @@ def test_decode_split_at_the_model_shapes(skv, blocks, split, cluster):
     from repro_torch.kernels.flash.ops import decode_cluster, decode_split
     assert decode_split(skv, blocks) == split
     assert decode_cluster(split[1]) == cluster
+
+
+# (B, Hkv, g, keys, dtype): each path's decode shape, its split and kernel
+@pytest.mark.parametrize("B,Hkv,g,keys,dtype,split,kernel", [
+    # the wide groups' serving steps (160 keys) and a 100-key span
+    (4, 4, 7, 160, torch.bfloat16, (20, 8), "decode_mma"),     # qwen2-vl
+    (4, 4, 7, 100, torch.bfloat16, (17, 6), "decode_mma"),
+    (4, 8, 8, 160, torch.bfloat16, (32, 5), "decode_mma"),     # qwen2-72b
+    (4, 8, 8, 100, torch.bfloat16, (20, 5), "decode_mma"),     # and jamba
+    (4, 8, 12, 160, torch.bfloat16, (32, 5), "decode_mma"),    # command-r+
+    (4, 8, 12, 100, torch.bfloat16, (20, 5), "decode_mma"),
+    # gemma-2b's MQA (D 256): 6 splits at 100 keys, 10 at 160
+    (4, 1, 8, 100, torch.bfloat16, (17, 6), "decode_mma"),
+    (4, 1, 8, 160, torch.bfloat16, (16, 10), "decode_split"),
+    # granite's g 3, musicgen's MHA, gemma3-1b's g 4 (the prompt's 1024
+    # keys and a 64-key span)
+    (4, 8, 3, 160, torch.bfloat16, (32, 5), "decode_cluster"),
+    (4, 8, 3, 100, torch.bfloat16, (20, 5), "decode_cluster"),
+    (4, 24, 1, 160, torch.bfloat16, (80, 2), "decode_cluster"),
+    (4, 1, 4, 1024, torch.bfloat16, (32, 32), "decode_split"),
+    (4, 1, 4, 64, torch.bfloat16, (16, 4), "decode_cluster"),
+    # an f32 check at g 12 (command-r-plus's, B 2 over 64 keys)
+    (2, 8, 12, 64, torch.float32, (16, 4), "decode_cluster"),
+])
+def test_decode_kernel_at_the_model_shapes(B, Hkv, g, keys, dtype, split,
+                                           kernel):
+    """decode_split and decode_kernel (the mirror of the C++ dispatch) at
+    every path's decode shape: a bf16 decode at g >= 5 up to MAX_CLUSTER
+    splits takes the mma kernel, g <= 4 and every f32 decode the cluster
+    kernel, more splits the split and merge kernels."""
+    from repro_torch.kernels.flash.ops import decode_kernel, decode_split
+    assert decode_split(keys, B * Hkv) == split
+    assert decode_kernel(dtype, g, split[1]) == kernel
+
+
+def test_decode_kernel_rule():
+    """The rule whole: past MAX_CLUSTER splits the split kernel; up to it
+    bf16 at g >= MMA_MIN_GROUP the mma kernel, else the cluster kernel;
+    DECODE_KERNELS orders the names by the C++ codes."""
+    from repro_torch.kernels.flash.ops import (
+        DECODE_KERNELS, MAX_CLUSTER, MMA_MIN_GROUP, decode_kernel)
+    assert MMA_MIN_GROUP == 5
+    assert DECODE_KERNELS == ("decode_split", "decode_cluster", "decode_mma")
+    for dtype in (torch.float32, torch.bfloat16):
+        for g in range(1, 97):
+            for n in range(1, 133):
+                want = ("decode_split" if n > MAX_CLUSTER
+                        else "decode_mma" if dtype == torch.bfloat16
+                        and g >= MMA_MIN_GROUP else "decode_cluster")
+                assert decode_kernel(dtype, g, n) == want
+    for g, n in ((0, 1), (1, 0)):
+        with pytest.raises(ValueError, match="no decode kernel"):
+            decode_kernel(torch.bfloat16, g, n)
 
 
 def test_decode_head_group_sizes_groups_to_g():
@@ -622,6 +685,13 @@ def test_prefill_flops_count_dk_plus_dv_a_pair():
      "decode_cluster", "f32_d128_g6"),
     ("void (anonymous namespace)::dec::flash_decode_cluster_kernel<"
      "__nv_bfloat16, 64, 3>(__nv_bfloat16*)", "decode_cluster", None),
+    ("_ZN12_GLOBAL__N_13dec23flash_decode_mma_kernelILi128EEEvP13__nv_bfloat"
+     "16PKS2_S5_S5_NS_7StridesES6_S6_iiiiiif", "decode_mma", "bf16_d128"),
+    ("void (anonymous namespace)::dec::flash_decode_mma_kernel<256>("
+     "__nv_bfloat16*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, (anonymous namespace)::Strides, "
+     "(anonymous namespace)::Strides, (anonymous namespace)::Strides, int, "
+     "int, int, int, int, int, float)", "decode_mma", None),
     ("void (anonymous namespace)::wg::flash_wgmma_kernel<192, 128>("
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "float*, int, int, int, int, int, int, int, int, float, int)",
