@@ -180,10 +180,11 @@ phase prints one JSON line:
            warmup seconds (the kernels' nvcc builds ran in the build
            phase; their cache is the one the server loads)
   llm      gemma3-1b at full width and depth (26 layers, random weights
-           drawn on the card from seed 0, ``card_params``): f32 decode_fn
-           over a 1024-token prompt against prefill_fn (atol 2e-3, rtol
-           1e-3), the f32 prefill_fn launching
-           the SIMT prefill form 26 times and the tensor-core form never;
+           drawn on the card from seed 0, ``card_params``): the f32
+           prefill_fn on 2 x 1024 tokens launching the SIMT prefill form
+           26 times and the tensor-core form never; f32 decode_fn over
+           the prompt's first 128 tokens against prefill_fn over them
+           (atol 2e-3, rtol 1e-3);
            the model cut to 2 layers on the card against the same on the
            CPU; then, in bf16 and with the launch counters reset,
            prefill_fn on 4 x 1024 tokens (the tensor-core form 26 times,
@@ -207,12 +208,13 @@ phase prints one JSON line:
            shared one) at 2 layers; qwen2-72b at 4 layers, command-r-
            plus-104b at 2 (both cuts), jamba-1.5-large-398b
            at 4 (its MoE at layer 3 alone in f32, the 16 padded experts
-           of two MoE layers being 92 GB there; all of it in bf16): f32
-           decode_fn over a 64-token prompt against
-           prefill_fn at capacity factor E/K (no drop; atol 2e-3, rtol
-           1e-3), the SIMT and decode forms launched once per GQA layer
-           per call and step (MLA decodes without K4, mamba2 has no
-           attention); the f32 cut's first two layers (jamba's layers 2
+           of two MoE layers being 92 GB there; all of it in bf16): the
+           f32 prefill_fn on a 64-token prompt (the SIMT form once per
+           GQA layer), f32 decode_fn over its first 32 tokens against
+           prefill_fn over them at capacity factor E/K (no drop; atol
+           2e-3, rtol 1e-3), the decode form once per GQA layer a step
+           (MLA decodes without K4, mamba2 has no attention); the f32
+           cut's first two layers on the 64-token prompt (jamba's layers 2
            and 3, Mamba2 and attention with the MoE) on the card against
            the CPU at the config's capacity factor; every MoE layer's
            top-k sets and k-th/(k+1)-th gate gaps recorded on both paths
@@ -222,7 +224,7 @@ phase prints one JSON line:
            counters reset, prefill_fn on 4 x 1024 tokens or frames (the
            tensor-core form once per attention layer, MLA's at Dk 192 and
            Dv 128 with no zero pad: the profiled call must run no
-           aten::constant_pad_nd) and serve (4 x 128, 32 generated; the
+           aten::constant_pad_nd) and serve (4 x 128, 16 generated; the
            decode form once per GQA layer a step), held to finiteness and
            shapes; per arch init seconds, both cuts' peak memory,
            launches, prefill ms and its device ms (K4's share), decode ms
@@ -264,6 +266,38 @@ phase prints one JSON line:
            moe_ffn_a2a through a
            one-rank NCCL process group on a (1, 1) mesh, granite cut to 2
            layers in f32, loss and gradients against moe_ffn
+  cells    the reference's shape cells (configs.SHAPES) through
+           launch/cells.py's run_cell, full width and depth, each at the
+           largest batch up to the reference's that the card holds
+           (CELLS): gemma3-1b x prefill_32k, decode_32k (full caches, and
+           the rolling window cache at the reference's batch), long_500k
+           and train_4k; mamba2-1.3b x prefill_32k, decode_32k and
+           long_500k; first K4 at their shapes against the plain version
+           and timed: the bf16 and f32 prefill at S 32768, window 512 and
+           causal, held on three windows of 1024 rows against the plain
+           version on those rows alone; decode over 32768 keys at B 64
+           and B 128, a 512-slot rolling cache at B 128 and 524288 keys at
+           B 1 (132 splits, the merge kernel), each running the kernels
+           ``ops.decode_kernel`` names and each failing a planted merge
+           of half its splits; the prefill with its lse at the train
+           cell's batch x 4096; each window, or each decode's output,
+           also within 1e-2 of the plain version's largest magnitude
+           there; then the model-level holds on cuts at full width
+           (gemma3-1b's one period of 6 layers: bf16 prefill_fn at 32k
+           against f32 within 2e-2, f32 decode_fn at index 32767 with full
+           and rolling caches and at 524287 with rolling caches, card
+           against CPU within 1e-4, one f32 train step at 4096 with K4
+           against the plain
+           attention, each leaf within 1e-4 of its largest; mamba2-1.3b
+           cut to 2 layers: f32 prefill_fn at 32k and decode steps at
+           B 128 and B 1, card against CPU within 1e-4); then each cell's
+           line (seq, batch and the reference's, reduced, host and device
+           ms, tokens/s, peak and reckoned GB, K4's launches from its
+           counters, set to 0 just before the timed call, by form (held
+           to the cell's layers) and by form and shape, and the forms
+           whose kernels the profiler saw); each K4 case's entry on the
+           kernels line counts its path's launches at its own form and
+           shape
   seconds  after each phase, its wall seconds (``{"phase": "seconds",
            "of": ..., "s": ...}``); each K4 case's line carries its own
   total    the script's seconds so far
@@ -271,7 +305,9 @@ phase prints one JSON line:
            form on gemma3-1b's path and once per form on each family's
            path that launches it, ``flash_attention:<form>:<arch>``, the
            training paths' ``flash_attention:prefill_wgmma:train`` and
-           ``flash_attention:<form>:train:<arch>``, the cycle kernel) with its launches on its main path (the counters
+           ``flash_attention:<form>:train:<arch>``, the cells'
+           ``flash_attention:<form>:cells:<shape>[:<part>]``, the cycle
+           kernel) with its launches on its main path (the counters
            are reset just before the cycle phase's path, the image path
            phase, each f32 prefill_fn call and each bf16 prefill_fn call;
            each K4 entry counts one path's launches beside the case at
@@ -308,6 +344,10 @@ TPU_KERNELS = {"conv2d": "kernels/conv2d/kernel.py::_conv_kernel",
                            "hwsim/population.py::_pop_impl"}
 LLM_ARCH = "gemma3-1b"
 LLM_BATCH, LLM_PROMPT, LLM_GEN = 4, 1024, 32
+# the f32 decode-against-prefill check's prompt: decode_fn over its
+# tokens one step at a time (host-bound, about 40 ms a step) against
+# prefill_fn over the same; the path's f32 prefill_fn stays at 2 x 1024
+LLM_F32_PROMPT = 128
 # the families phase: each arch at full width, cut as ``reduced`` says:
 # (arch, the f32 checks' cut, the bf16 serving cut).  The f32 cuts fit
 # the card in f32 (at most 28 GB, jamba's 56), the serving cuts in bf16
@@ -331,11 +371,13 @@ FAMILIES = (("granite-moe-3b-a800m", {}, {}), ("mamba2-1.3b", {}, {}),
 # a 2-layer model whose pattern is those two kinds
 FAM_TWO_LAYERS = {"jamba-1.5-large-398b": (2, {
     "pattern": ("mamba", "attn"), "moe_every": 2, "moe_offset": 1})}
-FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 32
+FAM_BATCH, FAM_PREFILL, FAM_PROMPT, FAM_GEN = 4, 1024, 128, 16
+# the families' K4 decode cases' span: serving's last step's keys
+FAM_CASE_KEYS = FAM_PROMPT + FAM_GEN
 FAM_F32_PROMPT = 64     # the families' f32 checks' prompt
-# a leaf of more elements is drawn a slice at a time (card_params), so a
-# bf16 leaf's f32 draw stays below 4.3 GB
-DRAW_ELEMS = 1 << 30
+# the families' f32 decode-against-prefill check: decode_fn over the
+# prompt's first tokens (host-bound steps) against prefill_fn over them
+FAM_F32_DECODE = 32
 ROUTE_GAP = 1e-5        # a routing difference at or below it is a near-tie
 # the head dim MLA's q, k and v were zero-padded to before K4 took
 # Dv != Dk: its "before" cases time that call once more
@@ -374,7 +416,12 @@ K4_TIMED_CASES = {"main_local", "main_local_f32", "decode_full",
                   *(f"{key}_{case}"
                     for key in ("granite", "mla", *SERVED_K4)
                     for case in ("prefill_bf16", "prefill_f32",
-                                 "decode_bf16"))}
+                                 "decode_bf16")),
+                  # the cells phase's decode and lse cases (its 32k
+                  # prefill cases, held on row windows, are always timed)
+                  "cells_decode_32k_b64", "cells_decode_32k_b128",
+                  "cells_decode_rolling_b128", "cells_long_500k",
+                  "cells_train_4k_local", "cells_train_4k_global"}
 # the decode form's builds by kernel: the split kernel's 3 head dims x 2
 # types x head groups of 1, 2, 3, 4, 6 and 8 (ops.decode_head_group); the
 # cluster kernel's the same but bf16 at 6 and 8, which the mma kernel takes
@@ -1849,9 +1896,10 @@ def serve_phase(torch, np, paper):
 
 
 def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
-               scale=None, dims=None, lse=False, q_offset=0):
+               scale=None, dims=None, lse=False, q_offset=0, rows=None,
+               rel=None, min_kept=0.5):
     """K4 against its plain version on one case, then, for a case of
-    K4_TIMED_CASES, its time, the plain version's,
+    K4_TIMED_CASES or with ``rows``, its time, the plain version's,
     scaled_dot_product_attention's and the bound.  ``dims`` =
     (Dk, Dv) are the real head dims of operands zero-padded to K4's D (MLA):
     the bound counts the unpadded work, 2 (Dk + Dv) flops a (q, k) pair,
@@ -1860,15 +1908,31 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
     the plain version's within LSE_ATOL; the bound counts its bytes.
     ``q_offset``: query row i at key position i + q_offset (a
     context-parallel rank's rows).  Unpadded operands at Dv != Dk need no
-    ``dims``: the head dims are q's and v's."""
+    ``dims``: the head dims are q's and v's.  ``rows``: the row windows,
+    [(lo, hi), ...], that a prefill too long for the plain version's whole
+    score matrix (B x H x S^2 f32: 17 GB a sequence at S 32768) is held
+    on, each against ``launch.cells.plain_rows`` on those rows alone; its
+    plain ms is then over every row in windows of CELL_ROWS, and the
+    library call takes k and v expanded to the query heads, the window as
+    a band mask and no math backend (its S x S scores do not fit; null
+    where no other backend takes the case; no graph ms).  Such a case's
+    calls take 2 to 700 ms, one kernel each, and the profiler has dropped
+    every record of them in three windows running (H100, K4's and SDPA's
+    f32 calls at S 32768), so its ms and the library's are CUDA events
+    around back-to-back calls (``ms_by``), which no host work bounds at
+    that length, and its kernel is the form its counter saw.  ``rel``: each
+    window, or the whole output, also held within ``rel`` of the plain
+    version's largest magnitude there (``launch.cells.k4_limit``).
+    ``min_kept``: ``device_events``' lost-record policy for K4's and the
+    library's device ms."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash import flash_attention, flash_decode
     from repro_torch.kernels.flash.ops import (
         attention_pairs, decode_kernel, decode_split, form_launches,
         prefill_form)
-    from repro_torch.kernels.timing import (bound_ms, device_events,
-                                            device_ms, graph_ms)
+    from repro_torch.kernels.timing import bound_ms, device_events, graph_ms
     from repro_torch.kernels.flash.ref import attention_ref
+    from repro_torch.launch.cells import k4_limit, plain_rows
 
     t_case = time.perf_counter()
     form = "decode" if decode else prefill_form(q.dtype, q.shape[-1],
@@ -1900,10 +1964,18 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         raise AssertionError(f"flash_attention {name}: launched "
                              f"{ {f: after[f] - before[f] for f in after} }, "
                              f"want {form} once")
-    err = float((got.float() - plain()).abs().max())
-    if not err <= atol:
-        raise AssertionError(f"flash_attention {name}: max abs err {err} "
-                             f"above {atol}")
+    errs, limits = [], []
+    for lo, hi in rows or [(None, None)]:
+        want = plain() if lo is None else plain_rows(
+            q, k, v, lo, hi, causal=causal, window=window, scale=scale)
+        errs.append(float((got[:, lo:hi].float() - want).abs().max()))
+        limits.append(atol if rel is None else k4_limit(want, atol, rel))
+        del want
+    err = max(errs)
+    if any(not e <= t for e, t in zip(errs, limits)):
+        raise AssertionError(f"flash_attention {name}: max abs err {errs} "
+                             f"above {limits} (rows {rows})")
+    del got
     B, sq, H, D = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dk, dv = dims or (D, v.shape[3])
@@ -1914,6 +1986,10 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                       "window": None if decode else window},
             "dtype": str(q.dtype).split(".")[-1], "max_abs_err": err,
             "tolerance": atol}
+    if rows:
+        line["rows_held"] = rows
+    if rel is not None:
+        line.update(rel=rel, limits=limits, errs=errs)
     if dims or dv != D:
         line["shape"].update({"Dk": dk, "Dv": dv, "scale": scale,
                               "zero_padded_to": D if dims else None})
@@ -1932,7 +2008,8 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         calls: a decode case must run the kernels decode_kernel names, the
         mma or the cluster kernel alone up to 8 splits, the split and
         merge kernels past a cluster."""
-        ms, by_name = device_events(run, iters, whole_calls=whole_calls)
+        ms, by_name = device_events(run, iters, whole_calls=whole_calls,
+                                    min_kept=min_kept)
         seen = sorted(f for f in map(kernel_form, by_name) if f)
         if decode:
             want = (["decode_merge", "decode_split"]
@@ -1942,33 +2019,15 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
                                      f"saw {seen}, want {sorted(want)}")
         return ms, seen
 
-    if name not in K4_TIMED_CASES:
+    if name not in K4_TIMED_CASES and not rows:
         if decode:
             # names only: a short window can lose a kernel's records
             line["kernels"] = kernels_seen(20, whole_calls=False)[1]
         line["s"] = time.perf_counter() - t_case
         return line
-    # the library yardstick: one call of scaled_dot_product_attention on
-    # (B, H, S, D) copies made outside the timing (at the real head dims),
-    # GQA by enable_gqa, the window as a boolean band mask
-    qt, kt, vt = (t[..., :d].transpose(1, 2).contiguous()
-                  for t, d in ((q, dk), (k, dk), (v, dv)))
-    mask = None
-    if (window or q_offset) and not decode:
-        i = q_offset + torch.arange(sq, device=q.device)[:, None]
-        j = torch.arange(skv, device=q.device)[None]
-        mask = (j <= i) & (j > i - window) if window else j <= i
-    is_causal = causal and not decode and mask is None
-
-    def library():
-        return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=is_causal, scale=scale,
-            enable_gqa=True)
-
-    lib_err = float((library().transpose(1, 2).float()
-                     - plain()[..., :dv]).abs().max())
     one = cuda_ms(run, 1, warmup=1)
-    iters = max(5, min(200, int(200 / max(one, 1e-3))))
+    iters = max(3, min(200, int(200 / max(one, 1e-3))))
+    reps = max(2, min(20, int(40 / max(one, 1e-3))))
     pairs = B * H * (skv if decode else attention_pairs(
         sq, skv, causal, window, q_offset))
     elem = q.element_size()
@@ -1977,26 +2036,97 @@ def flash_case(torch, np, name, q, k, v, *, causal, window, decode, atol,
         nbytes += 4 * B * H * sq
     flops = 2 * (dk + dv) * pairs
     bound, bound_by, t_bytes, t_ops = bound_ms(nbytes, flops, q.dtype)
+
+    def plain_all():
+        for r0 in range(0, sq, CELL_ROWS):
+            plain_rows(q, k, v, r0, min(sq, r0 + CELL_ROWS), causal=causal,
+                       window=window)
+
     # ms: the kernel's device time (the profiler's events); graph_ms: CUDA
-    # events around replays of a CUDA graph of 20 back-to-back calls (every
+    # events around replays of a CUDA graph of back-to-back calls (every
     # kernel of a call, the gaps between them, no host work); call_ms: CUDA
     # events around back-to-back wrapper calls, which the wrapper's host
     # work bounds when the kernel is short; the same three for the
     # library.  A kernel's ms is the mean of its recorded events times its
     # launches a call (the profiler can lose records)
-    ms, kernels = kernels_seen(iters)
+    if rows:
+        call_ms = cuda_ms(run, iters)
+        line.update(ms=call_ms, ms_by="cuda events", kernels=[form],
+                    call_ms=call_ms)
+    else:
+        ms, kernels = kernels_seen(iters)
+        line.update(ms=ms, kernels=kernels, call_ms=cuda_ms(run, iters))
+    line["graph_ms"] = graph_ms(run, calls=reps, replays=max(3, reps // 2))
+    if rows:
+        # a window's scores take up to 17 GB in one block
+        torch.cuda.empty_cache()
+        line.update(plain_ms=cuda_ms(plain_all, 1, warmup=0),
+                    plain_over=f"every row, in windows of {CELL_ROWS}")
+    else:
+        line["plain_ms"] = cuda_ms(plain_pair, 5, warmup=1)
+    # the library yardstick: one call of scaled_dot_product_attention on
+    # (B, H, S, D) operands made outside the timing (at the real head
+    # dims), GQA by enable_gqa (with rows: k and v expanded to the query
+    # heads), the window as a boolean band mask
+    mask = None
+    if (window or q_offset) and not decode:
+        i = q_offset + torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(skv, device=q.device)[None]
+        mask = (j <= i) & (j > i - window) if window else j <= i
+    is_causal = causal and not decode and mask is None
+    if rows:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        qt = q.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(H // hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+
+        def library():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=is_causal)
+    else:
+        qt, kt, vt = (t[..., :d].transpose(1, 2).contiguous()
+                      for t, d in ((q, dk), (k, dk), (v, dv)))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=is_causal,
+                scale=scale, enable_gqa=True)
+
+    lo = rows[-1][0] if rows else None
+    try:
+        lib_out = library().transpose(1, 2)[:, lo:]
+    except RuntimeError as e:           # rows: no backend but the math one
+        if not rows:
+            raise
+        lib_out, line["library_error"] = None, str(e).splitlines()[0][:200]
+    if lib_out is not None:
+        line["library_max_abs_err"] = float((lib_out.float() - (
+            plain()[..., :dv] if lo is None else plain_rows(
+                q, k, v, lo, sq, causal=causal, window=window))).abs().max())
+    del lib_out
+    if "library_error" in line:
+        line.update(library_ms=None, library_graph_ms=None)
+    elif rows:
+        line.update(library_ms=cuda_ms(library, 2, warmup=1),
+                    library_graph_ms=None)
+    else:
+        line.update({
+            "library_ms": device_events(library, iters, warmup=1,
+                                        whole_calls=True,
+                                        min_kept=min_kept)[0],
+            "library_graph_ms": graph_ms(library, calls=reps,
+                                         replays=max(3, reps // 2)),
+            "library_call_ms": cuda_ms(library, iters)})
     line.update({
-        "ms": ms, "kernels": kernels, "graph_ms": graph_ms(run),
-        "call_ms": cuda_ms(run, iters),
-        "plain_ms": cuda_ms(plain_pair, 5, warmup=1),
-        "library_ms": device_ms(library, iters, whole_calls=True),
-        "library_graph_ms": graph_ms(library),
-        "library_call_ms": cuda_ms(library, iters),
-        "library_max_abs_err": lib_err,
         "bound_ms": bound, "bound_by": bound_by,
         "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops, "bytes": nbytes,
         "flops": flops, "pairs": pairs})
     line["share_of_bound"] = line["bound_ms"] / line["ms"]
+    del qt, kt, vt, mask
+    torch.cuda.empty_cache()
     line["s"] = time.perf_counter() - t_case
     return line
 
@@ -2143,8 +2273,8 @@ def flash_phase(torch, np):
     # serving's last step over the whole 4 x 160-slot cache and a step
     # over the first 100 slots (a strided view) in bf16, and the f32
     # decode loop's last step over 2 x 64 keys
-    kc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, g.n_kv_heads, g.hd), bf16)
-    vc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, g.n_kv_heads, g.hd), bf16)
+    kc = randn((FAM_BATCH, FAM_CASE_KEYS, g.n_kv_heads, g.hd), bf16)
+    vc = randn((FAM_BATCH, FAM_CASE_KEYS, g.n_kv_heads, g.hd), bf16)
     q1 = randn((FAM_BATCH, 1, g.n_heads, g.hd), bf16)
     lines["granite_decode_bf16"] = flash_case(
         torch, np, "granite_decode_bf16", q1, kc, vc, causal=False,
@@ -2178,7 +2308,7 @@ def flash_phase(torch, np):
                 torch, np, name, randn((b, s, H, D), dtype),
                 randn((b, s, Hkv, D), dtype), randn((b, s, Hkv, D), dtype),
                 causal=True, window=None, decode=False, atol=atol)
-        decodes = {f"{key}_decode_bf16": FAM_PROMPT + FAM_GEN}
+        decodes = {f"{key}_decode_bf16": FAM_CASE_KEYS}
         if key == "gemma_2b":
             decodes["gemma_2b_decode_1024_bf16"] = LLM_PROMPT
         q1 = randn((FAM_BATCH, 1, H, D), bf16)
@@ -2188,8 +2318,8 @@ def flash_phase(torch, np):
                 randn((FAM_BATCH, keys, Hkv, D), bf16), causal=False,
                 window=None, decode=True, atol=3e-2)
         if key in ("command_r_plus", "gemma_2b"):
-            kc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, Hkv, D), bf16)
-            vc = randn((FAM_BATCH, FAM_PROMPT + FAM_GEN, Hkv, D), bf16)
+            kc = randn((FAM_BATCH, FAM_CASE_KEYS, Hkv, D), bf16)
+            vc = randn((FAM_BATCH, FAM_CASE_KEYS, Hkv, D), bf16)
             lines[f"{key}_decode_span_bf16"] = flash_case(
                 torch, np, f"{key}_decode_span_bf16", q1, kc[:, :100],
                 vc[:, :100], causal=False, window=None, decode=True,
@@ -2375,37 +2505,38 @@ def llm_phase(torch, np):
                                  f"{want}")
         return got
 
-    # f32: decode_fn over the prompt against prefill_fn (the reference's
-    # tolerance, tests/test_models.py:83), 26 launches per call and step;
-    # the prefill takes the SIMT form (the counters reset just before)
+    # f32: prefill_fn over the prompt, the SIMT form's path (26 launches,
+    # the counters reset just before); then decode_fn over its first
+    # LLM_F32_PROMPT tokens against prefill_fn over those (the
+    # reference's tolerance, tests/test_models.py:83), 26 launches per
+    # call and step
     _, prefill_fn, decode_fn = build_forward(cfg32)
     b32 = toks[:2]
+    P = LLM_F32_PROMPT
     with torch.no_grad():
         registry.reset_launch_counts()
-        full = prefill_fn(params, {"tokens": b32})
+        prefill_fn(params, {"tokens": b32})
         n_simt = forms_were("f32 prefill_fn",
                             prefill_simt=cfg.n_layers)["prefill_simt"]
         if k4.launches() != cfg.n_layers:
             raise AssertionError(f"f32 prefill_fn launched K4 "
                                  f"{k4.launches()} times")
-        cache = zero_cache(cfg32, 2, LLM_PROMPT, "cuda")
-        start = k4.launches()
-        for i in range(LLM_PROMPT):
+        registry.reset_launch_counts()
+        full = prefill_fn(params, {"tokens": b32[:, :P]})
+        cache = zero_cache(cfg32, 2, P, "cuda")
+        for i in range(P):
             step, cache = decode_fn(params, cache, {
                 "tokens": b32[:, i:i + 1],
                 "positions": torch.full((2, 1), i, device="cuda")}, index=i)
         torch.cuda.synchronize()
-    if k4.launches() - start != cfg.n_layers * LLM_PROMPT:
-        raise AssertionError(f"f32 decode launched K4 "
-                             f"{k4.launches() - start} times")
     forms_were("f32 prefill_fn and decode loop", prefill_simt=cfg.n_layers,
-               decode=cfg.n_layers * LLM_PROMPT)
+               decode=cfg.n_layers * P)
     a, b = full.float(), step.float()
     err = float((a - b).abs().max())
     if not torch.allclose(b, a, atol=2e-3, rtol=1e-3):
         raise AssertionError(f"f32 decode against prefill: max abs diff "
                              f"{err}")
-    line["f32_decode_vs_prefill"] = {"batch": 2, "prompt": LLM_PROMPT,
+    line["f32_decode_vs_prefill"] = {"batch": 2, "prompt": P,
                                      "max_abs_diff": err,
                                      "max_abs_logit": float(a.abs().max()),
                                      "atol": 2e-3, "rtol": 1e-3}
@@ -2502,49 +2633,11 @@ def llm_phase(torch, np):
 
 def card_params(torch, cfg, seed: int):
     """A parameter tree of ``cfg`` drawn on the card from a seeded
-    torch.Generator, with init_params's kinds and scales (normal over the
-    fan-in, normal(0, 0.2) for the conv, log(1..8) for a_log, zeros and
-    ones); not the reference's numbers, which the CPU tests hold
-    init_params to.  numpy draws about 30 M normals a second on a host:
-    minutes for granite's 3.9 B parameters.  A normal leaf is drawn in f32
-    and rounded to its type; a bf16 one of more than DRAW_ELEMS elements
-    a slice at a time along its first axes, so no more than one slice is
-    held in f32 beside the bf16 tree."""
-    import math
-    from repro_torch.models.model import DTYPES, param_specs, tree_map
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-
-    def normal(t, std):
-        if t.dtype == torch.float32:
-            t.normal_(0.0, std, generator=gen)
-        elif t.dim() > 1 and t.numel() > DRAW_ELEMS:
-            for part in t.unbind(0):
-                normal(part, std)
-        else:
-            t.copy_(torch.empty(t.shape, device="cuda").normal_(
-                0.0, std, generator=gen))
-
-    def draw(p):
-        if p.init in ("zeros", "ones"):
-            t = (torch.zeros if p.init == "zeros" else torch.ones)(
-                p.shape, device="cuda")
-        elif p.init == "a_log":
-            t = torch.log(torch.linspace(
-                1.0, 8.0, math.prod(p.shape), dtype=torch.float64,
-                device="cuda")).reshape(p.shape)
-        elif p.init in ("normal", "conv"):
-            fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(
-                p.shape[:-1])
-            t = torch.empty(p.shape, dtype=DTYPES[p.dtype], device="cuda")
-            normal(t, 0.2 if p.init == "conv" else 1.0 / math.sqrt(
-                max(1, fan_in)))
-        else:
-            raise ValueError(f"card_params: no card draw for init kind "
-                             f"{p.init!r}")
-        return t.to(DTYPES[p.dtype])
-
-    return tree_map(draw, param_specs(cfg))
+    torch.Generator (``models.model.draw_params``: init_params's kinds and
+    scales, not the reference's numbers, which the CPU tests hold
+    init_params to)."""
+    from repro_torch.models.model import draw_params
+    return draw_params(cfg, seed, "cuda")
 
 
 class RouteLog:
@@ -2691,6 +2784,24 @@ def layer_counts(cfg):
             sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)))
 
 
+def family_prompt(torch, np, cfg):
+    """``make_prompt(cfg, FAM_BATCH, FAM_PREFILL)``: its token ids, or its
+    frames (the same RandomState(0) draws) beside an embedding stub of its
+    kind, (vocab, d_model) normals times 0.02, drawn on the card from a
+    seeded torch.Generator (numpy draws qwen2-vl's 545 M in about 18 s on
+    an H100's host)."""
+    from repro_torch.launch.serve import Prompt, make_prompt
+    if cfg.input_mode == "tokens":
+        return make_prompt(cfg, FAM_BATCH, FAM_PREFILL)
+    frames = np.random.RandomState(0).randn(FAM_BATCH, FAM_PREFILL,
+                                            cfg.d_model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    stub = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                       device="cuda") * 0.02
+    return Prompt(frames, stub.cpu().numpy())
+
+
 def family(torch, np, arch: str, cut32: dict, cut: dict):
     """One arch at full width: the f32 checks on its f32 cut (``cut32``),
     whose weights are then freed, and bf16 serving on its serving cut
@@ -2702,7 +2813,7 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash.ops import (decode_kernel, decode_split,
                                                form_launches)
-    from repro_torch.launch.serve import Prompt, make_prompt, serve
+    from repro_torch.launch.serve import Prompt, serve
     from repro_torch.models import build_forward
     from repro_torch.models.model import (moe_experts_padded, tree_leaves,
                                           tree_map, zero_cache)
@@ -2724,9 +2835,8 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
         return got
 
     t_arch = time.perf_counter()
-    # one prompt for every batch below: an embedding arch's prompt carries
-    # a (vocab, d_model) stub, 545 M numpy normals for qwen2-vl
-    prompt = make_prompt(cfg, FAM_BATCH, FAM_PREFILL)
+    # one prompt for every batch below
+    prompt = family_prompt(torch, np, cfg)
     prompt_s = time.perf_counter() - t_arch
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2743,19 +2853,23 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
             "f32_params": sum(t.numel() for t in tree_leaves(params)),
             "f32_init_s": time.perf_counter() - t0, "prompt_s": prompt_s}
 
-    # f32: decode_fn over the prompt against prefill_fn, every MoE route
-    # recorded on both paths (the reference's tolerance,
-    # tests/test_models.py:83)
-    P = FAM_F32_PROMPT
-    full_in, step_in = model_batch(torch, cfg32, prompt, 2, P)
+    # f32: prefill_fn over the prompt, the SIMT form's path (its counters
+    # reset just before); then decode_fn over its first FAM_F32_DECODE
+    # tokens against prefill_fn over those, every MoE route recorded on
+    # both paths (the reference's tolerance, tests/test_models.py:83)
+    P = FAM_F32_DECODE
+    full_in, step_in = model_batch(torch, cfg32, prompt, 2, FAM_F32_PROMPT)
     _, prefill_fn, decode_fn = build_forward(cfg32)
     with torch.no_grad():
         registry.reset_launch_counts()
-        with RouteLog(torch) as r_pre:
-            full = prefill_fn(params, full_in)
-            torch.cuda.synchronize()
+        prefill_fn(params, full_in)
+        torch.cuda.synchronize()
         n_simt = forms_were("f32 prefill_fn",
                             prefill_simt=n_attn32)["prefill_simt"]
+        with RouteLog(torch) as r_pre:
+            full = prefill_fn(params, model_batch(torch, cfg32, prompt, 2,
+                                                  P)[0])
+            torch.cuda.synchronize()
         cache = zero_cache(cfg32, 2, P, "cuda")
         registry.reset_launch_counts()
         with RouteLog(torch) as r_dec:
@@ -2792,7 +2906,7 @@ def family(torch, np, arch: str, cut32: dict, cut: dict):
         cfg2)[2], 2)
     line["f32_2layer_card_vs_cpu"] = dict(
         _held(torch, "2-layer card against CPU", card, cpu, rows2, 1e-4,
-              1e-4), batch=2, prompt=P, first_layer=first,
+              1e-4), batch=2, prompt=FAM_F32_PROMPT, first_layer=first,
         changes={k: list(v) if isinstance(v, tuple) else v
                  for k, v in changes.items()},
         capacity_factor=cfg2.moe_capacity_factor, route_roots=roots2,
@@ -3514,6 +3628,396 @@ def train_families_phase(torch, np):
     return cases, launches
 
 
+# ---- the cells phase: the reference's shape cells (configs.SHAPES) on
+# one card, through launch/cells.py ----
+
+# (arch, shape, batch, window_cache): full width and depth, each at the
+# largest batch up to the reference's that the card holds (PERF.md §4:
+# mamba2's prefill at 8 and gemma3-1b's train at 32 ran out of memory);
+# gemma3-1b's decode_32k with full caches (B 64 of the reference's 128:
+# 128 full caches are 111.7 GB) and with the rolling window cache at 128;
+# train_4k at 28 of the 30 that a fresh process held (81.9 GB of 85),
+# leaving room for what the earlier phases keep on the card
+CELLS = (("gemma3-1b", "prefill_32k", 32, False),
+         ("gemma3-1b", "decode_32k", 64, False),
+         ("gemma3-1b", "decode_32k", 128, True),
+         ("gemma3-1b", "long_500k", 1, False),
+         ("gemma3-1b", "train_4k", 28, False),
+         ("mamba2-1.3b", "prefill_32k", 7, False),
+         ("mamba2-1.3b", "decode_32k", 128, False),
+         ("mamba2-1.3b", "long_500k", 1, False))
+CELL_HOLD_LAYERS = 6    # gemma3-1b's one-period cut: 5 local, 1 global
+CELL_ROWS = 1024        # rows a window of a 32k launch is held on
+CELL_BF16_ATOL = 2e-2   # bf16 prefill_fn against f32 (gemma3-1b serving's)
+CELL_CPU_TOL = 1e-4     # an f32 step on the card against the CPU
+
+
+def cell_batch(arch: str, shape: str) -> int:
+    """The batch CELLS runs ``arch`` x ``shape`` at (its first entry)."""
+    return next(b for a, sh, b, _ in CELLS if (a, sh) == (arch, shape))
+
+
+def dropped_splits(torch, q, k, v, line, atol):
+    """A planted fault, to show that a long-span decode case's hold sees
+    it: the kernels ``line``'s split names, launched over only the first
+    nsplit - max(1, nsplit // 2) of its chunks (``ops.decode_launch`` on
+    those keys alone), which is what a merge that lost the other splits'
+    partials returns.  Raises where the hold would pass it."""
+    from repro_torch.kernels.flash.ops import decode_launch
+    from repro_torch.kernels.flash.ref import attention_ref
+    from repro_torch.launch.cells import K4_REL, k4_limit
+    kc, nsplit = line["split"]["kc"], line["split"]["nsplit"]
+    keep = nsplit - max(1, nsplit // 2)
+    want = attention_ref(q, k, v, causal=False)
+    got = decode_launch(q, k[:, :keep * kc], v[:, :keep * kc], kc, keep)
+    err = float((got.float() - want).abs().max())
+    limit = k4_limit(want, atol, K4_REL)
+    if not err > limit:
+        raise AssertionError(f"{line['case']}: the hold passes a merge of "
+                             f"{keep} of {nsplit} splits (max abs err {err}"
+                             f", limit {limit})")
+    return {"kept_splits": keep, "of": nsplit, "max_abs_err": err,
+            "limit": limit, "within_atol": err <= atol}
+
+
+def cells_k4_cases(torch, np):
+    """K4 at the cells' shapes, each against the plain version on the
+    card (tests/test_kernels.py's tolerances, bf16 3e-2 and f32 2e-5, and
+    on each window held within K4_REL of the plain version's largest
+    magnitude there: ``launch.cells.k4_limit``) and timed: gemma3-1b's
+    prefill at S 32768, window 512 and causal, in bf16 at the prefill
+    cell's batch and in f32 at the f32 hold's batch 1, held on three
+    windows of CELL_ROWS rows (the first, the middle and the last);
+    decode over 32768 keys at B 64 (3 splits) and B 128 (2 splits), over
+    a 512-slot rolling cache at B 128 (2 splits) and over 524288 keys at
+    B 1 (132 splits: the split and merge kernels), each launching exactly
+    the kernels ``ops.decode_kernel`` names and each failing a planted
+    merge of half its splits (``dropped_splits``); and the prefill with
+    its lse at the train cell's batch x 4096, window 512 and causal.
+    Returns (cases, paths), keyed by the kernels line's suffix: a path
+    is where the case's launches are counted, (the CELLS entry or
+    "holds", form, B, Sq, the least and the most keys, window, causal)."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch.cells import K4_REL, STEPS
+    cfg = ARCHS["gemma3-1b"]
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def cell(shape, wc=False):
+        return next(c for c in CELLS if c[:2] == ("gemma3-1b", shape)
+                    and c[3] == wc)
+
+    cases, paths = {}, {}
+    S = SHAPES["prefill_32k"][0]
+    rows = [(0, CELL_ROWS), (S // 2 - CELL_ROWS // 2, S // 2 + CELL_ROWS // 2),
+            (S - CELL_ROWS, S)]
+    for dtype, atol, tag, where in (
+            (bf16, 3e-2, "", cell("prefill_32k")), (f32, 2e-5, "_f32",
+                                                    "holds")):
+        B = 1 if where == "holds" else where[2]
+        q, k, v = (randn((B, S, h, D), dtype) for h in (H, Hkv, Hkv))
+        for kind, window in (("local", W), ("global", None)):
+            key = f"prefill_32k{tag}:{kind}"
+            cases[key] = flash_case(
+                torch, np, f"cells_prefill_32k_{kind}{tag}", q, k, v,
+                causal=True, window=window, decode=False, atol=atol,
+                rows=rows, rel=K4_REL, min_kept=0)
+            paths[key] = (where, cases[key]["form"], B, S, S, S, window,
+                          True)
+            emit(cases[key])
+        del q, k, v
+    S = SHAPES["decode_32k"][0]
+    for name, key, where, keys in (
+            ("cells_decode_32k_b64", "decode_32k:b64", cell("decode_32k"),
+             S),
+            ("cells_decode_32k_b128", "decode_32k:b128_window_cache",
+             cell("decode_32k", True), S),
+            ("cells_decode_rolling_b128", "decode_32k:b128_rolling",
+             cell("decode_32k", True), W),
+            ("cells_long_500k", "long_500k", cell("long_500k"),
+             SHAPES["long_500k"][0])):
+        B = where[2]
+        q1 = randn((B, 1, H, D), bf16)
+        kc, vc = (randn((B, keys, Hkv, D), bf16) for _ in range(2))
+        line = flash_case(torch, np, name, q1, kc, vc, causal=False,
+                          window=None, decode=True, atol=3e-2, rel=K4_REL,
+                          min_kept=0)
+        line["dropped_splits"] = dropped_splits(torch, q1, kc, vc, line,
+                                                3e-2)
+        del q1, kc, vc
+        emit(line)
+        cases[key] = line
+        # a rolling cache's span stays at its slots; a full one grows a
+        # key a step
+        paths[key] = (where, "decode", B, 1, keys,
+                      keys + (0 if keys == W else STEPS - 1), None, False)
+    where = cell("train_4k")
+    S, B = SHAPES["train_4k"][0], where[2]
+    q, k, v = (randn((B, S, h, D), bf16) for h in (H, Hkv, Hkv))
+    for kind, window in (("local", W), ("global", None)):
+        key = f"train_4k:{kind}"
+        cases[key] = flash_case(
+            torch, np, f"cells_train_4k_{kind}", q, k, v, causal=True,
+            window=window, decode=False, atol=3e-2, lse=True, rel=K4_REL,
+            min_kept=0)
+        paths[key] = (where, cases[key]["form"], B, S, S, S, window, True)
+        emit(cases[key])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return cases, paths
+
+
+def path_launches(shapes, form, B, sq, lo, hi, window, causal) -> int:
+    """The launches of ``form`` at (B, sq, window, causal) over lo to hi
+    keys in ``shapes``, the rows [form, B, Sq, Skv, H, Hkv, window,
+    causal, n] of ``launch.cells``' ``k4_shapes``."""
+    return sum(n for f, b, q, kv, _, _, w, c, n in shapes
+               if (f, b, q, w, c) == (form, B, sq, window, causal)
+               and lo <= kv <= hi)
+
+
+def _cpu_step(torch, cfg, params, cache, batch, index):
+    """decode_fn's step on the card and the same step on the CPU from a
+    copy of the same weights and cache: (card logits, CPU logits)."""
+    from repro_torch.models import build_forward
+    from repro_torch.models.model import tree_map
+    decode_fn = build_forward(cfg)[2]
+    host = tree_map(lambda t: t.cpu(), cache)
+    hp = tree_map(lambda t: t.cpu(), params)
+    card = decode_fn(params, cache, batch, index=index)[0].float().cpu()
+    cpu = decode_fn(hp, host, {k: v.cpu() for k, v in batch.items()},
+                    index=index)[0].float()
+    return card, cpu
+
+
+def cells_holds(torch, np) -> dict:
+    """The cells' paths held at model level on cuts of full width:
+    gemma3-1b's one-period cut (CELL_HOLD_LAYERS layers, 5 local and 1
+    global) in f32: prefill_fn at S 32768 (the SIMT form, its launches
+    read), the same tokens through the cut cast to bf16 (the wgmma form)
+    within CELL_BF16_ATOL of it; decode_fn at index 32767 (B 2), full
+    caches and rolling window caches, and at 524287 (B 1), rolling window
+    caches (the global layer's cache is full there too; the local
+    layers' full 524288-slot caches would only lengthen the CPU's step),
+    seeded as the cells seed them (``launch.cells.seeded_cache``), on the
+    card against the same step on the CPU within CELL_CPU_TOL; one train
+    step at S 4096
+    (B 2) with K4 (the SIMT form with its lse) against the plain
+    attention on the card, every gradient leaf within LEAF_REL of its
+    largest; mamba2-1.3b cut to 2 layers in f32: prefill_fn at S 32768 on
+    its first layer and a decode step at B 128 and at B 1 over seeded
+    state, card against CPU within CELL_CPU_TOL.  Emits the line (each part's seconds under
+    ``part_s``) and returns K4's launches on the f32 prefill by shape,
+    as ``launch.cells``' ``k4_shapes``."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash.ops import form_launches
+    from repro_torch.launch.cells import k4_counts, seeded_cache
+    from repro_torch.models import build_forward
+    from repro_torch.models.convert import cast_params
+    from repro_torch.models.model import tree_map
+    from repro_torch.train import value_and_grad
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(34)
+    S = SHAPES["prefill_32k"][0]
+    g = ARCHS["gemma3-1b"]
+    cfg = g.replace(n_layers=CELL_HOLD_LAYERS, dtype="float32")
+    n_local = sum(cfg.layer_window(i) is not None
+                  for i in range(cfg.n_layers))
+    params = card_params(torch, cfg, 1)
+    toks = torch.from_numpy(rng.randint(2, g.vocab, (1, S)).astype(
+        np.int32)).cuda()
+    line = {"phase": "cells", "check": "holds", "gemma3_cut": {
+        "n_layers": cfg.n_layers, "local": n_local}, "part_s": {}}
+
+    def part(name):
+        line["part_s"][name] = time.perf_counter() - t0 - sum(
+            line["part_s"].values())
+
+    def forms_were(what, **want):
+        got = form_launches()
+        if got != {f: want.get(f, 0) for f in got}:
+            raise AssertionError(f"{what} launched K4's forms {got}, want "
+                                 f"{want}")
+
+    with torch.no_grad():
+        registry.reset_launch_counts()
+        f32 = build_forward(cfg)[1](params, {"tokens": toks}).float()
+        forms_were("f32 prefill_fn at 32k", prefill_simt=cfg.n_layers)
+        shapes = k4_counts()["k4_shapes"]
+        part("f32_prefill")
+        for index, B, wcs in ((SHAPES["decode_32k"][0] - 1, 2,
+                               (False, True)),
+                              (SHAPES["long_500k"][0] - 1, 1, (True,))):
+            for wc in wcs:
+                c = cfg.replace(window_cache=wc)
+                cache = seeded_cache(c, B, index + 1, 35, "cuda")
+                batch = {"tokens": torch.from_numpy(rng.randint(
+                    2, g.vocab, (B, 1)).astype(np.int32)).cuda(),
+                    "positions": torch.full((B, 1), index, device="cuda")}
+                registry.reset_launch_counts()
+                card, cpu = _cpu_step(torch, c, params, cache, batch, index)
+                forms_were("f32 decode step", decode=cfg.n_layers)
+                line[f"decode_{index}_{'window' if wc else 'full'}"] = dict(
+                    _held(torch, "f32 decode step, card against CPU", card,
+                          cpu, list(range(B)), CELL_CPU_TOL, CELL_CPU_TOL),
+                    batch=B, index=index)
+                del cache
+            part(f"decode_{index}")
+    torch.cuda.empty_cache()
+    # one f32 train step at S 4096, K4 (forward and remat recompute)
+    # against the plain attention
+    seq = SHAPES["train_4k"][0]
+    b = {k: torch.from_numpy(v).cuda() for k, v in _batch_at(
+        DataConfig(seq, 2, g.vocab), 0, 0, 2).items()}
+    registry.reset_launch_counts()
+    la, ga = value_and_grad(build_forward(cfg)[0], params, b)
+    torch.cuda.synchronize()
+    forms_were("f32 train step", prefill_simt=2 * cfg.n_layers)
+    lb, gb = value_and_grad(build_forward(cfg.replace(
+        attn_impl="naive"))[0], params, b)
+    line["train_step"] = dict(_grads_held(
+        torch, "f32 train step at 4096, K4 against the plain attention",
+        la, ga, lb, gb, LEAF_REL), batch=2, seq=seq)
+    del ga, gb
+    part("train_step")
+    torch.cuda.empty_cache()
+    # the same 32k tokens through the cut in bf16
+    with torch.no_grad():
+        p16 = cast_params(params, cfg.replace(dtype="bfloat16"))
+        registry.reset_launch_counts()
+        bf = build_forward(cfg.replace(dtype="bfloat16"))[1](
+            p16, {"tokens": toks}).float()
+        forms_were("bf16 prefill_fn at 32k", prefill_wgmma=cfg.n_layers)
+    err = float((bf - f32).abs().max())
+    if not (bool(torch.isfinite(bf).all()) and err <= CELL_BF16_ATOL):
+        raise AssertionError(f"bf16 prefill_fn at 32k against f32: max abs "
+                             f"diff {err}")
+    line["bf16_vs_f32_prefill"] = {"batch": 1, "seq": S, "max_abs_diff": err,
+                                   "max_abs_logit": float(f32.abs().max()),
+                                   "atol": CELL_BF16_ATOL}
+    del params, p16, bf, f32
+    part("bf16_prefill")
+    torch.cuda.empty_cache()
+    # mamba2-1.3b cut to 2 layers in f32, its first layer alone for the
+    # 32k prefill (the CPU's side: 20 s at 2 layers on an H100's host)
+    m = ARCHS["mamba2-1.3b"].replace(n_layers=2, dtype="float32")
+    pm = card_params(torch, m, 2)
+    toks = torch.from_numpy(rng.randint(2, m.vocab, (1, S)).astype(
+        np.int32)).cuda()
+    m1 = m.replace(n_layers=1)
+    p1 = layer_cut(pm, m, m1, 0)
+    pf = build_forward(m1)[1]
+    with torch.no_grad():
+        card = pf(p1, {"tokens": toks}).float().cpu()
+        cpu = pf(tree_map(lambda t: t.cpu(), p1),
+                 {"tokens": toks.cpu()}).float()
+        del p1
+        line["mamba2_prefill"] = dict(_held(
+            torch, "mamba2 f32 prefill_fn at 32k, card against CPU", card,
+            cpu, [0], CELL_CPU_TOL, CELL_CPU_TOL), batch=1, seq=S,
+            n_layers=m1.n_layers, ssd_chunks=S // m.ssm_chunk)
+        part("mamba2_prefill")
+        for shape in ("decode_32k", "long_500k"):
+            B, index = cell_batch("mamba2-1.3b", shape), SHAPES[shape][0] - 1
+            cache = seeded_cache(m, B, 1, 36, "cuda")
+            batch = {"tokens": torch.from_numpy(rng.randint(
+                2, m.vocab, (B, 1)).astype(np.int32)).cuda(),
+                "positions": torch.full((B, 1), index, device="cuda")}
+            card, cpu = _cpu_step(torch, m, pm, cache, batch, index)
+            line[f"mamba2_{shape}"] = dict(_held(
+                torch, "mamba2 f32 decode step, card against CPU", card, cpu,
+                list(range(B)), CELL_CPU_TOL, CELL_CPU_TOL), batch=B,
+                index=index)
+            del cache
+    del pm
+    torch.cuda.empty_cache()
+    part("mamba2_decode")
+    line["s"] = time.perf_counter() - t0
+    emit(line)
+    return shapes
+
+
+def cell_k4_want(cfg, kind: str, batch: int, seq: int, steps: int):
+    """K4's launches a cell's timed run must count by form, and the forms
+    whose kernels its profiled call must run: (counters by form, sorted
+    forms)."""
+    import torch
+    from repro_torch.kernels.flash.ops import decode_kernel, decode_split
+    attn = [i for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn"]
+    if not attn:
+        return form_counts(), []
+    form = bf16_prefill_form(cfg)
+    if kind == "prefill":
+        return form_counts(**{form: len(attn)}), [form]
+    if kind == "train":
+        n_per = cfg.n_layers // cfg.period
+        per = [i for i in attn if i < cfg.period]
+        return form_counts(**{form: len(attn) + n_per * len(per)}), [form]
+    kernels = set()
+    g = cfg.n_heads // cfg.n_kv_heads
+    for i in attn:
+        w = cfg.layer_window(i)
+        span = seq if w is None else min(w, seq)
+        kern = decode_kernel(torch.bfloat16, g, decode_split(
+            span, batch * cfg.n_kv_heads)[1])
+        kernels.update(("decode_split", "decode_merge")
+                       if kern == "decode_split" else (kern,))
+    return form_counts(decode=len(attn) * steps), sorted(kernels)
+
+
+def cells_phase(torch, np):
+    """The cells at full width and depth (launch/cells.py's run_cell, one
+    line each), K4 at their shapes first (cells_k4_cases), then the
+    model-level holds (cells_holds).  Each cell's K4 counters (set to 0
+    just before its timed call) must be cell_k4_want's, and the forms
+    whose kernels its profiled call ran too.  Returns K4's cases and, by
+    the same key, their launches on their paths: the counters' launches
+    at each case's form and shape (``path_launches``), none of them 0."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.cells import STEPS, run_cell
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    t_phase = time.perf_counter()
+    cases, paths = cells_k4_cases(torch, np)
+    shapes = {"holds": cells_holds(torch, np)}
+    lines = []
+    for entry in CELLS:
+        arch, shape, batch, wc = entry
+        line = run_cell(arch, shape, batch, window_cache=wc, seed=0,
+                        device="cuda")
+        counts, kernels = cell_k4_want(ARCHS[arch], line["kind"], batch,
+                                       line["seq"], STEPS)
+        if line["k4_launches"] != counts or line["k4_kernels"] != kernels:
+            raise AssertionError(f"{arch} x {shape} launched K4 "
+                                 f"{line['k4_launches']} (the profiler saw "
+                                 f"{line['k4_kernels']}), want {counts} "
+                                 f"({kernels})")
+        shapes[entry] = line["k4_shapes"]
+        emit({"phase": "cells", **line})
+        lines.append(line)
+        torch.cuda.empty_cache()
+    launches = {key: path_launches(shapes[where], *rest)
+                for key, (where, *rest) in paths.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"K4 cases with no launch on their path: "
+                             f"{launches}")
+    emit({"phase": "cells", "cells": [
+        {k: ln[k] for k in ("arch", "shape", "batch", "ref_batch",
+                            "window_cache", "host_ms", "device_ms",
+                            "tokens_per_s", "peak_gb")} for ln in lines],
+        "case_launches": launches,
+        "nvidia_smi": smi("name,power.limit"),
+        "phase_s": time.perf_counter() - t_phase})
+    return cases, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3588,6 +4092,9 @@ def main() -> int:
     # read after it
     kern_fam_train, fam_train_launches = timed(
         "train_families", train_families_phase, torch, np)
+    # the reference's shape cells: each cell's counters set to 0 just
+    # before its timed call and read just after (launch/cells.py)
+    kern_cells, cell_launches = timed("cells", cells_phase, torch, np)
     from repro_torch.configs import ARCHS
     llm_form = bf16_prefill_form(ARCHS[LLM_ARCH])
     for arch, n in fam_launches.items():
@@ -3599,7 +4106,8 @@ def main() -> int:
     launches["flash_attention"] = sum(llm_launches.values()) + sum(
         sum(n.values()) for n in fam_launches.values()) + sum(
         train_launches.values()) + sum(
-        sum(n.values()) for n in fam_train_launches.values())
+        sum(n.values()) for n in fam_train_launches.values()) + sum(
+        cell_launches.values())
     launches["cyclesim"] = kern_cycle["launches"]
     for n, count in launches.items():
         if count == 0:
@@ -3661,6 +4169,12 @@ def main() -> int:
                   lse_tolerance=kern_fam_train[key]["lse_tolerance"])
              for arch, key in (("granite-moe-3b-a800m", "granite"),
                                ("deepseek-v2-236b", "mla"))]
+          + [dict(k4_line(f"flash_attention:{k['form']}:cells:{key}", k,
+                          cell_launches[key]),
+                  **({"lse_max_abs_err": k["lse_max_abs_err"],
+                      "lse_tolerance": k["lse_tolerance"]}
+                     if k.get("lse") else {}))
+             for key, k in kern_cells.items()]
           + [dict(line("cyclesim", registry.get_kernel("cyclesim"),
                        kern_cycle, kern_cycle["launches"]),
                   case=f"flow 1920x1080, 1 frame, first "

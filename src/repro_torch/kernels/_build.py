@@ -62,6 +62,7 @@ class Built:
 _LIBS: Dict[str, Built] = {}
 _FUNCS: Dict[tuple, object] = {}
 _LAUNCHES: Dict[str, int] = {}
+_SHAPE_LAUNCHES: Dict[tuple, int] = {}
 
 
 def _nvcc() -> str:
@@ -218,10 +219,11 @@ def generated_function(name: str, text: str, symbol: str,
     return _FUNCS[key]
 
 
-def launch(kernel: str, fn, *args, form: str = "") -> None:
+def launch(kernel: str, fn, *args, form: str = "", shape=None) -> None:
     """Call a launcher, raise on a nonzero ``cudaError_t`` and count the
     launch under ``kernel`` and, given a ``form``, under
-    ``"<kernel>:<form>"`` too."""
+    ``"<kernel>:<form>"`` too; given a ``shape`` (a tuple of the launch's
+    sizes), under that form and shape as well (``shape_counts``)."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel!r}"
@@ -229,11 +231,21 @@ def launch(kernel: str, fn, *args, form: str = "") -> None:
                            f"launch: cudaError_t {err}")
     for key in (kernel, f"{kernel}:{form}") if form else (kernel,):
         _LAUNCHES[key] = _LAUNCHES.get(key, 0) + 1
+    if shape is not None:
+        key = (f"{kernel}:{form}", shape)
+        _SHAPE_LAUNCHES[key] = _SHAPE_LAUNCHES.get(key, 0) + 1
 
 
 def launch_count(kernel: str) -> int:
     return _LAUNCHES.get(kernel, 0)
 
 
+def shape_counts(key: str) -> Dict[tuple, int]:
+    """Launches under ``key`` (``"<kernel>:<form>"``) by shape."""
+    return {shape: n for (k, shape), n in _SHAPE_LAUNCHES.items()
+            if k == key}
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+    _SHAPE_LAUNCHES.clear()

@@ -29,7 +29,7 @@ operand on every call, which the same rule satisfies.
 
 Every launch counts under ``flash_attention`` and under its form,
 ``flash_attention:<form>`` for the forms of ``FORMS``; ``form_launches``
-reads the latter.
+reads the latter, ``shape_launches`` a form's launches by their shape.
 
 On the CPU the prefill is the operator ``repro_torch::flash_attention``:
 its plain version on CPU tensors, and on fake tensors (a dry run) its
@@ -389,6 +389,13 @@ def form_launches() -> dict:
     return {f: _build.launch_count(f"{KERNEL}:{f}") for f in FORMS}
 
 
+def shape_launches(form: str) -> dict:
+    """Launches of ``form`` since the last ``registry.reset_launch_counts``
+    by their shape, (B, Sq, Skv, H, Hkv, window, causal): a decode launch
+    at Sq 1 over the Skv keys it was given, window None, not causal."""
+    return _build.shape_counts(f"{KERNEL}:{form}")
+
+
 def attention_pairs(sq: int, skv: int, causal: bool, window,
                     q_offset: int = 0) -> int:
     """Unmasked (q, k) pairs of one head: row i, at position
@@ -474,7 +481,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       Dk, Dv, Sq, Skv, *_strides(q), *_strides(k),
                       *_strides(v), int(causal), window or 0, q_offset, scale,
                       None if lse is None else lse.data_ptr(), stream,
-                      form=form)
+                      form=form, shape=(B, Sq, Skv, H, Hkv, window,
+                                        bool(causal)))
     return (out, lse) if return_lse else out
 
 
@@ -525,5 +533,6 @@ def decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
                       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       _dtype_code(q), B, H, Hkv, D, Skv, kc, nsplit, qsb, qsh,
                       *_strides(k_cache), *_strides(v_cache),
-                      1.0 / math.sqrt(D), stream, form="decode")
+                      1.0 / math.sqrt(D), stream, form="decode",
+                      shape=(B, 1, Skv, H, Hkv, None, False))
     return out

@@ -32,17 +32,22 @@ def bound_ms(nbytes: int, flops: int, dtype) -> Tuple[float, str, float,
 
 
 def device_events(fn: Callable, iters: int, warmup: int = 2,
-                  whole_calls: bool = False
+                  whole_calls: bool = False, min_kept: float = 0.5
                   ) -> Tuple[float, Dict[str, float]]:
-    """Run ``fn`` ``iters`` times under the profiler after ``warmup``
-    calls: (device ms per call, summed over every device event; device
-    ms per call of each event name).  The profiler can lose records (on
-    an H100 after a minute of bf16 matrix products at the power limit it
-    kept 195 of 200 kernels), so the sum over ``iters`` under-reads.
-    With ``whole_calls`` (a call that launches each of its kernels the
-    same number of times) a kernel's time a call is the mean of its
-    recorded events times its launches a call, the recorded count over
-    ``iters`` rounded; fewer than half the calls recorded raises."""
+    """Run ``fn`` ``iters`` times under the profiler (device activity
+    alone: a model step at a long sequence runs tens of thousands of host
+    operators) after ``warmup`` calls: (device ms per call, summed over
+    every device event; device ms per call of each event name).  The
+    profiler can lose records (on an H100 after a minute of bf16 matrix
+    products at the power limit it kept 195 of 200 kernels; of calls of
+    tens of milliseconds at S 32768 it has kept one in three), so the sum
+    over ``iters`` under-reads.  With ``whole_calls`` (a call that
+    launches each of its kernels the same number of times) a kernel's
+    time a call is the mean of its recorded events times its launches a
+    call, the recorded count over ``iters`` rounded, at least 1; a kernel
+    recorded in fewer than ``min_kept`` of the calls raises.  A window
+    with no device event at all is profiled again, twice at most, then
+    raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -52,8 +57,7 @@ def device_events(fn: Callable, iters: int, warmup: int = 2,
     # all (seen once on an H100 in chip_smoke.py's External case, after a
     # run of CPU-only profiler sessions); such a window is profiled again
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -66,11 +70,11 @@ def device_events(fn: Callable, iters: int, warmup: int = 2,
         for e in events:
             ms = e.self_device_time_total / 1e3
             if whole_calls:
-                per_call = round(e.count / iters)
-                if per_call == 0:
+                if e.count < min_kept * iters:
                     raise RuntimeError(f"the profiler recorded {e.key} "
                                        f"{e.count} times in {iters} calls")
-                by_name[e.key] = ms / e.count * per_call
+                by_name[e.key] = ms / e.count * max(1, round(e.count
+                                                             / iters))
             else:
                 by_name[e.key] = ms / iters
         return sum(by_name.values()), by_name

@@ -278,6 +278,57 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return tree_map(lambda p: drawn[id(p)], specs)
 
 
+# a leaf of more elements is drawn a slice at a time (draw_params), so a
+# bf16 leaf's f32 draw stays below 4.3 GB
+DRAW_ELEMS = 1 << 30
+
+
+def draw_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """A parameter tree of ``cfg`` drawn on ``device`` from a seeded
+    torch.Generator, with init_params's kinds and scales (normal over the
+    fan-in, normal(0, 0.2) for the conv, log(1..8) for a_log, zeros and
+    ones); not the reference's numbers, which init_params draws.  numpy
+    draws about 30 M normals a second on a host: minutes for a model of
+    billions of parameters, which the card draws in a second.  A normal
+    leaf is drawn in f32 and rounded to its type; a bf16 one of more than
+    DRAW_ELEMS elements a slice at a time along its first axes, so no more
+    than one slice is held in f32 beside the bf16 tree."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(t, std):
+        if t.dtype == torch.float32:
+            t.normal_(0.0, std, generator=gen)
+        elif t.dim() > 1 and t.numel() > DRAW_ELEMS:
+            for part in t.unbind(0):
+                normal(part, std)
+        else:
+            t.copy_(torch.empty(t.shape, device=device).normal_(
+                0.0, std, generator=gen))
+
+    def draw(p):
+        if p.init in ("zeros", "ones"):
+            t = (torch.zeros if p.init == "zeros" else torch.ones)(
+                p.shape, device=device)
+        elif p.init == "a_log":
+            t = torch.log(torch.linspace(
+                1.0, 8.0, math.prod(p.shape), dtype=torch.float64,
+                device=device)).reshape(p.shape)
+        elif p.init in ("normal", "conv"):
+            fan_in = p.shape[0] if len(p.shape) == 1 else math.prod(
+                p.shape[:-1])
+            t = torch.empty(p.shape, dtype=DTYPES[p.dtype], device=device)
+            normal(t, 0.2 if p.init == "conv" else 1.0 / math.sqrt(
+                max(1, fan_in)))
+        else:
+            raise ValueError(f"draw_params: no draw for init kind "
+                             f"{p.init!r}")
+        return t.to(DTYPES[p.dtype])
+
+    return tree_map(draw, param_specs(cfg))
+
+
 # --------------------------------------------------------------------------
 # cache specs (decode)
 

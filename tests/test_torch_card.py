@@ -820,6 +820,106 @@ def test_flash_decode_long_span_keeps_the_merge_kernel(card):
     assert form_launches()["decode"] == 1
 
 
+def _card_randn(gen, shape, dtype):
+    """normal(0, 1) drawn on the card (numpy draws about 30 M normals a
+    second: a minute for a 32k cache of 128 sequences)."""
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# gemma3-1b's decode at the shape cells' spans (launch/cells.py): (B,
+# keys, splits): decode_32k's global layers at B 64 (full caches) and
+# B 128 (rolling window caches), a local layer's 512-slot rolling cache at
+# B 128, long_500k's global layers at B 1
+CELL_DECODES = [(64, 32768, 3), (128, 32768, 2), (128, 512, 2),
+                (1, 524288, 132)]
+
+
+@pytest.mark.parametrize("B,keys,nsplit", CELL_DECODES)
+def test_flash_decode_at_the_cells_spans(card, B, keys, nsplit):
+    """K4's bf16 decode (H 4, Hkv 1, D 256) over the cells' spans: the
+    split decode_split picks, exactly the kernels decode_kernel names (the
+    cluster kernel up to 8 splits, the split and merge kernels at 132),
+    within 3e-2 of the plain version and within 1e-2 of its largest
+    magnitude (``launch.cells.k4_limit``: the outputs spread about
+    sqrt(e / keys), below 3e-2), one counted launch.  The same kernels
+    over only the first half of the splits' chunks (at 3 splits, two of
+    them), which is what a merge that lost the other partials returns,
+    fail that hold."""
+    from repro_torch.kernels.flash.ops import decode_launch
+    from repro_torch.launch.cells import k4_limit
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(B + keys)
+    q = _card_randn(gen, (B, 1, 4, 256), torch.bfloat16)
+    k, v = (_card_randn(gen, (B, keys, 1, 256), torch.bfloat16)
+            for _ in range(2))
+    assert decode_split(keys, B)[1] == nsplit
+    kern = decode_kernel(torch.bfloat16, 4, nsplit)
+    want = attention_ref(q, k, v, causal=False)
+    limit = k4_limit(want, 3e-2)
+    err = (flash_decode(q, k, v).float() - want).abs().max().item()
+    assert err <= limit, (err, limit)
+    kc, keep = decode_split(keys, B)[0], nsplit - max(1, nsplit // 2)
+    lost = decode_launch(q, k[:, :keep * kc], v[:, :keep * kc], kc, keep)
+    assert (lost.float() - want).abs().max().item() > limit
+    assert _decode_kernels(lambda: flash_decode(q, k, v)) == (
+        ["decode_merge", "decode_split"] if kern == "decode_split"
+        else [kern])
+    registry.reset_launch_counts()
+    flash_decode(q, k, v)
+    assert form_launches()["decode"] == 1
+
+
+@pytest.mark.parametrize("window", [512, None])
+@pytest.mark.parametrize("dtype,atol,B", [(torch.bfloat16, 3e-2, 2),
+                                          (torch.float32, 2e-5, 1)])
+def test_flash_prefill_at_32k_on_row_windows(card, window, dtype, atol, B):
+    """gemma3-1b's prefill at prefill_32k's S 32768 (H 4, Hkv 1, D 256),
+    window 512 and causal, in bf16 (the wgmma form, its work list in
+    chunks: K and V pass half the L2) and f32 (the SIMT form): one launch
+    of the form, its first, middle and last 1024 rows against the plain
+    version on those rows alone (launch.cells.plain_rows; the whole score
+    matrix would be 17 GB a sequence), each within ``atol`` and within
+    1e-2 of the plain rows' largest magnitude (``launch.cells.k4_limit``:
+    past the first rows the outputs fall far below bf16's 3e-2)."""
+    from repro_torch.kernels.flash.ops import wgmma_chunk, wgmma_grid
+    from repro_torch.launch.cells import k4_limit, plain_rows
+    S = 32768
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(S + (window or 0))
+    q = _card_randn(gen, (B, S, 4, 256), dtype)
+    k, v = (_card_randn(gen, (B, S, 1, 256), dtype) for _ in range(2))
+    if dtype == torch.bfloat16:
+        assert wgmma_chunk(B, 4, 1, S, S, 256, 256) == \
+            2 * wgmma_grid(B, 4, S)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    form = prefill_form(dtype, 256, 256)
+    assert form_launches() == {f: int(f == form) for f in form_launches()}
+    for lo in (0, S // 2 - 512, S - 1024):
+        want = plain_rows(q, k, v, lo, lo + 1024, causal=True,
+                          window=window)
+        err = (out[:, lo:lo + 1024].float() - want).abs().max().item()
+        assert err <= k4_limit(want, atol), (lo, err)
+
+
+@pytest.mark.parametrize("window", [512, None])
+def test_flash_prefill_lse_at_train_4k(card, window):
+    """The wgmma form with its row log-sum-exp at train_4k's 4 x 4096
+    (gemma3-1b's heads, bf16), the training path's call: out within 3e-2
+    and the lse within 1e-4 of the plain version's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4096 + (window or 0))
+    q = _card_randn(gen, (4, 4096, 4, 256), torch.bfloat16)
+    k, v = (_card_randn(gen, (4, 4096, 1, 256), torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, window=window,
+                               return_lse=True)
+    want, want_lse = attention_ref(q, k, v, causal=True, window=window,
+                                   return_lse=True)
+    assert (out.float() - want).abs().max().item() <= 3e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert form_launches()["prefill_wgmma"] == 1
+
+
 def test_flash_decode_misaligned_raises(card):
     """A decode operand whose rows the 16-byte loads cannot take raises
     and launches nothing: no other form runs in its place."""
